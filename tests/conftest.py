@@ -46,6 +46,9 @@ def pytest_configure(config):
         "markers",
         "chaos: deep fault-injection sweeps (nightly profile; "
         "needs --runslow)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,78 @@
+"""Structural rules of the port (src/repro_torch and chip_smoke.py):
+it imports neither JAX nor the reference package, every kernel package
+ships a plain torch ref.py and is named in a parity test, and its entry
+points run on the card unless the caller asks for the CPU."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import clht as tc  # noqa: E402
+from repro_torch.core import log as tl  # noqa: E402
+from repro_torch import device, state  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_port_imports_no_jax_and_no_reference(path):
+    assert path.exists()
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_every_kernel_package_has_ref_and_parity_test():
+    kernels = sorted(p for p in (PORT / "kernels").iterdir()
+                     if p.is_dir() and not p.name.startswith("_"))
+    assert [k.name for k in kernels] == ["clht_probe", "log_merge"]
+    tests = "\n".join(p.read_text()
+                      for p in (REPO / "tests").glob("test_torch_*.py"))
+    for k in kernels:
+        assert (k / "ref.py").exists(), f"{k.name} has no ref.py"
+        assert f"repro_torch.kernels import {k.name}" in tests, \
+            f"{k.name} is named in no parity test"
+    sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
+    assert sources == ["clht_insert.cu", "clht_probe.cu", "log_merge.cu"]
+
+
+@pytest.mark.parametrize("entry", [
+    lambda: tc.clht_init(8),
+    lambda: tl.segment_init(8),
+    lambda: tl.heap_init(8, 4),
+    lambda: state.from_jax_arrays(heap={"data": [[1]], "head": 0}),
+    lambda: device.resolve_device(),
+    lambda: device.resolve_device("cuda"),
+])
+def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+    assert device.resolve_device("cpu").type == "cpu"
+
+
+def test_wrappers_refuse_mixed_devices():
+    with pytest.raises(ValueError, match="mixed"):
+        device.on_cuda(torch.zeros(1), torch.zeros(1, device="meta"))
+
+
+def test_no_env_switch_in_the_port():
+    for path in PORT_FILES:
+        text = path.read_text()
+        assert "os.environ" not in text and "getenv" not in text, path
