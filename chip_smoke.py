@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DPM data plane on one NVIDIA H100.
+"""Drive the PyTorch port's two paths on one NVIDIA H100: the DPM data
+plane and the paged LLM serving path.
 
 Run from the repository root with no arguments:
 
@@ -19,7 +20,21 @@ CLHT index, log segment and value heap:
   read-back  every key written while serving, through lookup (its
              pointer) and kvs_lookup (its value row)
 
-and times each kernel at the shapes the serving path gives it. Every
+and times each kernel at the shapes the serving path gives it. Then it
+runs qwen1.5-0.5b at its published widths (24 layers, d_model 1024, 16
+heads, vocab 151,936; random bf16 weights from a seeded generator):
+
+  prefill      build_model(CONFIG).prefill of 4 prompts x 2048 tokens
+               (flash_attention, 24 launches a call)
+  serve        PagedServer(cfg=CONFIG): 8 requests of 256-token prompts
+               sharing a 128-token prefix, a worker added after the
+               fourth (logits unchanged), 64 greedy decode steps each
+               (paged_decode_attention per page owner)
+  equivalence  the server's logits for a 256-token prompt (token by token
+               through paged_decode_attention) against prefill's
+               (flash_attention)
+
+and times both attention kernels at the main path's shapes. Every
 failure raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 Without a card, or without the repository beside it, it exits non-zero
@@ -28,6 +43,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -40,11 +56,19 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import clht, log  # noqa: E402
 from repro_torch.data import Workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import clht_probe as probe  # noqa: E402
+from repro_torch.kernels import decode_attention as decode  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import log_merge as merge  # noqa: E402
+from repro_torch.kvcache.paged_store import decode_over_owners  # noqa: E402
+from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch.serve import PagedServer  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
 
 KEYS_LOG2 = 25              # the paper's 32 GB of 1 KB values
 WIDTH = 256                 # int32 lanes per value row = 1 KB
@@ -54,6 +78,29 @@ BATCHES = 8                 # served batches per mix
 REPS = 20                   # timed runs per kernel
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
+F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
+SPIN_CYCLES = 2_000_000     # about 1 ms of device spin before a timed call
+
+DPM_KERNELS = ("clht_probe", "kvs_lookup_fused", "log_merge_sorted",
+               "clht_insert")
+ARCH = "qwen1.5-0.5b"
+PREFILL_B, PREFILL_S, PREFILL_REPS = 4, 2048, 3
+SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 8, 256, 128, 64
+PAGE_SIZE, NUM_PAGES = 8, 4096
+RECONFIG_AFTER = 4          # requests admitted before w2 joins
+DECODE_B, DECODE_CTX = 64, 2048     # kernel 6 at a batched decode shape
+# stated tolerances (atol = rtol), see tests/test_torch_cuda.py
+TOL = {torch.float32: {"flash_attention": 3e-5,
+                       "paged_decode_attention": 2e-5},
+       torch.bfloat16: {"flash_attention": 2.5e-2,
+                        "paged_decode_attention": 3e-2}}
+# max |diff| / max |logit| between two paths of the model (server vs
+# prefill, before vs after a worker joins), the bar of
+# tests/test_serve_equivalence.py: where the two paths round one bf16
+# attention element differently, 24 random layers carry the flip to
+# about 1e-2 (the reconfig phase measures this witness in every run)
+LOGIT_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -88,6 +135,66 @@ def max_abs_err(pairs) -> int:
     return worst
 
 
+def close_err(pairs, tol: float) -> float:
+    """Largest |kernel - plain| over matching float outputs; raises where
+    an element is outside atol = rtol = ``tol`` or not finite."""
+    worst = 0.0
+    for name, got, ref in pairs:
+        if got.shape != ref.shape:
+            raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                                 f"{tuple(ref.shape)}")
+        got, ref = got.float(), ref.float()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        diff = (got - ref).abs()
+        bad = int((diff > tol + tol * ref.abs()).sum())
+        err = float(diff.max()) if diff.numel() else 0.0
+        if bad:
+            raise AssertionError(f"{name}: {bad} elements outside atol = "
+                                 f"rtol = {tol} (max |diff| {err})")
+        worst = max(worst, err)
+    return worst
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def paged_case(g, b, p, npages, ps):
+    """Random page tables as tests/test_kernels.py builds them: each
+    sequence uses 1..p distinct pages, the rest of its slots are -1, and
+    its length ends inside its last page. Returns numpy int32 arrays."""
+    pt = np.full((b, p), -1, np.int32)
+    pos = np.zeros((b, p), np.int32)
+    lens = np.zeros((b,), np.int32)
+    for bi in range(b):
+        used = g.integers(1, p + 1)
+        pt[bi, :used] = g.choice(npages, used, replace=False)
+        pos[bi, :used] = np.arange(used) * ps
+        lens[bi] = (used - 1) * ps + g.integers(1, ps + 1)
+    return pt, pos, lens
+
+
+def device_summary(prof, wall: float) -> dict:
+    """Device time by kernel from a torch.profiler run, and the device's
+    busy share of ``wall`` seconds."""
+    kernels: dict[str, list] = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            k = kernels.setdefault(e.name[:60], [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(ms for _, ms in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (wall * 1e3),
+            "launches": sum(c for c, _ in kernels.values()),
+            "top": [{"name": name, "calls": c, "device_ms": ms}
+                    for name, (c, ms) in top]}
+
+
 def synced(fn, *args):
     """(fn(*args), seconds on the host clock), synchronized on both
     sides so the device work is inside."""
@@ -101,12 +208,15 @@ def synced(fn, *args):
 def event_ms(fn, reps: int, setup=None):
     """(mean device ms of ``fn(*setup())`` over ``reps`` runs, the last
     run's output), from CUDA events around each call (``setup`` runs
-    outside the timed region)."""
+    outside the timed region). Each call is queued behind about 1 ms of
+    device spin, so the events time the device's work and not the
+    host's launching of it."""
     total = 0.0
     for _ in range(reps):
         args = setup() if setup else ()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         out = fn(*args)
         stop.record()
@@ -115,10 +225,44 @@ def event_ms(fn, reps: int, setup=None):
     return total / reps, out
 
 
+@contextlib.contextmanager
+def recorded(module, name: str, replace=None):
+    """Record the calls of ``module.name`` made inside the block, as a
+    list of (positional args, output); ``replace`` maps a call's index to the
+    output returned in place of the real one."""
+    fn = getattr(module, name)
+    calls = []
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, out))
+        return (replace or {}).get(len(calls) - 1, out)
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside the block (checks of the main path, not the
+    main path) leave the launch counts as they were."""
+    saved = dict(_build.launches)
+    try:
+        yield
+    finally:
+        _build.launches.update(saved)
+
+
 class Smoke:
     def __init__(self):
         self.dev = torch.device("cuda")
         self.errors: dict[str, int] = {}
+        # kernel vs plain on every launch of one main-path call (prefill,
+        # a decode step)
+        self.path_err: dict[str, float] = {}
 
     def clone_table(self, t):
         return clht.CLHT(lines=t.lines.clone(),
@@ -383,8 +527,8 @@ class Smoke:
               "heap_head": heap.head, "heap_capacity": heap_rows,
               "last_fit": True,
               "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30})
-        emit({"launches": counts})
-        missing = [k for k, v in counts.items() if v == 0]
+        emit({"launches": {k: counts[k] for k in DPM_KERNELS}})
+        missing = [k for k in DPM_KERNELS if counts[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched: {missing}")
         self.counts = counts
@@ -402,7 +546,6 @@ class Smoke:
         plain run (each on a fresh copy of that state) are held against
         each other, and that comparison is the kernel's max_abs_err."""
         table, heap, dev = st["table"], st["heap"], self.dev
-        mbytes = lambda b: b / HBM_BYTES_PER_S * 1e3   # noqa: E731
 
         # A and B on one served read batch against the full table
         kd = torch.from_numpy(st["read_keys"].astype(np.int32)).to(dev)
@@ -483,9 +626,6 @@ class Smoke:
             lambda t: insert_outs(clht.clht_insert_plain(t, dk, dp)), None,
             d_bytes, max(2, REPS // 4), setup=copy, plain_reps=1,
             extra={"entries": k, "lines_walked": probes}))
-        for row in out:
-            row["bound_ms"] = mbytes(row.pop("bytes"))
-            row["bound_by"] = "bytes"
         return out
 
     def profile(self, st) -> None:
@@ -507,36 +647,414 @@ class Smoke:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall = synced(batch)
-        kernels: dict[str, list] = {}
-        for e in prof.events():
-            if str(e.device_type).endswith("CUDA"):
-                k = kernels.setdefault(e.name[:60], [0, 0.0])
-                k[0] += 1
-                k[1] += e.time_range.elapsed_us() / 1e3
-        busy_ms = sum(ms for _, ms in kernels.values())
-        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
-        emit({"profile": "write_heavy_update batch", "wall_ms": wall * 1e3,
-              "device_busy_ms": busy_ms,
-              "device_busy_share": busy_ms / (wall * 1e3),
-              "top": [{"name": name, "calls": c, "device_ms": ms}
-                      for name, (c, ms) in top]})
+        emit({"profile": "write_heavy_update batch",
+              **device_summary(prof, wall)})
+
+    # --------------------------------------------------- 8. check 5 and 6
+    def check_attention(self) -> None:
+        """Kernels 5 and 6 against their plain versions at the sweep
+        shapes of tests/test_kernels.py (causal only at Sq == Sk; GQA,
+        f32 and bf16, slots with page id -1 or past the length), and the
+        ownership split/merge invariance."""
+        dev = self.dev
+        g = np.random.default_rng(SEED)
+
+        def rand(shape, dtype):
+            return torch.from_numpy(g.standard_normal(shape).astype(
+                np.float32)).to(dev, dtype)
+
+        errs = {"flash_attention": 0.0, "paged_decode_attention": 0.0}
+        for b, h, kh, sq, sk, d, causal, dt in [
+                (1, 4, 4, 64, 64, 32, True, torch.float32),
+                (2, 8, 2, 128, 128, 64, True, torch.bfloat16),
+                (1, 4, 1, 32, 128, 32, False, torch.float32),
+                (1, 2, 2, 256, 256, 16, True, torch.float32)]:
+            q, k, v = (rand(shape, dt) for shape in
+                       ((b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d)))
+            err = close_err([("flash_attention.out",
+                              flash.flash_attention(q, k, v, causal=causal),
+                              flash.mha_ref(q, k, v, causal=causal))],
+                            TOL[dt]["flash_attention"])
+            errs["flash_attention"] = max(errs["flash_attention"], err)
+        for b, h, kh, d, ps, npages, p, dt in [
+                (2, 8, 2, 32, 16, 12, 4, torch.float32),
+                (1, 4, 4, 64, 8, 20, 6, torch.float32),
+                (2, 4, 2, 16, 16, 8, 2, torch.bfloat16)]:
+            q, kp, vp = (rand(shape, dt) for shape in
+                         ((b, h, d), (npages, ps, kh, d), (npages, ps, kh, d)))
+            tables = [torch.from_numpy(x).to(dev)
+                      for x in paged_case(g, b, p, npages, ps)]
+            got = decode.paged_decode_attention(q, kp, vp, *tables)
+            ref = decode.paged_decode_ref(q, kp, vp, *tables)
+            err = close_err([(f"paged_decode_attention.{o}", x, y)
+                             for o, x, y in zip("acc m l".split(), got, ref)],
+                            TOL[dt]["paged_decode_attention"])
+            errs["paged_decode_attention"] = max(
+                errs["paged_decode_attention"], err)
+        # any split of the pages across owners merges to the whole
+        b, h, kh, d, ps, npages, p = 2, 4, 2, 16, 8, 16, 6
+        q, kp, vp = (rand(shape, torch.float32) for shape in
+                     ((b, h, d), (npages, ps, kh, d), (npages, ps, kh, d)))
+        pt = torch.tensor([[0, 1, 2, 3, 4, 5], [6, 7, 8, -1, -1, -1]],
+                          dtype=torch.int32, device=dev)
+        pos = torch.tensor([[0, 8, 16, 24, 32, 40], [0, 8, 16, 0, 0, 0]],
+                           dtype=torch.int32, device=dev)
+        lens = torch.tensor([44, 20], dtype=torch.int32, device=dev)
+        whole = decode.normalize(*decode.paged_decode_ref(q, kp, vp, pt, pos,
+                                                          lens))
+        for nsplit in (2, 3):
+            owned = (torch.arange(p, device=dev) % nsplit)[None]
+            parts = [decode.paged_decode_attention(
+                q, kp, vp, torch.where(owned == s, pt, -1), pos, lens)
+                for s in range(nsplit)]
+            errs["split_merge"] = max(errs.get("split_merge", 0.0), close_err(
+                [(f"split_merge.{nsplit}",
+                  decode.normalize(*decode.merge_partials(parts)), whole)],
+                TOL[torch.float32]["paged_decode_attention"]))
+        torch.cuda.synchronize()
+        emit({"attention_kernels_vs_plain": errs})
+
+    # ------------------------------------------------------- 9. prefill
+    def prefill(self) -> None:
+        """qwen1.5-0.5b's prefill at its published widths: B x S tokens
+        through 24 layers, one flash_attention launch per layer."""
+        cfg = get_config(ARCH)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+                               generator=gen, device=self.dev)
+        synced(model.prefill, params, tokens)     # warm-up: cuBLAS, caches
+        torch.cuda.reset_peak_memory_stats()
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        secs = []
+        for _ in range(PREFILL_REPS):
+            (logits, kv), sec = synced(model.prefill, params, tokens)
+            secs.append(sec)
+        launches = _build.launches["flash_attention"]
+        if launches != cfg.num_layers * PREFILL_REPS:
+            raise AssertionError(f"prefill launched flash_attention "
+                                 f"{launches} times, not one per layer")
+        kv_shape = (cfg.num_layers, PREFILL_B, PREFILL_S, cfg.num_kv_heads,
+                    cfg.hd)
+        if tuple(logits.shape) != (PREFILL_B, cfg.vocab_size) or \
+                logits.dtype != torch.float32 or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("prefill: logits of the wrong shape, type "
+                                 "or not finite")
+        for name in ("k", "v"):
+            if tuple(kv[name].shape) != kv_shape or \
+                    not bool(torch.isfinite(kv[name]).all()):
+                raise AssertionError(f"prefill: {name} cache wrong or not "
+                                     "finite")
+        self.counts["flash_attention"] = launches
+        # kernel 5 on the inputs prefill gives it: every layer's q, k, v
+        # in model layout (B, S, H, D), read through transposed strides
+        with uncounted(), recorded(transformer, "attention") as calls:
+            model.prefill(params, tokens)
+        tol = TOL[torch.bfloat16]["flash_attention"]
+        self.path_err["flash_attention"] = max(close_err(
+            [(f"flash_attention.layer{li}", out, flash.mha_ref(
+                *(t.transpose(1, 2) for t in args)).transpose(1, 2))],
+            tol) for li, (args, out) in enumerate(calls))
+        self.prefill_qkv = calls[0][0]
+        del calls
+        sec = sorted(secs)[len(secs) // 2]
+        emit({"phase": "prefill", "arch": ARCH, "params": cfg.param_count(),
+              "init_s": init_s, "batch": PREFILL_B, "seq": PREFILL_S,
+              "seconds": secs, "tokens_per_s": PREFILL_B * PREFILL_S / sec,
+              "flash_attention_launches": launches,
+              "launches_per_call": launches // PREFILL_REPS,
+              "flash_attention_vs_plain": self.path_err["flash_attention"],
+              "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    # --------------------------------------------------------- 10. serve
+    def serve_paged(self) -> PagedServer:
+        """PagedServer at qwen1.5-0.5b's widths: 8 prompts sharing a
+        prefix, a worker added mid-flight, greedy decode."""
+        cfg = get_config(ARCH)
+        srv = PagedServer(cfg=cfg, page_size=PAGE_SIZE, num_pages=NUM_PAGES,
+                          workers=("w0", "w1"), seed=SEED)
+        g = np.random.default_rng(SEED)
+        shared = g.integers(0, cfg.vocab_size, SHARED).tolist()
+        prompts = [shared + g.integers(0, cfg.vocab_size,
+                                       PROMPT - SHARED).tolist()
+                   for _ in range(SERVE_REQUESTS)]
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        sids, admit_s, decode_s = [], 0.0, 0.0
+        for r, prompt in enumerate(prompts):
+            (sid, logits), sec = synced(srv.admit, prompt)
+            admit_s += sec
+            sids.append(sid)
+            if logits is None or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"request {r}: no finite logits")
+            if r + 1 == RECONFIG_AFTER:
+                with uncounted():
+                    reconfig = self.reconfigure(srv, sids[0])
+        admitted = srv.stats["tokens"]
+        decoded = []
+        for sid in sids:
+            out, sec = synced(srv.decode, sid, DECODE_STEPS)
+            decode_s += sec
+            decoded.append(out)
+        counts = dict(_build.launches)
+        if srv.stats["prefix_hits"] != SERVE_REQUESTS - 1:
+            raise AssertionError(f"prefix hits {srv.stats['prefix_hits']}, "
+                                 f"expected {SERVE_REQUESTS - 1}")
+        if counts["paged_decode_attention"] == 0:
+            raise AssertionError("the server never launched "
+                                 "paged_decode_attention")
+        if any(srv.ctl.sequences[s].length != PROMPT + DECODE_STEPS
+               for s in sids) or any(not 0 <= t < cfg.vocab_size
+                                     for out in decoded for t in out):
+            raise AssertionError("a sequence has the wrong length or token")
+        self.counts["paged_decode_attention"] = counts[
+            "paged_decode_attention"]
+        total = srv.stats["tokens"]
+        emit({"phase": "serve", "arch": ARCH, "requests": SERVE_REQUESTS,
+              "prompt": PROMPT, "shared_prefix": SHARED,
+              "decode_steps": DECODE_STEPS, **srv.stats,
+              "admit_tokens": admitted, "admit_s": admit_s,
+              "decode_tokens": total - admitted, "decode_s": decode_s,
+              "tokens_per_s": total / (admit_s + decode_s),
+              "decode_tokens_per_s": (total - admitted) / decode_s,
+              "reconfig": reconfig, "workers": srv.ctl.workers,
+              "local_copy_ratio": {w: srv.ctl.local_copy_ratio(w)
+                                   for w in srv.ctl.workers},
+              "pages_used": NUM_PAGES - len(srv.ctl.free),
+              "launches": {k: counts[k] for k in
+                           ("flash_attention", "paged_decode_attention")}})
+        # kernel 6 on the inputs the server gives it: one more decode
+        # step of the last request, every owner's launch in every layer
+        # held against the plain version
+        with uncounted(), recorded(serve_mod,
+                                   "paged_decode_partial") as calls:
+            srv.decode(sids[-1], 1)
+        self.path_err["paged_decode_attention"] = close_err(
+            [(f"paged_decode_attention.step{i}.{o}", x, y)
+             for i, (args, out) in enumerate(calls)
+             for o, x, y in zip("acc m l".split(), out,
+                                decode.paged_decode_ref(*args))],
+            TOL[torch.float32]["paged_decode_attention"])
+        # the launch with the most valid pages is the one timed
+        self.decode_args = max(
+            calls, key=lambda c: int((c[0][3] >= 0).sum()))[0]
+        emit({"check": "paged_decode_attention on one decode step",
+              "launches": len(calls), "slots": self.decode_args[3].shape[1],
+              "max_abs_err": self.path_err["paged_decode_attention"]})
+        return srv
+
+    def reconfigure(self, srv: PagedServer, sid: int) -> dict:
+        """Add w2 mid-flight. Every layer's decode_over_owners call in
+        logits_for_next is recorded before and after the join.
+
+        Where ownership acts: with the server's own q of each layer, the
+        f32 attention merged over the owners before the join is held
+        against the one after (2e-5, the decode kernel's f32 bar: only
+        the merge order changed). The logits stay within LOGIT_TOL. The
+        witness for that bar: the first layer whose bf16 attention
+        differs across the join, how many elements differ there, and the
+        logit shift those elements cause alone (the after-join pass run
+        again with that layer's output swapped for its before-join
+        value, so nothing else differs)."""
+        with recorded(serve_mod, "decode_over_owners") as calls0:
+            before = srv.logits_for_next(sid)
+        srv.reconfigure(add="w2")
+        with recorded(serve_mod, "decode_over_owners") as calls1:
+            after = srv.logits_for_next(sid)
+
+        def merged_f32(args, tables):
+            q, pool, li, _, lengths = args
+            return decode_over_owners(q.float(), pool, li, tables, lengths)
+
+        att_err = close_err(
+            [(f"reconfig.attention.{li}", merged_f32(a0, a1[3]),
+              merged_f32(a0, a0[3]))
+             for li, ((a0, _), (a1, _)) in enumerate(zip(calls0, calls1))],
+            TOL[torch.float32]["paged_decode_attention"])
+        flips = [int((o0 != o1).sum())
+                 for (_, o0), (_, o1) in zip(calls0, calls1)]
+        first = next((li for li, n in enumerate(flips) if n), None)
+        out = {"attention_max_abs_diff": att_err,
+               "logits_rel_diff": rel_diff(after, before),
+               "top1_same": int(after.argmax()) == int(before.argmax()),
+               "first_layer_differing": first,
+               "bf16_elements_differing": flips[first] if first is not None
+               else 0}
+        if first is not None:
+            with recorded(serve_mod, "decode_over_owners",
+                          replace={first: calls0[first][1]}):
+                swapped = srv.logits_for_next(sid)
+            out["logits_shift_from_that_layer_alone"] = rel_diff(swapped,
+                                                                 after)
+            out["logits_rel_diff_left_after_undoing_it"] = rel_diff(swapped,
+                                                                    before)
+        if out["logits_rel_diff"] > LOGIT_TOL:
+            raise AssertionError(f"reconfiguration moved the logits by "
+                                 f"{out['logits_rel_diff']} of max |logit|")
+        return out
+
+    # --------------------------------------------------- 11. equivalence
+    def equivalence(self, srv: PagedServer) -> None:
+        """One 256-token prompt through the server (token by token,
+        kernel 6) against prefill's last-token logits (kernel 5)."""
+        g = np.random.default_rng(SEED + 1)
+        prompt = g.integers(0, srv.cfg.vocab_size, PROMPT).tolist()
+        hits = srv.stats["prefix_hits"]
+        _, paged = srv.admit(prompt)
+        if srv.stats["prefix_hits"] != hits:
+            raise AssertionError("the equivalence prompt hit the prefix "
+                                 "cache")
+        dense, _ = srv.model.prefill(
+            srv.params, torch.tensor([prompt], device=self.dev))
+        rel = rel_diff(paged, dense[0])
+        same = int(paged.argmax()) == int(dense[0].argmax())
+        emit({"phase": "equivalence", "tokens": PROMPT,
+              "max_abs_diff": float((paged - dense[0]).abs().max()),
+              "max_abs_logit": float(dense[0].abs().max()),
+              "rel_diff": rel, "tolerance": LOGIT_TOL, "top1_same": same})
+        if rel > LOGIT_TOL:
+            raise AssertionError(f"server and prefill logits differ by "
+                                 f"{rel} of max |logit|")
+
+    def profile_decode(self, srv: PagedServer) -> None:
+        """torch.profiler over one decode step of one served sequence."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = synced(srv.decode, 0, 1)
+        emit({"profile": "one decode step (24 layers)",
+              **device_summary(prof, wall)})
+
+    # ---------------------------------------------------- 12. time 5, 6
+    def time_attention(self) -> list[dict]:
+        """Kernels 5 and 6 on inputs the main path gave them (layer 0 of
+        a prefill call; the decode step's launch with the most pages)
+        against their plain versions; the last runs of each are held
+        against each other. Then kernel 6 at a batched decode shape,
+        which the server does not form (it decodes one sequence at a
+        time), on a line of its own."""
+        cfg = get_config(ARCH)
+        dev = self.dev
+        q, k, v = self.prefill_qkv           # (B, S, H, D), strided views
+        b, s, h, d = q.shape
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rows = [self._timed(
+            "flash_attention", "flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:81",
+            ("out",), lambda: (flash.attention(q, k, v, causal=True),),
+            lambda: (flash.mha_ref(qt, kt, vt).transpose(1, 2),),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True),
+            4 * q.numel() * q.element_size(), REPS, plain_reps=3,
+            # the scores and P.V over the keys each query sees: 2 x 2D
+            # per pair
+            flops=2 * b * h * d * s * (s + 1), peak=BF16_FLOPS,
+            extra={"shape": [b, s, h, d]},
+            compare=lambda pairs: close_err(
+                pairs, TOL[torch.bfloat16]["flash_attention"]))]
+
+        # kernel 6 as the server calls it: one sequence, one owner's
+        # table with -1 tails, over one layer of the f32 pool. No single
+        # torch call returns the partials, so library_ms is null.
+        qd, kp, vp, pt, pos, lens = self.decode_args
+        kh, ps = kp.shape[2], kp.shape[1]
+        rows_valid = ((pos[:, :, None] + torch.arange(ps, device=dev))
+                      < lens[:, None, None]) & (pt >= 0)[:, :, None]
+        tokens = int(rows_valid.sum())
+        rows.append(self._timed(
+            "paged_decode_attention", "paged_decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:85",
+            ("acc", "m", "l"),
+            lambda: decode.paged_decode_attention(qd, kp, vp, pt, pos, lens),
+            lambda: decode.paged_decode_ref(qd, kp, vp, pt, pos, lens),
+            None, self._decode_bytes(qd, kp, pt, tokens), REPS,
+            flops=4 * tokens * h * d, peak=F32_FLOPS,
+            extra={"sequences": qd.shape[0], "slots": pt.shape[1],
+                   "pages": int((pt >= 0).sum()), "tokens": tokens},
+            compare=lambda pairs: close_err(
+                pairs, TOL[torch.float32]["paged_decode_attention"])))
+        for row in rows:
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     self.path_err[row["name"]])
+
+        # a batched decode step: DECODE_B sequences of DECODE_CTX tokens,
+        # each over its own pages, f32 pages as on the server
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        kh = cfg.num_kv_heads
+        slots = DECODE_CTX // PAGE_SIZE
+        npages = DECODE_B * slots
+        kp, vp = (torch.randn((npages, PAGE_SIZE, kh, d), generator=gen,
+                              device=dev) for _ in range(2))
+        qd = torch.randn((DECODE_B, h, d), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        pt = torch.randperm(npages, generator=gen, device=dev).to(
+            torch.int32).reshape(DECODE_B, slots)
+        pos = (torch.arange(slots, dtype=torch.int32, device=dev)
+               * PAGE_SIZE).expand(DECODE_B, slots).contiguous()
+        lens = torch.full((DECODE_B,), DECODE_CTX, dtype=torch.int32,
+                          device=dev)
+        tokens = int(lens.sum())
+        batch = self._timed(
+            "paged_decode_attention", "paged_decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:85",
+            ("acc", "m", "l"),
+            lambda: decode.paged_decode_attention(qd, kp, vp, pt, pos, lens),
+            lambda: decode.paged_decode_ref(qd, kp, vp, pt, pos, lens),
+            None, self._decode_bytes(qd, kp, pt, tokens), REPS, plain_reps=2,
+            flops=4 * tokens * h * d, peak=F32_FLOPS,
+            extra={"batched_decode": "not a shape the server forms",
+                   "sequences": DECODE_B, "context": DECODE_CTX,
+                   "pages": npages, "page_bytes": int(kp.nbytes + vp.nbytes)},
+            compare=lambda pairs: close_err(
+                pairs, TOL[torch.float32]["paged_decode_attention"]))
+        emit({"batched_decode_bound_ms": batch["bound_ms"],
+              "bound_by": batch["bound_by"]})
+        return rows
+
+    @staticmethod
+    def _decode_bytes(q, pages, table, tokens: int) -> int:
+        """Kernel 6's bytes: each valid token's K and V row, q, the page
+        table and positions, the lengths, and the partials written."""
+        b, h, d = q.shape
+        return (2 * tokens * pages.shape[2] * d * pages.element_size()
+                + q.numel() * q.element_size() + 2 * table.numel() * 4
+                + b * 4 + b * h * (d + 2) * 4)
 
     def _timed(self, name, source, replaces, outs, fn, plain, library,
-               nbytes, reps, setup=None, plain_reps=None, extra=None):
+               nbytes, reps, setup=None, plain_reps=None, extra=None,
+               compare=max_abs_err, flops=0, peak=1.0):
+        """One row of the kernels line: device ms of the kernel, its
+        plain version and the library call, the kernel held against the
+        plain version, and the bound: the larger of ``nbytes`` at the
+        memory rate and ``flops`` at ``peak``."""
         ms, got = event_ms(fn, reps, setup)
         plain_ms, ref = event_ms(plain, plain_reps or max(1, reps // 4),
                                  setup)
-        err = max_abs_err([(f"{name}.{o}", a, b)
-                           for o, a, b in zip(outs, got, ref, strict=True)])
+        err = compare([(f"{name}.{o}", a, b)
+                       for o, a, b in zip(outs, got, ref, strict=True)])
         del got, ref
-        lib_ms = event_ms(library, reps)[0] if library else None
+        lib_ms = None
+        if library:
+            library()        # warm-up: library calls pick and plan kernels
+            lib_ms = event_ms(library, reps)[0]
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = flops / peak * 1e3
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/csrc/{source}",
                "replaces": replaces, "launches": self.counts[name],
-               "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bytes": nbytes, "library_ms": lib_ms}
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "library_ms": lib_ms}
         emit({"timing": name, "ms": ms, "plain_ms": plain_ms,
-              "library_ms": lib_ms, "max_abs_err": err, **(extra or {})})
+              "library_ms": lib_ms, "bound_ms": row["bound_ms"],
+              "max_abs_err": err, **(extra or {})})
         return row
 
 
@@ -549,9 +1067,18 @@ def main() -> int:
     smoke.environment()
     smoke.build_kernels()
     smoke.check_kernels()
+    smoke.check_attention()
     st = smoke.serve()
     kernels = smoke.time_kernels(st)
     smoke.profile(st)
+    del st
+    torch.cuda.empty_cache()
+    smoke.prefill()
+    srv = smoke.serve_paged()
+    kernels += smoke.time_attention()
+    smoke.profile_decode(srv)
+    smoke.equivalence(srv)
+    del srv
     emit({"total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

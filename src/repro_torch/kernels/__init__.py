@@ -1,6 +1,7 @@
-# Hand-written CUDA kernels for the DPM data plane (csrc/*.cu, built by
-# _build.py), each behind a torch wrapper with a plain torch version in
-# the package's ref.py:
-#   clht_probe  index probe (kernel A) and probe + value gather (kernel B)
-#   log_merge   in-order merge of log entries into bucket lines (kernel C)
+# Hand-written CUDA kernels (csrc/*.cu, built by _build.py), each behind a
+# torch wrapper with a plain torch version in the package's ref.py:
+#   clht_probe        index probe (kernel A) and probe + value gather (B)
+#   log_merge         in-order merge of log entries into bucket lines (C)
+#   flash_attention   prefill attention (kernel 5)
+#   decode_attention  paged decode attention partials (kernel 6)
 # The sequential insert (kernel D) sits behind core.clht.clht_insert.

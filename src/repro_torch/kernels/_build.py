@@ -7,8 +7,9 @@ the sources and flags, so a later process reuses it). The library is
 loaded with ctypes; every pointer and the stream go as ``c_void_p``.
 Any failure raises: there is no fallback.
 
-``launches`` counts the launches of each kernel and ``work`` the keys or
-entries handed to it; ``launch`` is the only place that adds to them.
+``launches`` counts the launches of each kernel and ``work`` the keys,
+entries, query rows or sequences handed to it; ``launch`` is the only
+place that adds to them.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+_F = ctypes.c_float
 # C entry point -> argument types; each returns cudaGetLastError()
 SIGNATURES = {
     "clht_probe_launch": (_P, _I, _P, _P, _I, _P, _P, _P),
@@ -37,9 +39,12 @@ SIGNATURES = {
                                 _P),
     "log_merge_sorted_launch": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
     "clht_insert_launch": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+    "flash_attention_launch": (_I, _P, _P, _P, _P, *(_I,) * 18, _F, _I, _P),
+    "paged_decode_attention_launch": (_I, *(_P,) * 6, *(_I,) * 7, _F, _P, _P,
+                                      _P, _P),
 }
 KERNELS = ("clht_probe", "kvs_lookup_fused", "log_merge_sorted",
-           "clht_insert")
+           "clht_insert", "flash_attention", "paged_decode_attention")
 
 launches = dict.fromkeys(KERNELS, 0)
 work = dict.fromkeys(KERNELS, 0)

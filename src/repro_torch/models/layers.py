@@ -1,0 +1,126 @@
+"""Shared model layers: norms, rotary embeddings, attention, MLPs.
+
+Functional, as in the reference: parameters are plain dicts of tensors,
+weights stored (d_in, d_out) so a layer is ``x @ w``; every layer is
+``f(params, x, ...) -> y``. Parameters are bf16; norms, softmax and
+rotary math run in f32, with the reference's casts in the same places.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.flash_attention.ops import attention
+
+PARAM_DTYPE = torch.bfloat16
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=PARAM_DTYPE) -> torch.Tensor:
+    """Glorot-normal (d_in, d_out) weight drawn from ``gen`` on its
+    device, in f32, then cast."""
+    scale = (2.0 / (d_in + d_out)) ** 0.5
+    return (torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                        dtype=torch.float32) * scale).to(dtype)
+
+
+def rmsnorm_init(d: int, device, dtype=PARAM_DTYPE) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5):
+    """Normalised in f32, cast back to x's type, then scaled by w."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, D); positions broadcastable to (..., S). Rotates
+    the two halves of D (not interleaved pairs), in f32."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                    # (D/2,)
+    angles = positions[..., None].float() * freqs             # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                     # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def attn_init(gen: torch.Generator, cfg) -> dict:
+    h, kh, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_model
+    p = {"wq": dense_init(gen, d, h * hd), "wk": dense_init(gen, d, kh * hd),
+         "wv": dense_init(gen, d, kh * hd), "wo": dense_init(gen, h * hd, d)}
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * hd), ("bk", kh * hd), ("bv", kh * hd)):
+            p[name] = torch.zeros((n,), dtype=PARAM_DTYPE, device=gen.device)
+    return p
+
+
+def qkv_proj(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """x: (B, S, d) -> rotated q (B, S, H, D), k (B, S, KH, D), v."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(b, s, kh, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(b, s, kh, hd)
+
+
+def attention_block(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Full-sequence attention (prefill): the flash_attention kernel on
+    the card."""
+    q, k, v = qkv_proj(p, x, cfg, positions)
+    out = attention(q, k, v, causal=causal)
+    b, s, _, _ = out.shape
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def mlp_init(gen: torch.Generator, cfg, d_ff: int | None = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.mlp == "swiglu":
+        return {"wi": dense_init(gen, d, ff), "wg": dense_init(gen, d, ff),
+                "wo": dense_init(gen, ff, d)}
+    return {"wi": dense_init(gen, d, ff), "wo": dense_init(gen, ff, d)}
+
+
+def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The activation runs in f32 on the bf16 products, then casts back
+    to x's type before the down projection."""
+    if cfg.mlp == "swiglu":
+        hidden = torch.nn.functional.silu((x @ p["wg"]).float()) \
+            * (x @ p["wi"]).float()
+    elif cfg.mlp == "squared_relu":
+        hidden = torch.square(torch.relu((x @ p["wi"]).float()))
+    else:
+        hidden = torch.nn.functional.gelu((x @ p["wi"]).float(),
+                                          approximate="tanh")
+    return hidden.to(x.dtype) @ p["wo"]
+
+
+def embed_init(gen: torch.Generator, cfg) -> torch.Tensor:
+    return (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                        device=gen.device, dtype=torch.float32)
+            * 0.02).to(PARAM_DTYPE)
+
+
+def unembed(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Logits in f32."""
+    if cfg.tie_embeddings:
+        return (x @ params["embed"].T).float()
+    return (x @ params["head"]).float()

@@ -1,10 +1,11 @@
-"""Carry DPM state across planes as plain numpy arrays.
+"""Carry state across planes as plain numpy arrays.
 
 ``from_jax_arrays`` builds the port's CLHT / LogSegment / ValueHeap from
 the fields of the reference's dataclasses given as numpy arrays (take
 them with ``np.array(x)``, a writable copy), and ``to_numpy`` gives the
 same fields back, so two planes can start from one state and be compared
-field by field. This module imports no JAX.
+field by field. ``params_from_jax`` carries a model's weights across.
+This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -65,3 +66,54 @@ def to_numpy(obj) -> dict:
     if isinstance(obj, ValueHeap):
         return {"data": np32(obj.data), "head": np.int32(obj.head)}
     raise TypeError(f"not a DPM structure: {type(obj).__name__}")
+
+
+def _bf16(a, dev) -> torch.Tensor:
+    """A bf16 copy of ``a`` on ``dev``: float32 values are rounded (bf16
+    values carried as float32 come back exactly), uint16 arrays are taken
+    as the raw bits of bf16 values."""
+    a = np.asarray(a)
+    if a.dtype == np.uint16:
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                             .copy()).view(torch.bfloat16)
+    elif a.dtype == np.float32:
+        t = torch.from_numpy(np.array(a)).to(torch.bfloat16)
+    else:
+        raise TypeError(f"expected float32 or uint16 arrays, got {a.dtype} "
+                        "(pass np.asarray(x, np.float32) for a bf16 array)")
+    return t.to(dev)
+
+
+def params_from_jax(params: dict, cfg, device=None) -> dict:
+    """The port's parameters on ``device`` from the reference's parameter
+    tree (``models/transformer.py:init_params``) as nested dicts of numpy
+    arrays, each float32 or the uint16 bits of bf16.
+
+    Both layouts keep weights (d_in, d_out) for ``x @ w``. The reference
+    stacks the layers on a leading axis of length ``cfg.num_layers``; the
+    port keeps ``params["layers"]`` as a list of one dict per layer.
+    Every tensor is bf16, as the reference's parameters are."""
+    dev = resolve_device(device)
+
+    def tree(node, pick):
+        if isinstance(node, dict):
+            return {k: tree(v, pick) for k, v in node.items()}
+        return _bf16(pick(np.asarray(node)), dev)
+
+    depth = {np.asarray(a).shape[0] for a in _leaves(params["layers"])}
+    if depth != {cfg.num_layers}:
+        raise ValueError(f"layers stacked {sorted(depth)} deep, config has "
+                         f"{cfg.num_layers}")
+    out = {k: tree(v, lambda a: a) for k, v in params.items()
+           if k != "layers"}
+    out["layers"] = [tree(params["layers"], lambda a, i=i: a[i])
+                     for i in range(cfg.num_layers)]
+    return out
+
+
+def _leaves(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _leaves(v)
+    else:
+        yield node

@@ -130,3 +130,133 @@ def test_wrappers_refuse_bad_inputs(dev):
         tp.clht_probe(table.lines, tc.bucket_of(keys, 8)[::1], keys[::2])
     with pytest.raises(ValueError):
         tp.clht_probe(table.lines[:, :4], tc.bucket_of(keys, 8), keys)
+
+
+# --------------------------------------------------------- attention kernels
+# f32: the kernels and their plain versions compute the same f32 softmax in
+# another order of sums (3e-5 / 2e-5, test_kernels.py's bars); bf16: the
+# flash kernel rounds p to bf16 for P.V and its output to bf16, 2^-8
+# relative (2.5e-2 / 3e-2, test_kernels.py's bf16 bars).
+from repro_torch.kernels import decode_attention as td  # noqa: E402
+from repro_torch.kernels import flash_attention as tf  # noqa: E402
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,causal,dtype", [
+    (1, 4, 4, 64, 64, 32, True, torch.float32),
+    (2, 8, 2, 128, 128, 64, True, torch.bfloat16),
+    (1, 4, 1, 32, 128, 32, False, torch.float32),
+    (1, 2, 2, 256, 256, 16, True, torch.float32),
+    (2, 4, 2, 200, 200, 64, True, torch.bfloat16),   # ragged tiles
+    (1, 4, 4, 64, 64, 32, True, torch.bfloat16),
+    (1, 2, 2, 256, 256, 16, True, torch.bfloat16),
+    (1, 4, 2, 100, 300, 64, False, torch.bfloat16),
+    (1, 16, 16, 2048, 2048, 64, True, torch.bfloat16),
+])
+def test_flash_attention_matches_plain(dev, b, h, kh, sq, sk, d, causal,
+                                       dtype):
+    g = torch.Generator(device=dev).manual_seed(sq)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d)))
+    n0 = _build.launches["flash_attention"]
+    got = tf.flash_attention(q, k, v, causal=causal)
+    assert _build.launches["flash_attention"] == n0 + 1
+    ref = tf.mha_ref(q, k, v, causal=causal)
+    tol = 2.5e-2 if dtype == torch.bfloat16 else 3e-5
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    # model layout through strides, no copy
+    out = tf.attention(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=causal)
+    torch.testing.assert_close(out.transpose(1, 2).float(), got.float(),
+                               atol=0, rtol=0)
+
+
+def test_flash_attention_refuses_unaligned_bf16_rows(dev):
+    q = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="aligned"):
+        tf.flash_attention(q[..., 2:18], q[..., 2:18], q[..., 2:18])
+    with pytest.raises(ValueError, match="head dim"):
+        tf.flash_attention(q, q, q)
+
+
+def paged_case(dev, b, h, kh, d, ps, npages, p, dtype, seed):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, h, d))).to(dev, dtype)
+    kp = torch.from_numpy(rng.standard_normal((npages, ps, kh, d))
+                          ).to(dev, dtype)
+    vp = torch.from_numpy(rng.standard_normal((npages, ps, kh, d))
+                          ).to(dev, dtype)
+    pt = np.full((b, p), -1, np.int32)
+    pos = np.zeros((b, p), np.int32)
+    lens = np.zeros((b,), np.int32)
+    for bi in range(b):
+        used = rng.integers(1, p + 1)
+        pt[bi, :used] = rng.choice(npages, used, replace=False)
+        pos[bi, :used] = np.arange(used) * ps
+        lens[bi] = (used - 1) * ps + rng.integers(1, ps + 1)
+    return q, kp, vp, pt, pos, lens
+
+
+def assert_partials_close(got, ref, tol):
+    acc, m, l = got
+    racc, rm, rl = ref
+    torch.testing.assert_close(acc, racc, atol=tol, rtol=tol)
+    torch.testing.assert_close(l, rl, atol=tol, rtol=tol)
+    torch.testing.assert_close(m, rm, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,h,kh,d,ps,npages,p,dtype", [
+    (2, 8, 2, 32, 16, 12, 4, torch.float32),
+    (1, 4, 4, 64, 8, 20, 6, torch.float32),
+    (2, 4, 2, 16, 16, 8, 2, torch.bfloat16),
+    (3, 16, 16, 64, 8, 300, 40, torch.float32),      # the server's shapes
+    (2, 32, 4, 128, 16, 64, 9, torch.bfloat16),      # GQA group 8
+])
+def test_paged_decode_matches_plain(dev, b, h, kh, d, ps, npages, p, dtype):
+    q, kp, vp, pt, pos, lens = paged_case(dev, b, h, kh, d, ps, npages, p,
+                                          dtype, npages)
+    tables = [torch.from_numpy(x).to(dev) for x in (pt, pos, lens)]
+    for qq in (q, q.to(torch.bfloat16)):       # mixed types: bf16 q
+        n0 = _build.launches["paged_decode_attention"]
+        got = td.paged_decode_attention(qq, kp, vp, *tables)
+        assert _build.launches["paged_decode_attention"] == n0 + 1
+        ref = td.paged_decode_ref(qq, kp, vp, *tables)
+        assert_partials_close(got, ref,
+                              3e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+def test_paged_decode_all_invalid_tables(dev):
+    """Page ids -1, and slots at or past the length, are never read: the
+    partials are exactly (0, -1e30, 0), as the plain version gives."""
+    q, kp, vp, _, _, _ = paged_case(dev, 3, 4, 2, 16, 8, 6, 3,
+                                    torch.float32, 1)
+    pt = torch.tensor([[-1, -1, -1], [2, 3, -1], [4, 5, 1]],
+                      dtype=torch.int32, device=dev)
+    pos = torch.tensor([[0, 8, 16], [8, 16, 0], [0, 8, 16]],
+                       dtype=torch.int32, device=dev)
+    lens = torch.tensor([5, 8, 0], dtype=torch.int32, device=dev)
+    kp[...] = float("nan")                      # any read would show
+    got = td.paged_decode_attention(q, kp, vp, pt, pos, lens)
+    ref = td.paged_decode_ref(q, kp.nan_to_num(0.0), vp, pt, pos, lens)
+    for x, y in zip(got, ref):
+        assert torch.equal(x, y)
+    assert float(got[1].max()) == np.float32(-1e30)
+
+
+def test_paged_decode_split_merge_invariance(dev):
+    b, h, kh, d, ps, npages, p = 2, 4, 2, 16, 8, 16, 6
+    q, kp, vp, _, _, _ = paged_case(dev, b, h, kh, d, ps, npages, p,
+                                    torch.float32, 2)
+    pt = torch.tensor([[0, 1, 2, 3, 4, 5], [6, 7, 8, -1, -1, -1]],
+                      dtype=torch.int32, device=dev)
+    pos = torch.tensor([[0, 8, 16, 24, 32, 40], [0, 8, 16, 0, 0, 0]],
+                       dtype=torch.int32, device=dev)
+    lens = torch.tensor([44, 20], dtype=torch.int32, device=dev)
+    whole = td.normalize(*td.paged_decode_ref(q, kp, vp, pt, pos, lens))
+    for nsplit in (2, 3):
+        parts = []
+        for s in range(nsplit):
+            mask = (torch.arange(p, device=dev) % nsplit) == s
+            parts.append(td.paged_decode_attention(
+                q, kp, vp, torch.where(mask[None], pt, -1), pos, lens))
+        torch.testing.assert_close(td.normalize(*td.merge_partials(parts)),
+                                   whole, atol=2e-5, rtol=2e-5)

@@ -10,9 +10,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import clht as tc  # noqa: E402
 from repro_torch.core import log as tl  # noqa: E402
 from repro_torch import device, state  # noqa: E402
+from repro_torch.kvcache import paged_store  # noqa: E402
+from repro_torch.launch.serve import PagedServer  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -41,7 +45,8 @@ def test_port_imports_no_jax_and_no_reference(path):
 def test_every_kernel_package_has_ref_and_parity_test():
     kernels = sorted(p for p in (PORT / "kernels").iterdir()
                      if p.is_dir() and not p.name.startswith("_"))
-    assert [k.name for k in kernels] == ["clht_probe", "log_merge"]
+    assert [k.name for k in kernels] == ["clht_probe", "decode_attention",
+                                         "flash_attention", "log_merge"]
     tests = "\n".join(p.read_text()
                       for p in (REPO / "tests").glob("test_torch_*.py"))
     for k in kernels:
@@ -49,7 +54,8 @@ def test_every_kernel_package_has_ref_and_parity_test():
         assert f"repro_torch.kernels import {k.name}" in tests, \
             f"{k.name} is named in no parity test"
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
-    assert sources == ["clht_insert.cu", "clht_probe.cu", "log_merge.cu"]
+    assert sources == ["clht_insert.cu", "clht_probe.cu", "flash_attention.cu",
+                       "log_merge.cu", "paged_decode_attention.cu"]
 
 
 @pytest.mark.parametrize("entry", [
@@ -59,6 +65,10 @@ def test_every_kernel_package_has_ref_and_parity_test():
     lambda: state.from_jax_arrays(heap={"data": [[1]], "head": 0}),
     lambda: device.resolve_device(),
     lambda: device.resolve_device("cuda"),
+    lambda: transformer.init_params(0, get_smoke_config("qwen1.5-0.5b")),
+    lambda: paged_store.pool_init(1, 2, 4, 1, 16),
+    lambda: PagedServer("qwen1.5-0.5b"),
+    lambda: state.params_from_jax({"layers": {}}, None),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
