@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths on one NVIDIA H100: the DPM data
-plane and the paged LLM serving path.
+"""Drive the PyTorch port's three paths on one NVIDIA H100: the DPM data
+plane, the paged LLM serving path and the SSM family's prefill and
+recurrent decode.
 
 Run from the repository root with no arguments:
 
@@ -34,8 +35,24 @@ heads, vocab 151,936; random bf16 weights from a seeded generator):
                through paged_decode_attention) against prefill's
                (flash_attention)
 
-and times both attention kernels at the main path's shapes. Every
-failure raises. The last line of standard output is
+and times both attention kernels at the main path's shapes. Last,
+mamba2-2.7b at its published widths (64 layers, d_model 2560, 80 SSD
+heads of 64, state 128, vocab 50,280, tied embeddings; random bf16
+weights from a seeded generator):
+
+  check_ssd    ssd_scan against its plain versions at the sweep shapes of
+               tests/test_kernels.py
+  ssm_prefill  launch.steps.prefill_step of 4 prompts x 2048 tokens
+               (ssd_scan, 64 launches a call); the kernel held against
+               the plain chunked scan on every layer of one call and
+               against the recurrence on layer 0, and the bar shown to
+               catch the output of a kernel that lost the chunk carry
+  ssm_decode   a 256-token prompt teacher-forced through serve_step
+               against forward's logits, then 64 greedy steps for a
+               batch of 4, and a profile of one step
+  time_ssd     ssd_scan at prefill's layer-0 inputs
+
+Every failure raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels.
 Without a card, or without the repository beside it, it exits non-zero
 and prints no result.
@@ -49,6 +66,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -64,10 +82,12 @@ from repro_torch.kernels import clht_probe as probe  # noqa: E402
 from repro_torch.kernels import decode_attention as decode  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import log_merge as merge  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch.kvcache.paged_store import decode_over_owners  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 
 KEYS_LOG2 = 25              # the paper's 32 GB of 1 KB values
@@ -80,6 +100,7 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
+TF32_FLOPS = 494.7e12       # H100 SXM dense TF32 tensor-core rate
 SPIN_CYCLES = 2_000_000     # about 1 ms of device spin before a timed call
 
 DPM_KERNELS = ("clht_probe", "kvs_lookup_fused", "log_merge_sorted",
@@ -90,17 +111,36 @@ SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 8, 256, 128, 64
 PAGE_SIZE, NUM_PAGES = 8, 4096
 RECONFIG_AFTER = 4          # requests admitted before w2 joins
 DECODE_B, DECODE_CTX = 64, 2048     # kernel 6 at a batched decode shape
+SSM_ARCH = "mamba2-2.7b"
+SSM_B, SSM_S, SSM_REPS = 4, 2048, 3     # prefill prompts x tokens, calls
+SSM_CHUNK = 64
+TF_PROMPT = 256                         # teacher-forced decode tokens
+GREEDY_B, GREEDY_STEPS = 4, 64
 # stated tolerances (atol = rtol), see tests/test_torch_cuda.py
 TOL = {torch.float32: {"flash_attention": 3e-5,
-                       "paged_decode_attention": 2e-5},
+                       "paged_decode_attention": 2e-5, "ssd_scan": 3e-4},
        torch.bfloat16: {"flash_attention": 2.5e-2,
-                        "paged_decode_attention": 3e-2}}
+                        "paged_decode_attention": 3e-2, "ssd_scan": 4e-2}}
 # max |diff| / max |logit| between two paths of the model (server vs
 # prefill, before vs after a worker joins), the bar of
 # tests/test_serve_equivalence.py: where the two paths round one bf16
 # attention element differently, 24 random layers carry the flip to
 # about 1e-2 (the reconfig phase measures this witness in every run)
 LOGIT_TOL = 5e-2
+# kernel 7 against its plain version on the main path's bf16 inputs. Both
+# compute y in f32 from the same inputs and round it to bf16 once, so they
+# may part by one unit in y's last place: at most 2^-7 of |y|, or 2^-8 of
+# a layer's max |y| where y is near 0. The sweep shapes' 4e-2 is too loose
+# here: at prefill's shapes a layer's max |y| is about 1, and the state
+# carried between chunks moves y by only 1.5e-2 to 4.9e-2 (lost_carry), so
+# a kernel that dropped that term would pass 4e-2 on every layer
+SSD_PATH_RTOL = 2 ** -7
+SSD_PATH_ATOL_OF_MAX = 2 ** -8
+# the same comparison for mamba2 in f32 (weights and activations), where
+# the two paths differ only in the order of f32 sums (about 1e-5 of max
+# |logit| on an H100): far below the bf16 floor, so a path that computed
+# another function would show
+F32_LOGIT_TOL = 1e-4
 
 
 def emit(obj) -> None:
@@ -135,9 +175,11 @@ def max_abs_err(pairs) -> int:
     return worst
 
 
-def close_err(pairs, tol: float) -> float:
+def close_err(pairs, tol: float, atol: float | None = None) -> float:
     """Largest |kernel - plain| over matching float outputs; raises where
-    an element is outside atol = rtol = ``tol`` or not finite."""
+    an element is outside rtol = ``tol`` and atol (``tol`` unless given)
+    or not finite."""
+    atol = tol if atol is None else atol
     worst = 0.0
     for name, got, ref in pairs:
         if got.shape != ref.shape:
@@ -147,13 +189,24 @@ def close_err(pairs, tol: float) -> float:
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"{name}: non-finite output")
         diff = (got - ref).abs()
-        bad = int((diff > tol + tol * ref.abs()).sum())
+        bad = int((diff > atol + tol * ref.abs()).sum())
         err = float(diff.max()) if diff.numel() else 0.0
         if bad:
-            raise AssertionError(f"{name}: {bad} elements outside atol = "
-                                 f"rtol = {tol} (max |diff| {err})")
+            raise AssertionError(f"{name}: {bad} elements outside atol "
+                                 f"{atol}, rtol {tol} (max |diff| {err})")
         worst = max(worst, err)
     return worst
+
+
+def ssd_path_atol(ref: torch.Tensor) -> float:
+    return SSD_PATH_ATOL_OF_MAX * float(ref.float().abs().max())
+
+
+def ssd_path_err(pairs) -> float:
+    """close_err for kernel 7 on the main path's inputs, at the bar of
+    SSD_PATH_RTOL and SSD_PATH_ATOL_OF_MAX."""
+    return max(close_err([(name, got, ref)], SSD_PATH_RTOL,
+                         ssd_path_atol(ref)) for name, got, ref in pairs)
 
 
 def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1017,6 +1070,341 @@ class Smoke:
               "bound_by": batch["bound_by"]})
         return rows
 
+    # ------------------------------------------------- 13. check kernel 7
+    def check_ssd(self) -> None:
+        """Kernel 7 against the plain chunked scan and the recurrence at
+        the sweep shapes of tests/test_kernels.py (f32 and bf16; G = 2)."""
+        dev = self.dev
+        g = np.random.default_rng(SEED)
+        worst = 0.0
+        for b, s, h, grp, n, p, chunk, dt in [
+                (1, 64, 2, 1, 16, 8, 16, torch.float32),
+                (2, 128, 4, 2, 32, 16, 32, torch.float32),
+                (1, 64, 2, 1, 16, 8, 64, torch.float32),
+                (1, 64, 2, 1, 16, 8, 16, torch.bfloat16)]:
+            f = lambda a: torch.from_numpy(  # noqa: E731
+                np.asarray(a, np.float32)).to(dev)
+            args = (f(g.standard_normal((b, s, h, p))).to(dt),
+                    f(g.uniform(0.01, 0.2, (b, s, h))),
+                    f(-g.uniform(0.5, 2.0, (h,))),
+                    f(g.standard_normal((b, s, grp, n)) * 0.3).to(dt),
+                    f(g.standard_normal((b, s, grp, n)) * 0.3).to(dt),
+                    f(g.standard_normal(h) * 0.1))
+            got = ssd_k.ssd_scan(*args, chunk=chunk)
+            worst = max(worst, close_err(
+                [("ssd_scan.vs_chunked", got, ssd_k.ssd_chunked(*args, chunk)),
+                 ("ssd_scan.vs_ref", got, ssd_k.ssd_ref(*args)[0])],
+                TOL[dt]["ssd_scan"]))
+        torch.cuda.synchronize()
+        emit({"ssd_kernel_vs_plain": worst})
+
+    # ---------------------------------------------------- 14. ssm prefill
+    def ssm_prefill(self) -> None:
+        """mamba2-2.7b's prefill step at its published widths: B x S
+        tokens through 64 layers, one ssd_scan launch per layer. Kernel 7
+        is then held against the plain chunked scan on every layer of one
+        call, and against the recurrence on layer 0; on every layer the
+        bar must also reject what a kernel that lost the state carried
+        between chunks would return."""
+        cfg = get_config(SSM_ARCH)
+        t0 = time.perf_counter()
+        params = ssm_lm.init_params(SEED, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        self.ssm_params = params
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (SSM_B, SSM_S),
+                               generator=gen, device=self.dev)
+        synced(steps.prefill_step, params, tokens, cfg)     # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        secs = []
+        for _ in range(SSM_REPS):
+            logits, sec = synced(steps.prefill_step, params, tokens, cfg)
+            secs.append(sec)
+        launches = _build.launches["ssd_scan"]
+        if launches != cfg.num_layers * SSM_REPS:
+            raise AssertionError(f"prefill launched ssd_scan {launches} "
+                                 "times, not one per layer")
+        if tuple(logits.shape) != (SSM_B, cfg.vocab_size) or \
+                logits.dtype != torch.float32 or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("ssm prefill: logits of the wrong shape, "
+                                 "type or not finite")
+        self.counts["ssd_scan"] = launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sec = sorted(secs)[len(secs) // 2]
+        emit({"phase": "ssm_prefill", "arch": SSM_ARCH,
+              "params": cfg.param_count(), "init_s": init_s,
+              "batch": SSM_B, "seq": SSM_S, "seconds": secs,
+              "tokens_per_s": SSM_B * SSM_S / sec,
+              "ssd_scan_launches": launches,
+              "launches_per_call": launches // SSM_REPS,
+              "peak_device_gib": peak})
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = synced(steps.prefill_step, params, tokens, cfg)
+        emit({"profile": f"one prefill call, {SSM_B} x {SSM_S} "
+                         f"({cfg.num_layers} layers)",
+              **device_summary(prof, wall)})
+        # kernel 7 on the inputs prefill gives it: every layer's (x, dt, a,
+        # b, c, d), x, b and c strided views of the conv's output
+        with uncounted(), recorded(mamba2, "ssd") as calls:
+            steps.prefill_step(params, tokens, cfg)
+        err, ref_max, ref_med, fault = 0.0, [], [], []
+        for li, (args, out) in enumerate(calls):
+            ref = ssd_k.ssd_chunked(*args, SSM_CHUNK)
+            err = max(err, ssd_path_err([(f"ssd_scan.layer{li}", out, ref)]))
+            mag = ref.float().abs()
+            ref_max.append(float(mag.max()))
+            ref_med.append(float(mag.median()))
+            fault.append(self.lost_carry(args, ref))
+        self.ssd_args = calls[0][0]
+        ref_err = ssd_path_err([("ssd_scan.layer0.vs_ref", calls[0][1],
+                                 ssd_k.ssd_ref(*self.ssd_args)[0])])
+        del calls
+        self.path_err["ssd_scan"] = max(err, ref_err)
+        x = self.ssd_args[0]
+        caught = [f["outside"] > 0 for f in fault]
+        emit({"check": "ssd_scan on every layer of one prefill call",
+              "layers": cfg.num_layers, "shape": list(x.shape),
+              "x_strides": list(x.stride()), "max_abs_err_vs_chunked": err,
+              "layer0_max_abs_err_vs_ref": ref_err,
+              "rtol": SSD_PATH_RTOL, "atol_of_max_abs_ref":
+              SSD_PATH_ATOL_OF_MAX,
+              "max_abs_ref_min_max": [min(ref_max), max(ref_max)],
+              "median_abs_ref_min_max": [min(ref_med), max(ref_med)],
+              "lost_carry_max_abs_diff_min_max": [
+                  min(f["max_abs_diff"] for f in fault),
+                  max(f["max_abs_diff"] for f in fault)],
+              "lost_carry_outside_min_max": [
+                  min(f["outside"] for f in fault),
+                  max(f["outside"] for f in fault)],
+              "lost_carry_caught_layers": sum(caught)})
+        if not all(caught):
+            raise AssertionError("the bar does not see a lost chunk carry "
+                                 "on layers "
+                                 f"{[i for i, c in enumerate(caught) if not c]}")
+
+    @staticmethod
+    def lost_carry(args, ref) -> dict:
+        """What a kernel that dropped exp(cum) (C h), the state carried
+        into each chunk, would return on ``args``: the plain scan of every
+        chunk as a sequence of its own. Its distance from the true output
+        ``ref`` is the power of the main path's bar against that fault:
+        the number of elements outside it."""
+        x, dt, a, b, c, d = args
+        bsz, s, h, p = x.shape
+        nc = s // SSM_CHUNK
+        split = [t.reshape(bsz * nc, SSM_CHUNK, *t.shape[2:])
+                 for t in (x, dt, b, c)]
+        bad = ssd_k.ssd_chunked(split[0], split[1], a, split[2], split[3], d,
+                                SSM_CHUNK).reshape(ref.shape).float()
+        diff = (bad - ref.float()).abs()
+        bar = ssd_path_atol(ref) + SSD_PATH_RTOL * ref.float().abs()
+        return {"max_abs_diff": float(diff.max()),
+                "outside": int((diff > bar).sum())}
+
+    # ----------------------------------------------------- 15. ssm decode
+    def teacher_forced(self, params, prompt, cfg, by_layer=False) -> dict:
+        """``prompt`` (1, T) through ``serve_step`` token by token from
+        ``init_cache``, against ``forward``'s logits on the same tokens:
+        max |diff| / max |logit| over all T steps and the top-1 agreement.
+
+        With ``by_layer``, each layer's block output is compared too: the
+        decode path's (cumulative: its input already carries the earlier
+        layers' differences), and the layer's own decode fed forward's
+        input to that layer (local: what the layer alone adds)."""
+        t_len = prompt.shape[1]
+        with recorded(ssm_lm, "mamba_block") as blocks:
+            full = ssm_lm.forward(params, prompt, cfg)[0][0]   # (T, V)
+        block_in = [args[1][0] for args, _ in blocks]        # (T, d) each
+        block_out = [out[0] for _, out in blocks]
+        del blocks
+        cache = ssm_lm.init_cache(cfg, 1)
+        cum = torch.zeros(cfg.num_layers, device=self.dev)
+        diffs, same = [], 0
+        t0 = time.perf_counter()
+        for t in range(t_len):
+            with recorded(ssm_lm, "mamba_decode") as dec:
+                logits, cache = steps.serve_step(params, cache, prompt[:, t],
+                                                 t, cfg)
+            if by_layer:
+                for li, (_, (y, _)) in enumerate(dec):
+                    ref = block_out[li][t].float()
+                    cum[li] = torch.maximum(cum[li], (y[0, 0].float() - ref)
+                                            .abs().max() / ref.abs().max())
+            diffs.append((logits[0] - full[t]).abs().max())
+            same += int(logits[0].argmax()) == int(full[t].argmax())
+        torch.cuda.synchronize()
+        out = {"tokens": t_len, "seconds": time.perf_counter() - t0,
+               "max_abs_diff": float(torch.stack(diffs).max()),
+               "max_abs_logit": float(full.abs().max())}
+        out["rel_diff"] = out["max_abs_diff"] / out["max_abs_logit"]
+        out["top1_agree"] = same / t_len
+        if by_layer:
+            local = torch.zeros(cfg.num_layers, device=self.dev)
+            for li, lp in enumerate(params["layers"]):
+                st = mamba2.mamba_state_init(cfg, 1)
+                for t in range(t_len):
+                    y, st = mamba2.mamba_decode(lp["mamba"],
+                                                block_in[li][t][None, None],
+                                                cfg, st)
+                    ref = block_out[li][t].float()
+                    local[li] = torch.maximum(local[li], (y[0, 0].float() - ref)
+                                              .abs().max() / ref.abs().max())
+            out["block_rel_diff_cumulative"] = cum.tolist()
+            out["block_rel_diff_local"] = local.tolist()
+        return out
+
+    def ssm_decode(self) -> None:
+        """A prompt teacher-forced through the recurrent decode step against
+        forward's logits on the same tokens, then greedy decode of a
+        batch, and a profile of one step.
+
+        Where the two paths part: prefill and decode round differently by
+        design (the reference's prefill conv multiplies and sums in bf16,
+        its decode conv in f32; the matrix products see M = T rows or
+        M = 1), so in bf16 each layer's block output differs by a few
+        units in the last place, and 64 random layers carry that forward.
+        The checks: every layer, fed forward's own input, agrees with
+        forward's block output within LOGIT_TOL (no layer parts from the
+        others), and an f32 copy of the model through the same code and
+        kernel agrees end to end within F32_LOGIT_TOL (the two paths
+        compute one function). The bf16 end-to-end gap is reported beside
+        them, with the share of it that the reference's bf16 prefill conv
+        causes: the same comparison with that conv taken in f32 (a
+        diagnostic; the model keeps the reference's conv)."""
+        from torch.profiler import ProfilerActivity, profile
+        cfg = get_config(SSM_ARCH)
+        params = self.ssm_params
+        g = np.random.default_rng(SEED + 2)
+        prompt = torch.from_numpy(g.integers(0, cfg.vocab_size,
+                                             (1, TF_PROMPT))).to(self.dev)
+        _build.reset_counts()
+        bf16 = self.teacher_forced(params, prompt, cfg, by_layer=True)
+        if _build.launches["ssd_scan"] != cfg.num_layers:
+            raise AssertionError("the teacher-forced forward did not run "
+                                 "ssd_scan once a layer, or decode ran it")
+        conv = mamba2._causal_conv
+        with mock.patch.object(mamba2, "_causal_conv",
+                               lambda xbc, w, b: conv(xbc.float(), w.float(),
+                                                      b.float())):
+            conv_f32 = self.teacher_forced(params, prompt, cfg)
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("f32 matrix products must not run in TF32")
+        p32 = {"embed": params["embed"].float(),
+               "ln_f": params["ln_f"].float(),
+               "layers": [{"ln": lp["ln"].float(),
+                           "mamba": {k: v.float()
+                                     for k, v in lp["mamba"].items()}}
+                          for lp in params["layers"]]}
+        f32 = self.teacher_forced(p32, prompt, cfg)
+        del p32
+        torch.cuda.empty_cache()
+        local, cum = bf16["block_rel_diff_local"], \
+            bf16["block_rel_diff_cumulative"]
+        over = [li for li, v in enumerate(cum) if v > LOGIT_TOL]
+        emit({"phase": "ssm_decode_teacher_forced", **{
+            k: v for k, v in bf16.items() if not k.startswith("block")},
+            "tolerance": LOGIT_TOL, "within_tolerance": bf16["rel_diff"]
+            <= LOGIT_TOL,
+            "block_rel_diff_local_max": max(local),
+            "block_rel_diff_local_first_last": [local[0], local[-1]],
+            "block_rel_diff_cumulative_every_8th": cum[::8] + [cum[-1]],
+            "first_layer_cumulative_over_tolerance": over[0] if over
+            else None,
+            "rel_diff_prefill_conv_f32": conv_f32["rel_diff"],
+            "top1_agree_prefill_conv_f32": conv_f32["top1_agree"],
+            "f32_model_rel_diff": f32["rel_diff"],
+            "f32_model_top1_agree": f32["top1_agree"],
+            "f32_tolerance": F32_LOGIT_TOL})
+        if max(local) > LOGIT_TOL:
+            raise AssertionError(f"a layer's decode parts from its prefill by "
+                                 f"{max(local)} of its max |output|")
+        if f32["rel_diff"] > F32_LOGIT_TOL:
+            raise AssertionError(f"in f32, decode and forward logits differ "
+                                 f"by {f32['rel_diff']} of max |logit|")
+        del bf16, conv_f32, f32
+        # greedy decode of a batch
+        gen = torch.Generator(device=self.dev).manual_seed(SEED + 3)
+        tok = torch.randint(0, cfg.vocab_size, (GREEDY_B,), generator=gen,
+                            device=self.dev)
+        cache = ssm_lm.init_cache(cfg, GREEDY_B)
+        synced(steps.serve_step, params, cache, tok, 0, cfg)    # warm-up
+        cache = ssm_lm.init_cache(cfg, GREEDY_B)
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(GREEDY_STEPS):
+            logits, cache = steps.serve_step(params, cache, tok, t, cfg)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out = torch.stack(out, dim=1)
+        if not bool(torch.isfinite(logits).all()) or \
+                not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+            raise AssertionError("greedy decode: non-finite logits or a "
+                                 "token out of range")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = synced(steps.serve_step, params, cache, tok,
+                             GREEDY_STEPS, cfg)
+        summary = device_summary(prof, wall)
+        emit({"phase": "ssm_decode_greedy", "batch": GREEDY_B,
+              "steps": GREEDY_STEPS, "seconds": sec,
+              "step_ms": sec / GREEDY_STEPS * 1e3,
+              "tokens_per_s": GREEDY_B * GREEDY_STEPS / sec,
+              "distinct_tokens": int(torch.unique(out).numel())})
+        emit({"profile": f"one decode step, batch {GREEDY_B} "
+                         f"({cfg.num_layers} layers)",
+              "launches_per_token": summary["launches"] / GREEDY_B,
+              **summary})
+
+    # ------------------------------------------------------- 16. time 7
+    def time_ssd(self) -> list[dict]:
+        """Kernel 7 on prefill's layer-0 inputs against the plain chunked
+        scan. No single PyTorch call computes the SSD scan, so library_ms
+        is null.
+
+        Bound: the FLOP the function needs, at the TF32 tensor-core rate
+        (the kernel's math is f32): per (b, h, chunk) L (L + 1) P for S x
+        (S is lower triangular with its diagonal) and 4 L N P for C h and
+        the state update; per (b, group, chunk) L (L + 1) N for C B^T,
+        which the heads of a group share. Bytes are x and y once, b, c
+        and dt once, a and d, at the memory rate. The f32 CUDA-core rate,
+        which this kernel uses, is printed beside it."""
+        x, dt, a, b, c, d = self.ssd_args
+        bsz, s, h, p = x.shape
+        grp, n = b.shape[2], b.shape[3]
+        lc = SSM_CHUNK
+        nc = s // lc
+        flops = (bsz * h * nc * (lc * (lc + 1) * p + 4 * lc * n * p)
+                 + bsz * grp * nc * lc * (lc + 1) * n)
+        nbytes = 2 * x.numel() * x.element_size() \
+            + (b.numel() + c.numel()) * b.element_size() \
+            + dt.numel() * 4 + (a.numel() + d.numel()) * 4
+        row = self._timed(
+            "ssd_scan", "ssd_scan.cu",
+            "src/repro/kernels/ssd_scan/ssd_scan.py:70", ("y",),
+            lambda: (ssd_k.ssd(x, dt, a, b, c, d, chunk=lc),),
+            lambda: (ssd_k.ssd_chunked(x, dt, a, b, c, d, lc),),
+            None, nbytes, REPS, plain_reps=3, flops=flops, peak=TF32_FLOPS,
+            extra={"shape": [bsz, s, h, p], "state": n, "groups": grp,
+                   "chunk": lc, "gflop": flops / 1e9, "bytes": nbytes,
+                   "f32_cuda_core_bound_ms": flops / F32_FLOPS * 1e3},
+            compare=ssd_path_err)
+        row["max_abs_err"] = max(row["max_abs_err"], self.path_err["ssd_scan"])
+        emit({"ssd_scan_needed_tflops": flops / row["ms"] / 1e9,
+              "share_of_bound": row["bound_ms"] / row["ms"],
+              "bound_by": row["bound_by"],
+              "share_of_f32_cuda_core_bound": flops / F32_FLOPS * 1e3
+              / row["ms"]})
+        return [row]
+
     @staticmethod
     def _decode_bytes(q, pages, table, tokens: int) -> int:
         """Kernel 6's bytes: each valid token's K and V row, q, the page
@@ -1079,6 +1467,13 @@ def main() -> int:
     smoke.profile_decode(srv)
     smoke.equivalence(srv)
     del srv
+    torch.cuda.empty_cache()
+    smoke.check_ssd()
+    smoke.ssm_prefill()
+    smoke.ssm_decode()
+    kernels += smoke.time_ssd()
+    del smoke.ssm_params, smoke.ssd_args
+    torch.cuda.empty_cache()
     emit({"total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,4 +4,5 @@
 #   log_merge         in-order merge of log entries into bucket lines (C)
 #   flash_attention   prefill attention (kernel 5)
 #   decode_attention  paged decode attention partials (kernel 6)
+#   ssd_scan          Mamba2 chunked SSD scan (kernel 7)
 # The sequential insert (kernel D) sits behind core.clht.clht_insert.

@@ -22,9 +22,9 @@ from .layers import (PARAM_DTYPE, attention_block, attn_init, embed_init,
 def _check_family(cfg) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port runs the dense family only "
-            "(the others wait for ROADMAP Queue 1 item 4 and Queue 2 "
-            "item 6)")
+            f"family {cfg.family!r}: transformer runs the dense family "
+            "only (ssm: models/ssm_lm.py; the others wait for ROADMAP "
+            "Queue 2 item 6)")
 
 
 def init_params(seed: int, cfg, device=None) -> dict:

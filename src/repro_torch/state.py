@@ -84,27 +84,44 @@ def _bf16(a, dev) -> torch.Tensor:
     return t.to(dev)
 
 
+# the reference's float32 parameters (models/mamba2.py:mamba_init); every
+# other parameter of the reference is bf16
+F32_LEAVES = frozenset({"a_log", "dt_bias", "d_skip"})
+
+
+def _f32(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype != np.float32:
+        raise TypeError(f"expected a float32 array for a float32 parameter, "
+                        f"got {a.dtype}")
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
 def params_from_jax(params: dict, cfg, device=None) -> dict:
     """The port's parameters on ``device`` from the reference's parameter
-    tree (``models/transformer.py:init_params``) as nested dicts of numpy
-    arrays, each float32 or the uint16 bits of bf16.
+    tree (``models/transformer.py`` or ``models/ssm_lm.py:init_params``)
+    as nested dicts of numpy arrays.
 
     Both layouts keep weights (d_in, d_out) for ``x @ w``. The reference
     stacks the layers on a leading axis of length ``cfg.num_layers``; the
     port keeps ``params["layers"]`` as a list of one dict per layer.
-    Every tensor is bf16, as the reference's parameters are."""
+    Each tensor keeps the reference's type, by the leaf's name: the
+    leaves named in ``F32_LEAVES`` are float32 in the reference and come
+    as float32 arrays, kept exactly; every other leaf is bf16, given as
+    float32 (rounded to bf16) or as the uint16 bits of bf16."""
     dev = resolve_device(device)
 
-    def tree(node, pick):
+    def tree(node, pick, name=None):
         if isinstance(node, dict):
-            return {k: tree(v, pick) for k, v in node.items()}
-        return _bf16(pick(np.asarray(node)), dev)
+            return {k: tree(v, pick, k) for k, v in node.items()}
+        leaf = pick(np.asarray(node))
+        return _f32(leaf, dev) if name in F32_LEAVES else _bf16(leaf, dev)
 
     depth = {np.asarray(a).shape[0] for a in _leaves(params["layers"])}
     if depth != {cfg.num_layers}:
         raise ValueError(f"layers stacked {sorted(depth)} deep, config has "
                          f"{cfg.num_layers}")
-    out = {k: tree(v, lambda a: a) for k, v in params.items()
+    out = {k: tree(v, lambda a: a, k) for k, v in params.items()
            if k != "layers"}
     out["layers"] = [tree(params["layers"], lambda a, i=i: a[i])
                      for i in range(cfg.num_layers)]

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain torch versions, on the
-card (marked ``cuda``; they skip without one). Every comparison is exact.
+card (marked ``cuda``; they skip without one). The integer kernels are
+compared exactly, the float kernels at the stated tolerances.
 
 On the card, where JAX is absent, run them without the repository's
 conftest (which loads the JAX package):
@@ -260,3 +261,120 @@ def test_paged_decode_split_merge_invariance(dev):
                 q, kp, vp, torch.where(mask[None], pt, -1), pos, lens))
         torch.testing.assert_close(td.normalize(*td.merge_partials(parts)),
                                    whole, atol=2e-5, rtol=2e-5)
+
+
+# ------------------------------------------------------------ ssd_scan
+# kernel 7 against the plain chunked version and the sequential
+# recurrence: both in f32 from the same inputs, in another order of sums
+# (3e-4, test_kernels.py's f32 bar); bf16 adds one rounding of y (4e-2)
+from repro_torch.kernels import ssd_scan as tss  # noqa: E402
+
+
+def ssd_case(dev, b, s, h, g, n, p, dtype, seed, a_range=(0.5, 2.0),
+             dt_range=(0.01, 0.2)):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    return (f(rng.standard_normal((b, s, h, p))).to(dtype),
+            f(rng.uniform(*dt_range, (b, s, h))),
+            f(-rng.uniform(*a_range, (h,))),
+            f(rng.standard_normal((b, s, g, n)) * 0.3).to(dtype),
+            f(rng.standard_normal((b, s, g, n)) * 0.3).to(dtype),
+            f(rng.standard_normal(h) * 0.1))
+
+
+@pytest.mark.parametrize("b,s,h,g,n,p,chunk,dtype", [
+    (1, 64, 2, 1, 16, 8, 16, torch.float32),
+    (2, 128, 4, 2, 32, 16, 32, torch.float32),
+    (1, 64, 2, 1, 16, 8, 64, torch.float32),
+    (1, 64, 2, 1, 16, 8, 16, torch.bfloat16),
+    (2, 128, 8, 2, 64, 32, 32, torch.bfloat16),      # G = 2
+    (1, 256, 6, 2, 128, 64, 64, torch.float32),      # G = 2, N 128, P 64
+    (2, 256, 16, 1, 128, 64, 64, torch.bfloat16),    # mamba2's N, P, L
+    (1, 90, 4, 2, 16, 8, 30, torch.float32),         # chunk not a multiple of 4
+    (2, 7, 2, 1, 16, 8, 7, torch.bfloat16),          # a short prompt: chunk = S
+    (1, 1, 2, 1, 16, 8, 1, torch.float32),           # one token
+])
+def test_ssd_scan_matches_plain(dev, b, s, h, g, n, p, chunk, dtype):
+    args = ssd_case(dev, b, s, h, g, n, p, dtype, s + h + g)
+    n0 = _build.launches["ssd_scan"]
+    got = tss.ssd_scan(*args, chunk=chunk)
+    assert _build.launches["ssd_scan"] == n0 + 1
+    assert got.dtype == dtype and got.shape == args[0].shape
+    tol = 4e-2 if dtype == torch.bfloat16 else 3e-4
+    for ref in (tss.ssd_chunked(*args, chunk), tss.ssd_ref(*args)[0]):
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=tol)
+    assert torch.equal(tss.ssd(*args, chunk=chunk), got)
+
+
+def test_ssd_scan_strided_views_and_underflow(dev):
+    """x, B and C as slices of one projection, as the model hands them;
+    a = -16 with dt up to 2 underflows exp(cum) to 0 without a NaN."""
+    b, s, h, g, n, p = 2, 128, 4, 1, 32, 16
+    x, dt, a, bm, cm, d = ssd_case(dev, b, s, h, g, n, p, torch.bfloat16, 9,
+                                   a_range=(15.0, 16.0), dt_range=(0.5, 2.0))
+    xbc = torch.cat([x.reshape(b, s, -1), bm.reshape(b, s, -1),
+                     cm.reshape(b, s, -1)], dim=-1)
+    xv = xbc[..., :h * p].view(b, s, h, p)
+    bv = xbc[..., h * p:h * p + g * n].view(b, s, g, n)
+    cv = xbc[..., h * p + g * n:].view(b, s, g, n)
+    got = tss.ssd_scan(xv, dt, a, bv, cv, d, chunk=64)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, tss.ssd_scan(x, dt, a, bm, cm, d),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(got.float(), tss.ssd_ref(x, dt, a, bm, cm, d)
+                               [0].float(), atol=4e-2, rtol=4e-2)
+
+
+def test_ssd_scan_refuses_bad_inputs(dev):
+    x, dt, a, bm, cm, d = ssd_case(dev, 1, 128, 2, 1, 16, 8, torch.bfloat16,
+                                   1)
+    with pytest.raises(TypeError):
+        tss.ssd_scan(x, dt.to(torch.bfloat16), a, bm, cm, d)
+    with pytest.raises(TypeError):
+        tss.ssd_scan(x.float(), dt, a, bm, cm, d)
+    with pytest.raises(TypeError):
+        tss.ssd_scan(x.half(), dt, a, bm.half(), cm.half(), d)
+    with pytest.raises(ValueError, match="chunk"):
+        tss.ssd_scan(x, dt, a, bm, cm, d, chunk=128)
+    with pytest.raises(ValueError, match="multiple"):
+        tss.ssd_scan(x, dt, a, bm, cm, d, chunk=48)
+    with pytest.raises(ValueError, match="contiguous"):
+        tss.ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a,
+                     bm, cm, d)
+    with pytest.raises(ValueError, match="contiguous"):
+        tss.ssd_scan(x, dt.transpose(1, 2).contiguous().transpose(1, 2), a,
+                     bm, cm, d)
+    big = torch.zeros((1, 128, 1, 256), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="state size"):
+        tss.ssd_scan(x, dt, a, big, big, d)
+    with pytest.raises(ValueError, match="head dim"):
+        tss.ssd_scan(torch.zeros((1, 128, 2, 128), dtype=torch.bfloat16,
+                                 device=dev), dt, a, bm, cm, d)
+    with pytest.raises(ValueError, match="mixed"):
+        tss.ssd_scan(x, dt.cpu(), a, bm, cm, d)
+
+
+@pytest.mark.parametrize("s", [1, 7, 64, 192])
+def test_ssm_prefill_step_on_the_card_matches_the_cpu(dev, s):
+    """mamba2's smoke config through prefill_step on the card (kernel 7 on
+    the conv output's strided views) against the same weights on the CPU
+    (ssd_chunked); bf16 products rounded by two backends, 5e-2 as in
+    tests/test_torch_ssm.py."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import ssm_lm
+    cfg = get_smoke_config("mamba2-2.7b")
+    params = ssm_lm.init_params(0, cfg, device="cpu")
+    on_dev = {"embed": params["embed"].to(dev), "ln_f": params["ln_f"].to(dev),
+              "layers": [{"ln": lp["ln"].to(dev),
+                          "mamba": {k: v.to(dev)
+                                    for k, v in lp["mamba"].items()}}
+                         for lp in params["layers"]]}
+    tokens = torch.from_numpy(np.random.default_rng(s).integers(
+        0, cfg.vocab_size, (2, s)))
+    n0 = _build.launches["ssd_scan"]
+    got = steps.prefill_step(on_dev, tokens.to(dev), cfg)
+    assert _build.launches["ssd_scan"] == n0 + cfg.num_layers
+    want = steps.prefill_step(params, tokens, cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=5e-2, rtol=5e-2)

@@ -16,7 +16,8 @@ from repro_torch.core import log as tl  # noqa: E402
 from repro_torch import device, state  # noqa: E402
 from repro_torch.kvcache import paged_store  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
+from repro_torch.models.model_zoo import build_model  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -46,7 +47,8 @@ def test_every_kernel_package_has_ref_and_parity_test():
     kernels = sorted(p for p in (PORT / "kernels").iterdir()
                      if p.is_dir() and not p.name.startswith("_"))
     assert [k.name for k in kernels] == ["clht_probe", "decode_attention",
-                                         "flash_attention", "log_merge"]
+                                         "flash_attention", "log_merge",
+                                         "ssd_scan"]
     tests = "\n".join(p.read_text()
                       for p in (REPO / "tests").glob("test_torch_*.py"))
     for k in kernels:
@@ -55,7 +57,8 @@ def test_every_kernel_package_has_ref_and_parity_test():
             f"{k.name} is named in no parity test"
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
     assert sources == ["clht_insert.cu", "clht_probe.cu", "flash_attention.cu",
-                       "log_merge.cu", "paged_decode_attention.cu"]
+                       "log_merge.cu", "paged_decode_attention.cu",
+                       "ssd_scan.cu"]
 
 
 @pytest.mark.parametrize("entry", [
@@ -69,6 +72,11 @@ def test_every_kernel_package_has_ref_and_parity_test():
     lambda: paged_store.pool_init(1, 2, 4, 1, 16),
     lambda: PagedServer("qwen1.5-0.5b"),
     lambda: state.params_from_jax({"layers": {}}, None),
+    lambda: ssm_lm.init_params(0, get_smoke_config("mamba2-2.7b")),
+    lambda: build_model(get_smoke_config("mamba2-2.7b")).init(0),
+    lambda: ssm_lm.init_cache(get_smoke_config("mamba2-2.7b"), 1),
+    lambda: build_model(get_smoke_config("mamba2-2.7b")).init_cache(1),
+    lambda: mamba2.mamba_state_init(get_smoke_config("mamba2-2.7b"), 1),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
