@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three paths on one NVIDIA H100: the DPM data
-plane, the paged LLM serving path and the SSM family's prefill and
-recurrent decode.
+"""Drive the PyTorch port's four paths on one NVIDIA H100: the DPM data
+plane, one KN's planned DAC windows over it, the paged LLM serving path
+and the SSM family's prefill and recurrent decode.
 
 Run from the repository root with no arguments:
 
@@ -21,8 +21,24 @@ CLHT index, log segment and value heap:
   read-back  every key written while serving, through lookup (its
              pointer) and kvs_lookup (its value row)
 
-and times each kernel at the shapes the serving path gives it. Then it
-runs qwen1.5-0.5b at its published widths (24 layers, d_model 1024, 16
+and times each kernel at the shapes the serving path gives it. Then one
+KN serves the same pool from its DAC cache:
+
+  kn_window  an ArrayDAC of 1 GiB (the paper's KN cache against its 32 GB
+             dataset) warmed full, then YCSB write_heavy_update and
+             read_mostly_update at zipf 0.99 over the 2^25 keys, in
+             batches whose missing reads are probed on the card (kernel A)
+             and whose writes go through log_append_merge (C and D). Each
+             batch is cut into planning chunks of at most 512 ops;
+             plan_dac_window plans a chunk or it is replayed op by op.
+             Every planned window's gathered inputs run through
+             cache_transition (kernel 4) on the card, held bit for bit
+             against its plain version and against the plan, with every
+             disagreement under a named cause; a window whose reads
+             missed is also checked on its prefix before the first miss
+
+and times kernel 4 on a 512-op window of that path. Then it runs
+qwen1.5-0.5b at its published widths (24 layers, d_model 1024, 16
 heads, vocab 151,936; random bf16 weights from a seeded generator):
 
   prefill      build_model(CONFIG).prefill of 4 prompts x 2048 tokens
@@ -61,6 +77,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -76,8 +93,15 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import clht, log  # noqa: E402
+from repro_torch.core.cluster import (KVSNode, _WritePlan,  # noqa: E402
+                                      apply_window_plan, warm_load)
+from repro_torch.core.dac import (SHORTCUT_BYTES,  # noqa: E402
+                                  VALUE_OVERHEAD_BYTES)
+from repro_torch.core.transition import (PLAN_STATS,  # noqa: E402
+                                         plan_dac_window, reset_plan_stats)
 from repro_torch.data import Workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import cache_transition as transition  # noqa: E402
 from repro_torch.kernels import clht_probe as probe  # noqa: E402
 from repro_torch.kernels import decode_attention as decode  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
@@ -105,6 +129,16 @@ SPIN_CYCLES = 2_000_000     # about 1 ms of device spin before a timed call
 
 DPM_KERNELS = ("clht_probe", "kvs_lookup_fused", "log_merge_sorted",
                "clht_insert")
+# one KN's planned DAC windows over the DPM pool: the paper's 1 GB KN cache
+# against its 32 GB dataset (benchmarks/bench_dataplane.py:65-67)
+KN_CACHE = 1 << 30
+KN_MIXES = ("write_heavy_update", "read_mostly_update")
+KN_OPS = 1 << 16            # ops per mix
+KN_BATCH = 1 << 13          # ops whose reads are probed and writes merged
+KN_WINDOW = 512             # ops per planning chunk, as _run_window_at
+KN_SEGCACHE = 4 * 2048      # segcache entries: 4 of the reference's segments
+KN_WRITE_BATCH = 8          # writes per amortized log flush (one RT)
+VALUE_BYTES = WIDTH * 4
 ARCH = "qwen1.5-0.5b"
 PREFILL_B, PREFILL_S, PREFILL_REPS = 4, 2048, 3
 SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 8, 256, 128, 64
@@ -309,6 +343,43 @@ def uncounted():
         _build.launches.update(saved)
 
 
+def probe_batch(table, keys: np.ndarray):
+    """Batched index reads of ``keys`` on the card, as the reference's
+    index_lookup_batch prefetches a batch's misses: kernel A on the
+    primary lines, the chain walk for keys that missed a chained line.
+    Returns (ptrs, lines walked, primary buckets), numpy, ptr -1 absent."""
+    kd = torch.from_numpy(keys.astype(np.int32)).to(table.lines.device)
+    bids = clht.bucket_of(kd, table.num_buckets)
+    ptrs, found = probe.clht_probe(table.lines, bids, kd)
+    found = found.bool()
+    walked = torch.ones_like(ptrs)
+    slow = ((~found) & (table.nxt[bids.long()] >= 0)).nonzero().flatten()
+    if slow.numel():
+        ptrs[slow], found[slow], walked[slow] = clht.clht_lookup(table,
+                                                                 kd[slow])
+    ptrs = torch.where(found, ptrs, -1)
+    return (ptrs.cpu().numpy().astype(np.int64), walked.cpu().numpy(),
+            bids.cpu().numpy())
+
+
+class PoolView:
+    """The slice-1 DPM pool as plan_dac_window reads it: one key's live
+    index walk (``index_lookup`` -> (ptr or None, lines walked)) and the
+    values' lengths (``heap_len``; every value is 1 KB)."""
+
+    class _Lengths:
+        def __getitem__(self, ptr):
+            return VALUE_BYTES
+
+    def __init__(self, table):
+        self.table = table
+        self.heap_len = self._Lengths()
+
+    def index_lookup(self, key: int):
+        ptr, walked, _ = probe_batch(self.table, np.array([key]))
+        return (None if ptr[0] < 0 else int(ptr[0])), int(walked[0])
+
+
 class Smoke:
     def __init__(self):
         self.dev = torch.device("cuda")
@@ -435,6 +506,37 @@ class Smoke:
              ("num_new", got[3], ref[3])])
         assert int(tk.overflow_head) == tk.total_buckets   # exhausted
         assert not bool(got[2][dm].all())
+
+        # 4: tests/test_kernels.py's random windows, and promotes whose
+        # Eq. 1 deficit is negative and not a multiple of 32 with the zero
+        # count at the truncated quotient (floor division refuses them)
+        pairs = []
+        for n, seed in ((256, 0), (512, 1)):
+            opk = g.choice([0, 0, 0, 1, 1, 2], n)
+            rows = transition.encode_window(
+                opk, g.choice([0, 1, 2], n), g.choice([0, 0, 1, 5], n),
+                g.choice([64, 128, 256], n), value_bytes=128)
+            vic = g.choice([104, 168, 296], 200).astype(np.int32)
+            cap = 4096 + 4096 * seed
+            pairs.append((rows, vic, int(g.integers(0, cap)),
+                          int(g.integers(0, 50)), cap))
+        edge = np.zeros((256, transition.OP_LANES), np.int32)
+        edge[:, 0], edge[:, 2] = 1, 232 + np.arange(256) % 31
+        pairs.append((edge, np.full(64, 1064, np.int32), (1 << 16) - 100, 3,
+                      1 << 16))
+        checks = []
+        for rows, vic, used0, z0, cap in pairs:
+            r = torch.from_numpy(rows).to(dev)
+            v = torch.from_numpy(vic).to(dev)
+            got = transition.cache_transition(r, v, used0, z0, cap=cap)
+            ref = transition.cache_transition_ref(r, v, used0, z0, cap=cap)
+            plain = transition.cache_transition_np(rows, vic, used0, z0,
+                                                   cap=cap)
+            for o, a, b, c in zip(("dec", "nvic", "used"), got, ref, plain):
+                checks += [(o, a, b),
+                           (o + ".np", a.cpu(), torch.from_numpy(c))]
+        self.errors["cache_transition"] = max_abs_err(checks)
+        assert not bool(got[0].any())        # floor division refused all
         torch.cuda.synchronize()
         emit({"kernels_vs_plain": self.errors})
 
@@ -453,7 +555,8 @@ class Smoke:
         emit({"workload_s": round(time.perf_counter() - t0, 3),
               "keys": n, "batch": batch, "serve_writes": n_writes})
 
-        cap = n + n_writes + batch       # + the profiled batch
+        # + the profiled batch and the KN phase's writes
+        cap = n + n_writes + batch + len(KN_MIXES) * KN_OPS
         table = clht.clht_init(n, device=dev)
         seg = log.segment_init(cap, device=dev)
         heap = log.heap_init(cap, WIDTH, device=dev)
@@ -589,7 +692,8 @@ class Smoke:
             1, _build.work["clht_insert"]
             // max(1, counts["clht_insert"]))
         return {"table": table, "seg": seg, "heap": heap,
-                "read_keys": ro_keys[0], "write_ops": wh_ops[0], "n": n}
+                "read_keys": ro_keys[0], "write_ops": wh_ops[0], "n": n,
+                "workload": writes}
 
     # ------------------------------------------------------------------ 7
     def time_kernels(self, st) -> list[dict]:
@@ -702,6 +806,308 @@ class Smoke:
             _, wall = synced(batch)
         emit({"profile": "write_heavy_update batch",
               **device_summary(prof, wall)})
+
+    # ---------------------------------------------------------- 7b. the KN
+    def kn_window(self, st) -> None:
+        """One KN's planned DAC windows over the loaded pool: an ArrayDAC
+        of KN_CACHE warmed full (the hottest keys as values, the next as
+        shortcuts), then KN_OPS ops of each mix in KN_BATCH batches. Per
+        batch the reads that miss the cache are probed on the card
+        (kernel A, the probe_map) and the writes go through
+        log_append_merge (kernels C and D, the pointers of the write
+        plan); the batch is then cut into planning
+        chunks of at most KN_WINDOW ops, as the reference's host engine
+        cuts a KN window. A chunk the planner plans is gathered, run
+        through kernel 4 on the card, held bit for bit against
+        cache_transition_np and against the plan (twin_verdict), and
+        applied; a chunk it cannot plan is replayed through ArrayDAC's
+        per-op methods.
+
+        The batch's writes are merged before its windows run: a read
+        before its key's write in the batch takes the prefetched pointer,
+        one after it finds the key in the cache or the segcache, so no
+        prefetched probe goes stale (dkeys and dbuckets stay empty)."""
+        n = st["n"]
+        t0 = time.perf_counter()
+        kn = KVSNode("kn1", KN_CACHE, KN_SEGCACHE, initial_keys=n)
+        cache = kn.cache
+        # the serve phase's generator draws on: its key popularity is the
+        # dataset's, and its mix is read at every draw
+        load = st["workload"]
+        # warm-up, load-through-KN: half the cache holds the hottest keys
+        # as values (the hottest the most recent), the other half the next
+        # keys as shortcuts, as the reference's warm load gives every
+        # loaded key one
+        nv = KN_CACHE // 2 // (VALUE_BYTES + VALUE_OVERHEAD_BYTES)
+        ns = (KN_CACHE - nv * (VALUE_BYTES + VALUE_OVERHEAD_BYTES)) \
+            // SHORTCUT_BYTES
+        hot = np.asarray(load.hot_keys(min(n, nv + ns)), np.int64)
+        vk, sk = hot[:nv][::-1], np.sort(hot[nv:])
+        (vp, _, _), (sp, _, _) = (probe_batch(st["table"], k)
+                                  for k in (vk, sk))
+        if (vp < 0).any() or (sp < 0).any():
+            raise AssertionError("a loaded key is missing from the index")
+        warm_load(cache, vk, vp, sk, sp, VALUE_BYTES)
+        emit({"phase": "kn_warm_up", "values": int(cache.num_values),
+              "shortcuts": int(cache.num_shortcuts),
+              "used": int(cache.used), "capacity": cache.capacity,
+              "seconds": time.perf_counter() - t0})
+
+        tally = self._kn_tally()
+        reset_plan_stats()
+        self.kn_pending = 0
+        self.kn_version = 1 << 24
+        self.transition_case = None
+        _build.reset_counts()            # the KN path's launches from here
+        t0 = time.perf_counter()
+        for mix in KN_MIXES:
+            load.mix = mix
+            for _ in range(0, KN_OPS, KN_BATCH):
+                kinds, keys = load.ops_arrays(KN_BATCH)
+                self._kn_batch(st, kn, kinds, keys, tally)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        self.counts["cache_transition"] = counts["cache_transition"]
+        v, pv = tally["verdicts"], tally["prefix_verdicts"]
+        planned = PLAN_STATS["planned_windows"]
+        prefixes = sum(pv.values())
+        emit({"phase": "kn_window", "mixes": list(KN_MIXES),
+              "ops": len(KN_MIXES) * KN_OPS, "seconds": sec,
+              "ops_per_s": len(KN_MIXES) * KN_OPS / sec, **PLAN_STATS,
+              **tally,
+              "agree_share": v["agree"] / max(1, planned),
+              "prefix_agree_share": pv["agree"] / max(1, prefixes),
+              "stats": dataclasses.asdict(cache.stats),
+              "used": int(cache.used), "values": int(cache.num_values),
+              "shortcuts": int(cache.num_shortcuts),
+              "zero_shortcuts": int(cache._zero_shortcuts),
+              "launches": {k: c for k, c in counts.items() if c}})
+        if counts["cache_transition"] != planned + prefixes:
+            raise AssertionError(
+                f"kernel 4 launched {counts['cache_transition']} times for "
+                f"{planned} planned windows and {prefixes} prefixes")
+        if not planned:
+            raise AssertionError("the KN path planned no window")
+        if not tally["windows_with_victims"] or self.transition_case is None:
+            raise AssertionError("no planned window (of 512 ops) consumed "
+                                 "a victim")
+        if v["other"] or pv["other"]:
+            raise AssertionError(f"{v['other'] + pv['other']} windows: kernel"
+                                 f" 4 and the planner disagree for no named "
+                                 f"cause")
+        self.kn_profile(st, kn, load)
+
+    def kn_profile(self, st, kn, load) -> None:
+        """torch.profiler over one more read_mostly_update batch of the KN
+        path: the device's busy share of its wall time."""
+        from torch.profiler import ProfilerActivity, profile
+        kinds, keys = load.ops_arrays(KN_BATCH)
+        tally = self._kn_tally()
+        with uncounted(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+            _, wall = synced(self._kn_batch, st, kn, kinds, keys, tally)
+        emit({"profile": f"kn_window batch of {KN_BATCH} ops "
+                         f"({load.mix})", "host_s": tally["host_s"],
+              **device_summary(prof, wall)})
+
+    @staticmethod
+    def _kn_tally() -> dict:
+        verdicts = ("agree",) + transition.CAUSES
+        return {"victims_consumed": 0, "windows_with_victims": 0,
+                "refill_retries": 0, "queue_dry_windows": 0,
+                "verdicts": dict.fromkeys(verdicts, 0),
+                "prefixes_unplanned": 0,
+                "prefix_verdicts": dict.fromkeys(verdicts, 0),
+                # host seconds: probes and writes, planning, the twin
+                # (gathers, launches, checks, prefix plans), the apply,
+                # the replay
+                "host_s": dict.fromkeys(("stage", "plan", "twin", "apply",
+                                         "replay"), 0.0)}
+
+    def _kn_batch(self, st, kn, kinds, keys, tally) -> None:
+        cache = kn.cache
+        clock = tally["host_s"]
+        t0 = time.perf_counter()
+        m = keys.size
+        pool = PoolView(st["table"])
+        # prefetch the reads that miss now (kernel A)
+        rsel = np.flatnonzero((kinds == 0) & (cache.kind[keys] == 0))
+        probe_map = {}
+        if rsel.size:
+            pp, walked, bids = probe_batch(st["table"], keys[rsel])
+            probe_map = {i: (None if q < 0 else q, w, b) for i, q, w, b in
+                         zip(rsel.tolist(), pp.tolist(), walked.tolist(),
+                             bids.tolist())}
+        # stage the writes through the write path (kernels C and D)
+        wplan = _WritePlan()
+        wpos = np.flatnonzero(kinds == 1)
+        wplan.wrank = np.full(m, -1, np.int64)
+        if wpos.size:
+            wk = torch.from_numpy(keys[wpos].astype(np.int32)).to(self.dev)
+            vals = value_rows(wk, torch.full_like(wk, self.kn_version))
+            self.kn_version += 1
+            (st["table"], st["seg"], st["heap"], ptrs, _, ok) = \
+                merge.log_append_merge(st["table"], st["seg"], st["heap"],
+                                       wk, vals)
+            if not bool(ok.all()):
+                raise AssertionError("a KN write failed to merge")
+            if st["heap"].head > st["heap"].data.shape[0]:
+                raise AssertionError("the value heap overflowed")
+            # one flush RT every KN_WRITE_BATCH writes (amortized)
+            nw = wpos.size
+            flush = (self.kn_pending + np.arange(1, nw + 1)) \
+                % KN_WRITE_BATCH == 0
+            self.kn_pending = (self.kn_pending + nw) % KN_WRITE_BATCH
+            wplan.ptrs = ptrs.cpu().numpy().astype(np.int64)
+            wplan.rts = flush.astype(np.float64)
+            wplan.wrank[wpos] = np.arange(nw)
+        pos = np.arange(m)
+        dkeys, dbuckets = set(), set()
+        start = 0
+        t1 = time.perf_counter()
+        clock["stage"] += t1 - t0
+        while start < m:
+            end = min(m, start + KN_WINDOW)
+            args = (keys[start:end], kinds[start:end], pos[start:end])
+            t0 = time.perf_counter()
+            wp = plan_dac_window(cache, kn, *args, wplan, probe_map, dkeys,
+                                 dbuckets, pool, VALUE_BYTES, False)
+            t1 = time.perf_counter()
+            clock["plan"] += t1 - t0
+            if wp is None:
+                self._kn_replay(kn, pool, *args, wplan, probe_map)
+                clock["replay"] += time.perf_counter() - t1
+                PLAN_STATS["replayed_windows"] += 1
+                PLAN_STATS["replayed_ops"] += end - start
+                start = end
+                continue
+            ctx = (probe_map, dkeys, dbuckets, pool)
+            verdict, win, (_, nvic, used) = self._kn_twin(kn, args, wp, ctx)
+            tally["verdicts"][verdict] += 1
+            tally["queue_dry_windows"] += bool(
+                (used[:wp.ops] > cache.capacity).any())
+            if win.rows.shape[0] == KN_WINDOW and nvic[-1] > 0:
+                self.transition_case = (win.rows, win.victims, win.used0,
+                                        win.z0, cache.capacity)
+            if verdict == "read_miss":
+                # the twin on the prefix the encoding represents in full:
+                # planned as its own window, before the apply
+                j = transition.miss_free_prefix(win, wp)
+                pre = tuple(a[:j] for a in args)
+                wp2 = plan_dac_window(cache, kn, *pre, wplan, probe_map,
+                                      dkeys, dbuckets, pool, VALUE_BYTES,
+                                      False)
+                if wp2 is None:
+                    tally["prefixes_unplanned"] += 1
+                else:
+                    tally["prefix_verdicts"][
+                        self._kn_twin(kn, pre, wp2, ctx)[0]] += 1
+            t2 = time.perf_counter()
+            clock["twin"] += t2 - t1
+            apply_window_plan(kn, cache, wp, None, VALUE_BYTES)
+            clock["apply"] += time.perf_counter() - t2
+            PLAN_STATS["planned_windows"] += 1
+            PLAN_STATS["planned_ops"] += wp.ops
+            tally["victims_consumed"] += len(wp.victims)
+            tally["windows_with_victims"] += bool(wp.victims)
+            tally["refill_retries"] += wp.include_refills
+            start += wp.ops
+
+    def _kn_twin(self, kn, args, wp, ctx):
+        """Gather a planned window's inputs (before its apply), run kernel
+        4 on the card, hold it bit for bit against cache_transition_np,
+        and take its verdict against the plan. Returns (verdict, the
+        gathered window, the outputs)."""
+        cache = kn.cache
+        win = transition.gather_window(cache, kn, *args, *ctx, VALUE_BYTES,
+                                       wp.include_refills)
+        rows = torch.from_numpy(win.rows).to(self.dev)
+        vic = torch.from_numpy(win.victims.astype(np.int32)).to(self.dev)
+        got = transition.cache_transition(rows, vic, win.used0, win.z0,
+                                          cap=cache.capacity)
+        want = transition.cache_transition_np(
+            win.rows, win.victims, win.used0, win.z0, cap=cache.capacity)
+        max_abs_err([(f"cache_transition.{o}", g.cpu(), torch.from_numpy(w))
+                     for o, g, w in zip(("dec", "nvic", "used"), got, want)])
+        return (transition.twin_verdict(win, wp, args[0], *want,
+                                        cache.capacity), win, want)
+
+    @staticmethod
+    def _kn_replay(kn, pool, keys, kinds, pos, wplan, probe_map) -> None:
+        """A chunk the planner cannot prove, op by op through ArrayDAC's
+        per-op methods (reads as the reference's _scalar_read_dac, writes
+        as fill_after_write of a cached log segment)."""
+        cache = kn.cache
+        st = kn.stats
+        for k, o, p in zip(keys.tolist(), kinds.tolist(), pos.tolist()):
+            st.ops += 1
+            if o == 0:
+                st.reads += 1
+                if cache.lookup(k) is not None:
+                    continue
+                seg = kn.segcache.get(k)
+                if seg is not None:
+                    cache.fill_after_write(k, seg[0], seg[1],
+                                           segment_cached=True)
+                    continue
+                pr = probe_map.get(p)
+                ptr, walked = pr[:2] if pr is not None \
+                    else pool.index_lookup(k)
+                if ptr is not None:
+                    cache.note_miss_rts(walked + 1.0)
+                    cache.fill_after_miss(k, ptr, pool.heap_len[ptr])
+            else:
+                st.writes += 1
+                ptr = int(wplan.ptrs[wplan.wrank[p]])
+                cache.fill_after_write(k, ptr, VALUE_BYTES,
+                                       segment_cached=True)
+                kn._segcache_put(k, ptr, VALUE_BYTES)
+
+    def time_transition(self) -> list[dict]:
+        """Kernel 4 on a 512-op window of the KN path that consumed
+        victims, the launch alone, against the plain torch loop; beside it
+        the wrapper's time (its int32 guard reads the rows' largest value
+        size back) and the launch over as many neutral rows (no scan
+        work). No PyTorch call runs a sequential space
+        machine, so library_ms is null.
+
+        Bound: the bytes the function moves -- each 32-byte row read,
+        each victim consumed read (4 B), three int32 outputs per op
+        written -- at the memory rate. The scan is one dependent chain,
+        so the kernel is latency-bound, as kernel D is."""
+        rows, victims, used0, z0, cap = self.transition_case
+        dev = self.dev
+        r = torch.from_numpy(rows).to(dev)
+        v = torch.from_numpy(victims.astype(np.int32)).to(dev)
+        n = rows.shape[0]
+        nvic = int(transition.cache_transition_np(rows, victims, used0, z0,
+                                                  cap=cap)[1][-1])
+
+        def launch_only():
+            outs = [torch.empty(n, dtype=torch.int32, device=dev)
+                    for _ in range(3)]
+            transition.launch(r, v, used0, z0, cap, *outs)
+            return outs
+
+        wrapper_ms = event_ms(lambda: transition.cache_transition(
+            r, v, used0, z0, cap=cap), REPS)[0]
+        # the same launch over neutral rows: what a launch costs with no
+        # scan work behind it
+        idle = torch.zeros_like(r)
+        launch_ms = event_ms(lambda: transition.launch(
+            idle, v, used0, z0, cap, *(torch.empty(n, dtype=torch.int32,
+                                                   device=dev)
+                                       for _ in range(3))), REPS)[0]
+        return [self._timed(
+            "cache_transition", "cache_transition.cu",
+            "src/repro/kernels/cache_transition/cache_transition.py:125",
+            ("dec", "nvic", "used"), launch_only,
+            lambda: transition.cache_transition_ref(r, v, used0, z0, cap=cap),
+            None, n * 32 + nvic * 4 + 3 * 4 * n, REPS, plain_reps=1,
+            extra={"ops": n, "victims_consumed": nvic,
+                   "queue": int(victims.size), "wrapper_ms": wrapper_ms,
+                   "neutral_rows_ms": launch_ms})]
 
     # --------------------------------------------------- 8. check 5 and 6
     def check_attention(self) -> None:
@@ -1459,6 +1865,8 @@ def main() -> int:
     st = smoke.serve()
     kernels = smoke.time_kernels(st)
     smoke.profile(st)
+    smoke.kn_window(st)
+    kernels += smoke.time_transition()
     del st
     torch.cuda.empty_cache()
     smoke.prefill()

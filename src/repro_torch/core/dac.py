@@ -16,8 +16,13 @@ Each KN's DRAM caches two kinds of entries:
   DEMOTE   LRU value -> shortcut, on misses needing space
 
 Promoted shortcuts inherit their access counts; demoted values are kept
-as shortcuts. The array-backed ``ArrayDAC`` of the batched data plane
-comes with the cache_transition slice.
+as shortcuts.
+
+``ArrayDAC`` is the same policy over dense per-key numpy vectors: the
+KN's cache of the batched data plane, which ``core.transition`` plans a
+window at a time. Like the reference it lives on the host (in DINOMO the
+KN's cache is its DRAM); the device work of that path is the
+cache_transition kernel, the planner's twin.
 """
 
 from __future__ import annotations
@@ -26,9 +31,17 @@ import heapq
 from collections import OrderedDict
 from dataclasses import dataclass
 
+import numpy as np
+
 # Entry overheads (bytes): key + pointer + length (+ access count for values)
 SHORTCUT_BYTES = 32
 VALUE_OVERHEAD_BYTES = 40
+# ArrayDAC keeps a histogram of live-shortcut access counts in
+# [0, CNT_HIST_MAX); the Eq. 1 victim sum (sum of the n cheapest
+# shortcut counts) then reads off the histogram in O(1) instead of an
+# O(n log H) LFU-heap peek per shortcut hit. Counts at or above the
+# bound fall back to the exact peek (rare: such victims are hot).
+CNT_HIST_MAX = 64
 
 
 @dataclass
@@ -278,3 +291,470 @@ class DAC:
         self.used -= SHORTCUT_BYTES
         # inherits access count (paper Sec. 4)
         self._insert_value(key, ent.ptr, ent.length, count=ent.count)
+
+
+class ArrayDAC:
+    """Array-backed DAC: the batched data plane's cache.
+
+    Same policy as ``DAC``, decision-for-decision (property-tested): the
+    difference is representation. Entries live in dense numpy vectors
+    indexed *by key* -- kind (0 absent / 1 shortcut / 2 value), pointer,
+    length, frequency (``count``) and recency (``stamp``, a monotonic
+    clock equal to OrderedDict move-to-end order) -- so a whole batch of
+    operations can be classified with one gather and a run of value hits
+    applied with one scatter-add (see ``classify_batch`` /
+    ``bulk_value_hits``). LRU/LFU victim selection uses the same lazy
+    heaps as the scalar DAC: argmin (stamp, key) over values == LRU
+    order, argmin (count, key) over shortcuts == LFU order.
+
+    The scalar per-op interface is kept in full so this class is a
+    drop-in replacement anywhere a ``DAC`` is used.
+    """
+
+    KIND_NONE, KIND_SHORTCUT, KIND_VALUE = 0, 1, 2
+
+    def __init__(self, capacity_bytes: int, avg_miss_rts_init: float = 2.0,
+                 ema: float = 0.05, initial_keys: int = 1024):
+        self.capacity = capacity_bytes
+        self.used = 0
+        self.avg_miss_rts = avg_miss_rts_init
+        self.avg_shortcut_hit_rts = 1.0
+        self._ema = ema
+        self.stats = CacheStats()
+        n = max(initial_keys, 8)
+        # Every per-key vector is numpy: the planned-transition engine
+        # (core.transition) gathers and scatters whole windows of
+        # kind/ptr/len/count/stamp in single fancy-index operations
+        # (~20x cheaper per element than list indexing), which is where
+        # the batched plane now spends its per-key traffic.  The per-op
+        # replay paths pay ~2x per scalar access versus the old list
+        # layout, but they only run for windows the planner cannot
+        # prove (small or degenerate ones).
+        self.kind = np.zeros(n, np.int8)
+        self.ptr = np.full(n, -1, np.int64)
+        self.length = np.zeros(n, np.int64)
+        self.count = np.zeros(n, np.int64)
+        self.stamp = np.zeros(n, np.int64)
+        self._clock = 1
+        self._lru: list[tuple[int, int]] = []   # lazy heap (stamp, key)
+        self._lfu: list[tuple[int, int]] = []   # lazy heap (count, key)
+        self._nvals = 0
+        self._nshort = 0
+        self._zero_shortcuts = 0   # live shortcuts with count == 0
+        # live-shortcut access-count histogram (see CNT_HIST_MAX)
+        self._cnt_hist = [0] * (CNT_HIST_MAX + 1)
+
+    # ----- sizes -----------------------------------------------------------
+    value_bytes = staticmethod(DAC.value_bytes)
+
+    def _ensure(self, key: int) -> None:
+        n = self.kind.shape[0]
+        if key < n:
+            return
+        m = max(2 * n, key + 1)
+        self.kind = np.concatenate(
+            [self.kind, np.zeros(m - n, np.int8)])
+        self.ptr = np.concatenate([self.ptr, np.full(m - n, -1, np.int64)])
+        self.length = np.concatenate([self.length,
+                                      np.zeros(m - n, np.int64)])
+        self.count = np.concatenate([self.count,
+                                     np.zeros(m - n, np.int64)])
+        self.stamp = np.concatenate([self.stamp,
+                                     np.zeros(m - n, np.int64)])
+
+    # ----- public per-op API (mirrors DAC) ---------------------------------
+    def lookup(self, key: int):
+        self._ensure(key)
+        kd = self.kind[key]
+        if kd == self.KIND_VALUE:
+            c = self.count[key] + 1
+            self.count[key] = c
+            self.stamp[key] = self._clock
+            self._clock += 1
+            self.stats.value_hits += 1
+            return ("value", self.ptr[key], self.length[key])
+        if kd == self.KIND_SHORTCUT:
+            c = self.count[key] + 1
+            self.count[key] = c
+            if c == 1:
+                self._zero_shortcuts -= 1
+            hist = self._cnt_hist
+            hist[c - 1 if c <= CNT_HIST_MAX else CNT_HIST_MAX] -= 1
+            hist[c if c < CNT_HIST_MAX else CNT_HIST_MAX] += 1
+            self.stats.shortcut_hits += 1
+            p, ln = self.ptr[key], self.length[key]
+            if self._should_promote(key, c, ln):
+                self._promote(key)
+                self.stats.promotions += 1
+            return ("shortcut", p, ln)
+        self.stats.misses += 1
+        return None
+
+    def note_miss_rts(self, rts: float) -> None:
+        self.avg_miss_rts += self._ema * (rts - self.avg_miss_rts)
+
+    def fill_after_miss(self, key: int, ptr: int, length: int) -> None:
+        self._ensure(key)
+        if self.used + self.value_bytes(length) <= self.capacity:
+            self._insert_value(key, ptr, length, count=1)
+        else:
+            self._insert_shortcut(key, ptr, length, count=1)
+
+    def fill_after_write(self, key: int, ptr: int, length: int,
+                         segment_cached: bool) -> None:
+        self._ensure(key)
+        prior = self._remove(key)
+        cnt = prior[2] if prior else 0
+        if segment_cached and \
+                self.used + self.value_bytes(length) <= self.capacity:
+            self._insert_value(key, ptr, length, count=cnt)
+        else:
+            self._insert_shortcut(key, ptr, length, count=cnt)
+
+    def invalidate(self, key: int) -> None:
+        self._ensure(key)
+        self._remove(key)
+
+    def demote_to_shortcut(self, key: int) -> None:
+        self._ensure(key)
+        if self.kind[key] == self.KIND_VALUE:
+            p, ln, cnt = self.ptr[key], self.length[key], self.count[key]
+            self.kind[key] = self.KIND_NONE
+            self.used -= self.value_bytes(ln)
+            self._nvals -= 1
+            self._insert_shortcut(key, p, ln, count=cnt)
+
+    def update_pointer(self, key: int, ptr: int, length: int) -> None:
+        self._ensure(key)
+        kd = self.kind[key]
+        if kd == self.KIND_NONE:
+            return
+        delta = length - self.length[key]
+        if kd == self.KIND_VALUE:
+            if self.used + delta > self.capacity:
+                self.demote_to_shortcut(key)
+                self.update_pointer(key, ptr, length)
+                return
+            self.used += delta
+        self.ptr[key] = ptr
+        self.length[key] = length
+
+    def clear(self) -> None:
+        self.kind[:] = 0
+        self.count[:] = 0
+        self.stamp[:] = 0
+        self._lru.clear()
+        self._lfu.clear()
+        self.used = 0
+        self._nvals = 0
+        self._nshort = 0
+        self._zero_shortcuts = 0
+        self._cnt_hist = [0] * (CNT_HIST_MAX + 1)
+
+    def __contains__(self, key: int) -> bool:
+        return key < self.kind.shape[0] and self.kind[key] != 0
+
+    @property
+    def num_values(self) -> int:
+        return self._nvals
+
+    @property
+    def num_shortcuts(self) -> int:
+        return self._nshort
+
+    def bulk_value_hits(self, keys: np.ndarray) -> None:
+        """Apply a run of value hits whose every key is (still) a value
+        entry: frequency += multiplicity, recency = clock at the key's
+        last position in the run -- exactly what per-op lookups do."""
+        n = keys.shape[0]
+        c0 = self._clock
+        if n > 24:
+            u, ridx, mult = np.unique(keys[::-1], return_index=True,
+                                      return_counts=True)
+            self.count[u] += mult                 # u is unique: safe +=
+            self.stamp[u] = c0 + (n - 1 - ridx)
+        else:
+            cnt, stp = self.count, self.stamp
+            for i, k in enumerate(keys.tolist()):
+                cnt[k] += 1
+                stp[k] = c0 + i
+        self._clock += n
+        self.stats.value_hits += n
+
+    def apply_plan(self, plan) -> None:
+        """Apply one planned window's cache transitions in bulk (see
+        core.transition.plan_dac_window).  The plan's scatters are
+        already deduplicated (last op per key wins), victim keys are
+        disjoint from the window's op keys, and LRU records arrive
+        clock-ascending so they extend the lazy heap in place."""
+        kind = self.kind
+        if plan.victims:
+            vk = np.asarray(plan.victims, np.int64)
+            ri = np.asarray(plan.victim_reinsert, bool)
+            kind[vk] = np.where(ri, np.int8(self.KIND_SHORTCUT),
+                                np.int8(self.KIND_NONE))
+        kind[plan.kk_keys] = plan.kk_kind
+        self.count[plan.kk_keys] = plan.kk_cnt
+        if plan.fill_keys.size:
+            self.ptr[plan.fill_keys] = plan.fill_ptr
+            self.length[plan.fill_keys] = plan.fill_len
+        if plan.stp_keys.size:
+            self.stamp[plan.stp_keys] = plan.stp_vals
+        self._clock += plan.clock_delta
+        if plan.lru_records:
+            # every record exceeds everything in the heap: extend is a
+            # valid heap push sequence
+            self._lru.extend(plan.lru_records)
+        if plan.lfu_push:
+            push = heapq.heappush
+            lfu = self._lfu
+            for rec in plan.lfu_push:
+                push(lfu, rec)
+        if plan.hist_inc.size or plan.hist_dec.size:
+            h = np.asarray(self._cnt_hist, np.int64)
+            np.add.at(h, plan.hist_inc, 1)
+            np.subtract.at(h, plan.hist_dec, 1)
+            self._cnt_hist = h.tolist()
+        self.used = plan.used_final
+        self._nvals = plan.nvals_final
+        self._nshort = plan.nshort_final
+        self._zero_shortcuts = plan.zero_final
+        s = self.stats
+        s.value_hits += plan.value_hits
+        s.shortcut_hits += plan.shortcut_hits
+        s.misses += plan.misses
+        s.promotions += plan.promotions
+        s.demotions += plan.demotions
+
+    def counts_array(self) -> np.ndarray:
+        """Frequency vector as numpy (copy; for analysis/tests)."""
+        return self.count.copy()
+
+    def stamps_array(self) -> np.ndarray:
+        """Recency vector as numpy (copy; for analysis/tests)."""
+        return self.stamp.copy()
+
+    # ----- batched API ------------------------------------------------------
+    def classify_batch(self, keys: np.ndarray) -> np.ndarray:
+        """Gather entry kinds for a batch: 0 absent, 1 shortcut, 2 value."""
+        if keys.size:
+            self._ensure(int(keys.max()))
+        return self.kind[keys]
+
+    def _victim_sum_hist(self, n: int, exclude_cnt: int):
+        """Sum of the n smallest live-shortcut counts, excluding one
+        shortcut with count ``exclude_cnt`` (the promotion candidate).
+        None if the n-th victim spills past the histogram range -- the
+        caller then takes the exact heap peek. The sum over the n
+        cheapest counts is a multiset quantity, so tie-breaking by key
+        cannot change it: the result equals the peek's sum exactly."""
+        hist = self._cnt_hist
+        s = 0
+        got = 0
+        for c in range(CNT_HIST_MAX):
+            m = hist[c]
+            if c == exclude_cnt:
+                m -= 1
+            if m <= 0:
+                continue
+            take = m if m <= n - got else n - got
+            s += take * c
+            got += take
+            if got == n:
+                return s
+        return None
+
+    # ----- internals --------------------------------------------------------
+    def _remove(self, key: int):
+        kd = self.kind[key]
+        if kd == self.KIND_NONE:
+            return None
+        out = (self.ptr[key], self.length[key], self.count[key])
+        if kd == self.KIND_VALUE:
+            self.used -= self.value_bytes(out[1])
+            self._nvals -= 1
+        else:
+            self.used -= SHORTCUT_BYTES
+            self._nshort -= 1
+            if out[2] == 0:
+                self._zero_shortcuts -= 1
+            self._cnt_hist[out[2] if out[2] < CNT_HIST_MAX
+                           else CNT_HIST_MAX] -= 1
+        self.kind[key] = self.KIND_NONE
+        return out
+
+    def _insert_value(self, key: int, ptr: int, length: int,
+                      count: int) -> None:
+        self._remove(key)
+        need = self.value_bytes(length)
+        self._make_space(need)
+        if self.used + need > self.capacity:
+            self._insert_shortcut(key, ptr, length, count)
+            return
+        self.kind[key] = self.KIND_VALUE
+        self.ptr[key] = ptr
+        self.length[key] = length
+        self.count[key] = count
+        self.stamp[key] = self._clock
+        heapq.heappush(self._lru, (self._clock, key))
+        self._clock += 1
+        self.used += need
+        self._nvals += 1
+
+    def _insert_shortcut(self, key: int, ptr: int, length: int,
+                         count: int) -> None:
+        self._remove(key)
+        self._make_space(SHORTCUT_BYTES)
+        if self.used + SHORTCUT_BYTES > self.capacity:
+            return  # cache smaller than one entry: degenerate, skip
+        self.kind[key] = self.KIND_SHORTCUT
+        self.ptr[key] = ptr
+        self.length[key] = length
+        self.count[key] = count
+        heapq.heappush(self._lfu, (count, key))
+        self.used += SHORTCUT_BYTES
+        self._nshort += 1
+        if count == 0:
+            self._zero_shortcuts += 1
+        self._cnt_hist[count if count < CNT_HIST_MAX
+                       else CNT_HIST_MAX] += 1
+
+    def _compact_lru(self) -> None:
+        """Rebuild the LRU heap with one live record per value entry.
+        Pure optimization: lazy pops return argmin (stamp, key) of the
+        live entries regardless of stale records, but workloads that
+        refresh every hot stamp per batch otherwise bloat the heap."""
+        ks = np.flatnonzero(self.kind == self.KIND_VALUE)
+        self._lru = list(zip(self.stamp[ks].tolist(), ks.tolist()))
+        heapq.heapify(self._lru)
+
+    def _compact_lfu(self) -> None:
+        ks = np.flatnonzero(self.kind == self.KIND_SHORTCUT)
+        self._lfu = list(zip(self.count[ks].tolist(), ks.tolist()))
+        heapq.heapify(self._lfu)
+
+    def _pop_lru(self) -> int | None:
+        """Pop the least-recently-used *live* value key."""
+        if len(self._lru) > 4 * self._nvals + 64:
+            self._compact_lru()
+        while self._lru:
+            st, k = heapq.heappop(self._lru)
+            if self.kind[k] != self.KIND_VALUE:
+                continue                          # stale record: drop
+            cur = self.stamp[k]
+            if cur != st:
+                heapq.heappush(self._lru, (cur, k))   # refresh
+                continue
+            return k
+        return None
+
+    def _make_space(self, need: int) -> None:
+        """Demote LRU values first, then evict LFU shortcuts (Table 3)."""
+        while self.used + need > self.capacity and self._nvals:
+            k = self._pop_lru()
+            if k is None:
+                break
+            ln = self.length[k]
+            self.used -= self.value_bytes(ln)
+            self._nvals -= 1
+            self.kind[k] = self.KIND_NONE
+            self.stats.demotions += 1
+            if self.used + SHORTCUT_BYTES + need <= self.capacity:
+                c = self.count[k]
+                self.kind[k] = self.KIND_SHORTCUT
+                heapq.heappush(self._lfu, (c, k))
+                self.used += SHORTCUT_BYTES
+                self._nshort += 1
+                if c == 0:
+                    self._zero_shortcuts += 1
+                self._cnt_hist[c if c < CNT_HIST_MAX
+                               else CNT_HIST_MAX] += 1
+        while self.used + need > self.capacity and self._nshort:
+            k = self._pop_lfu()
+            if k is None:
+                break
+            c = self.count[k]
+            self.kind[k] = self.KIND_NONE
+            self.used -= SHORTCUT_BYTES
+            self._nshort -= 1
+            if c == 0:
+                self._zero_shortcuts -= 1
+            self._cnt_hist[c if c < CNT_HIST_MAX
+                           else CNT_HIST_MAX] -= 1
+            self.stats.evictions += 1
+
+    def _pop_lfu(self) -> int | None:
+        """Pop the least-frequently-used *live* shortcut key."""
+        if len(self._lfu) > 4 * self._nshort + 64:
+            self._compact_lfu()
+        while self._lfu:
+            cnt, k = heapq.heappop(self._lfu)
+            if self.kind[k] != self.KIND_SHORTCUT:
+                continue                          # stale record: drop
+            cur = self.count[k]
+            if cur != cnt:
+                heapq.heappush(self._lfu, (cur, k))   # refresh
+                continue
+            return k
+        return None
+
+    def _peek_lfu(self, n: int, exclude: int):
+        """Up-to-n least-frequently-used live shortcuts, dedup'd, in
+        (count, key) order -- identical to DAC._peek_lfu."""
+        if len(self._lfu) > 4 * self._nshort + 64:
+            self._compact_lfu()
+        popped = []
+        out = []
+        seen = set()
+        while self._lfu and len(out) < n:
+            cnt, k = heapq.heappop(self._lfu)
+            if self.kind[k] != self.KIND_SHORTCUT:
+                continue
+            cur = self.count[k]
+            if cur != cnt:
+                heapq.heappush(self._lfu, (cur, k))
+                continue
+            popped.append((cnt, k))
+            if k != exclude and k not in seen:
+                seen.add(k)
+                out.append((cnt, k))
+        for item in popped:
+            heapq.heappush(self._lfu, item)
+        return out
+
+    def _should_promote(self, key: int, cnt: int, length: int) -> bool:
+        """Eq. 1, exactly as DAC._should_promote."""
+        need = self.value_bytes(length) - SHORTCUT_BYTES
+        free = self.capacity - self.used
+        if free >= need:
+            return True
+        deficit = need - free
+        n_evict = -(-deficit // SHORTCUT_BYTES)     # ceil
+        if self._zero_shortcuts >= n_evict:
+            # enough never-hit shortcuts: eviction is free (Eq. 1 rhs 0)
+            return True
+        if self._nshort - 1 < n_evict:
+            return False                 # not enough shortcuts to evict
+        total = self._victim_sum_hist(n_evict, cnt)
+        if total is not None:
+            return cnt * self.avg_shortcut_hit_rts \
+                >= total * self.avg_miss_rts
+        # histogram spill (a needed victim has count >= CNT_HIST_MAX):
+        # fall back to the exact heap peek
+        victims = self._peek_lfu(n_evict, exclude=key)
+        if len(victims) < n_evict:
+            return False
+        evict_cost = sum(c for c, _ in victims) * self.avg_miss_rts
+        return cnt * self.avg_shortcut_hit_rts >= evict_cost
+
+    def _promote(self, key: int) -> None:
+        p, ln, cnt = self.ptr[key], self.length[key], self.count[key]
+        self.kind[key] = self.KIND_NONE
+        self.used -= SHORTCUT_BYTES
+        self._nshort -= 1
+        if cnt == 0:
+            self._zero_shortcuts -= 1
+        self._cnt_hist[cnt if cnt < CNT_HIST_MAX
+                       else CNT_HIST_MAX] -= 1
+        # inherits access count (paper Sec. 4)
+        self._insert_value(key, p, ln, count=cnt)

@@ -5,4 +5,5 @@
 #   flash_attention   prefill attention (kernel 5)
 #   decode_attention  paged decode attention partials (kernel 6)
 #   ssd_scan          Mamba2 chunked SSD scan (kernel 7)
+#   cache_transition  the DAC window planner's space machine (kernel 4)
 # The sequential insert (kernel D) sits behind core.clht.clht_insert.

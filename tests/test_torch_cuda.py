@@ -378,3 +378,110 @@ def test_ssm_prefill_step_on_the_card_matches_the_cpu(dev, s):
     assert _build.launches["ssd_scan"] == n0 + cfg.num_layers
     want = steps.prefill_step(params, tokens, cfg)
     torch.testing.assert_close(got.cpu(), want, atol=5e-2, rtol=5e-2)
+
+
+# ------------------------------------------------------------------ kernel 4
+# The integer space machine: exact against the torch loop and the
+# plain-python reference on every output.
+from repro_torch.kernels import cache_transition as tct  # noqa: E402
+
+
+def transition_case(n, cap_base, seed, value_bytes=128):
+    """tests/test_kernels.py's random windows: op kinds, prior kinds,
+    counts and lengths, a frozen victim queue, a starting occupancy and
+    zero count."""
+    rng = np.random.default_rng(seed)
+    cap = cap_base + int(rng.integers(0, 2048))
+    opk = rng.choice([0, 0, 0, 1, 1, 2], n).astype(np.int64)
+    kd = rng.choice([0, 1, 2], n).astype(np.int64)
+    pc = rng.choice([0, 0, 1, 5], n).astype(np.int64)
+    plen = rng.choice([64, 128, 256], n).astype(np.int64)
+    vic = rng.choice([104, 168, 296], 200).astype(np.int32)
+    rows = tct.encode_window(opk, kd, pc, plen, value_bytes=value_bytes)
+    return rows, vic, int(rng.integers(0, cap)), int(rng.integers(0, 50)), cap
+
+
+def floor_div_case():
+    """Promotes whose Eq. 1 deficit is negative and not a multiple of 32,
+    with the zero count at the truncated quotient: floor division must
+    refuse them."""
+    rows = np.zeros((256, tct.OP_LANES), np.int32)
+    rows[:, 0] = 1                                   # promote
+    rows[:, 2] = 232 + np.arange(256) % 31           # need 200..230
+    cap = 1 << 16
+    return rows, np.full(64, 1064, np.int32), cap - 100, 3, cap
+
+
+def dry_case():
+    """A full cache, write fills and a three-entry victim queue: the
+    make-space loop runs the queue dry and occupancy passes cap."""
+    rows = tct.encode_window(np.ones(256, np.int64), np.zeros(256, np.int64),
+                             np.zeros(256, np.int64), np.zeros(256, np.int64),
+                             value_bytes=1024)
+    cap = 1 << 15
+    return rows, np.full(3, 1064, np.int32), cap - 10, 0, cap
+
+
+def make_space_window():
+    """A 512-op window in the make-space regime at the KN's widths: a
+    1 GiB cache full of 1 KB values, shortcut reads (promotes) and writes,
+    one victim per insert."""
+    rng = np.random.default_rng(7)
+    n = 512
+    opk = rng.choice([0, 1], n).astype(np.int64)
+    kd = rng.choice([1, 2], n).astype(np.int64)
+    pc = rng.choice([0, 1, 3], n).astype(np.int64)
+    rows = tct.encode_window(opk, kd, pc, np.full(n, 1024, np.int64),
+                             value_bytes=1024)
+    cap = 1 << 30
+    return rows, np.full(1100, 1064, np.int32), cap - 500, 40, cap
+
+
+@pytest.mark.parametrize("case", [
+    lambda: transition_case(256, 4096, 0),
+    lambda: transition_case(512, 8192, 1),
+    lambda: transition_case(256, 2048, 2), floor_div_case, dry_case,
+    make_space_window], ids=["sweep0", "sweep1", "sweep2", "floor_div", "dry",
+                             "make_space_512"])
+def test_cache_transition_matches_plain(dev, case):
+    rows, vic, used0, z0, cap = case()
+    n0 = _build.launches["cache_transition"]
+    got = tct.cache_transition(torch.from_numpy(rows).to(dev),
+                               torch.from_numpy(vic).to(dev), used0, z0,
+                               cap=cap)
+    assert _build.launches["cache_transition"] == n0 + 1
+    ref = tct.cache_transition_ref(torch.from_numpy(rows).to(dev),
+                                   torch.from_numpy(vic).to(dev), used0, z0,
+                                   cap=cap)
+    plain = tct.cache_transition_np(rows, vic, used0, z0, cap=cap)
+    for g, r, p in zip(got, ref, plain):
+        assert torch.equal(g, r)
+        np.testing.assert_array_equal(g.cpu().numpy(), p)
+
+
+def test_cache_transition_edges_are_hit(dev):
+    """The floor-division case refuses the promotes (a truncating
+    division would take them), the dry case passes cap."""
+    rows, vic, used0, z0, cap = floor_div_case()
+    dec, nvic, used = tct.cache_transition(torch.from_numpy(rows).to(dev),
+                                           torch.from_numpy(vic).to(dev),
+                                           used0, z0, cap=cap)
+    assert not bool(dec.any())
+    rows, vic, used0, z0, cap = dry_case()
+    dec, nvic, used = tct.cache_transition(torch.from_numpy(rows).to(dev),
+                                           torch.from_numpy(vic).to(dev),
+                                           used0, z0, cap=cap)
+    assert int(nvic[-1]) == 3 and int(used.max()) > cap
+
+
+def test_cache_transition_refuses_bad_inputs(dev):
+    rows, vic, used0, z0, cap = transition_case(256, 4096, 0)
+    r, v = torch.from_numpy(rows).to(dev), torch.from_numpy(vic).to(dev)
+    with pytest.raises(TypeError):
+        tct.cache_transition(r.long(), v, used0, z0, cap=cap)
+    with pytest.raises(ValueError):
+        tct.cache_transition(r[:, :4], v, used0, z0, cap=cap)
+    with pytest.raises(OverflowError):
+        tct.cache_transition(r, v, used0, z0, cap=2**31 - 100)
+    with pytest.raises(ValueError, match="mixed"):
+        tct.cache_transition(r, v.cpu(), used0, z0, cap=cap)

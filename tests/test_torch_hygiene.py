@@ -10,10 +10,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import clht as tc  # noqa: E402
 from repro_torch.core import log as tl  # noqa: E402
 from repro_torch import device, state  # noqa: E402
+from repro_torch.kernels import cache_transition as tct  # noqa: E402
 from repro_torch.kvcache import paged_store  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
 from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
@@ -22,6 +25,12 @@ from repro_torch.models.model_zoo import build_model  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the modules of the KN window slice, which the scan must reach
+KN_SLICE = ("core/dac.py", "core/cluster.py", "core/transition.py",
+            "kernels/cache_transition/__init__.py",
+            "kernels/cache_transition/cache_transition.py",
+            "kernels/cache_transition/ops.py",
+            "kernels/cache_transition/ref.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -43,10 +52,16 @@ def test_port_imports_no_jax_and_no_reference(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_the_scan_reaches_the_kn_window_slice():
+    for name in KN_SLICE:
+        assert PORT / name in PORT_FILES, name
+
+
 def test_every_kernel_package_has_ref_and_parity_test():
     kernels = sorted(p for p in (PORT / "kernels").iterdir()
                      if p.is_dir() and not p.name.startswith("_"))
-    assert [k.name for k in kernels] == ["clht_probe", "decode_attention",
+    assert [k.name for k in kernels] == ["cache_transition", "clht_probe",
+                                         "decode_attention",
                                          "flash_attention", "log_merge",
                                          "ssd_scan"]
     tests = "\n".join(p.read_text()
@@ -56,7 +71,8 @@ def test_every_kernel_package_has_ref_and_parity_test():
         assert f"repro_torch.kernels import {k.name}" in tests, \
             f"{k.name} is named in no parity test"
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
-    assert sources == ["clht_insert.cu", "clht_probe.cu", "flash_attention.cu",
+    assert sources == ["cache_transition.cu", "clht_insert.cu",
+                       "clht_probe.cu", "flash_attention.cu",
                        "log_merge.cu", "paged_decode_attention.cu",
                        "ssd_scan.cu"]
 
@@ -77,6 +93,9 @@ def test_every_kernel_package_has_ref_and_parity_test():
     lambda: ssm_lm.init_cache(get_smoke_config("mamba2-2.7b"), 1),
     lambda: build_model(get_smoke_config("mamba2-2.7b")).init_cache(1),
     lambda: mamba2.mamba_state_init(get_smoke_config("mamba2-2.7b"), 1),
+    lambda: tct.plan_window_transitions(*np.zeros((4, 16), np.int64),
+                                        np.zeros(1), 0, 0, cap=4096,
+                                        value_bytes=64),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
