@@ -46,7 +46,8 @@ heads, vocab 151,936; random bf16 weights from a seeded generator):
   serve        PagedServer(cfg=CONFIG): 8 requests of 256-token prompts
                sharing a 128-token prefix, a worker added after the
                fourth (logits unchanged), 64 greedy decode steps each
-               (paged_decode_attention per page owner)
+               (paged_decode_attention, one launch a layer over the
+               page owners' stacked tables)
   equivalence  the server's logits for a 256-token prompt (token by token
                through paged_decode_attention) against prefill's
                (flash_attention)
@@ -107,6 +108,7 @@ from repro_torch.kernels import decode_attention as decode  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import log_merge as merge  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
+from repro_torch.kvcache import paged_store  # noqa: E402
 from repro_torch.kvcache.paged_store import decode_over_owners  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -150,6 +152,15 @@ SSM_B, SSM_S, SSM_REPS = 4, 2048, 3     # prefill prompts x tokens, calls
 SSM_CHUNK = 64
 TF_PROMPT = 256                         # teacher-forced decode tokens
 GREEDY_B, GREEDY_STEPS = 4, 64
+# the two attention kernels' times in the design they replace (commit
+# 6166d87: kernel 5 on mma.sync, kernel 6 one block per (row, kv head),
+# one launch per page owner), measured by this script on the same seeded
+# inputs on an NVIDIA H100 80GB HBM3 at 700 W; printed beside the new
+# times
+BEFORE = "commit 6166d87, NVIDIA H100 80GB HBM3, 700.00 W"
+BEFORE_MS = {"flash_attention": 0.45325759798288345,
+             "paged_decode_attention": 0.017422399949282408,
+             "paged_decode_attention_64x2048": 0.4994655936956406}
 # stated tolerances (atol = rtol), see tests/test_torch_cuda.py
 TOL = {torch.float32: {"flash_attention": 3e-5,
                        "paged_decode_attention": 2e-5, "ssd_scan": 3e-4},
@@ -1289,22 +1300,29 @@ class Smoke:
               "launches": {k: counts[k] for k in
                            ("flash_attention", "paged_decode_attention")}})
         # kernel 6 on the inputs the server gives it: one more decode
-        # step of the last request, every owner's launch in every layer
-        # held against the plain version
-        with uncounted(), recorded(serve_mod,
+        # step of the last request, one launch a layer over the owners'
+        # stacked tables, each owner's row held against the plain version
+        # on that row alone
+        with uncounted(), recorded(paged_store,
                                    "paged_decode_partial") as calls:
             srv.decode(sids[-1], 1)
+        if len(calls) != cfg.num_layers:
+            raise AssertionError(f"one decode step launched kernel 6 "
+                                 f"{len(calls)} times, not once a layer")
         self.path_err["paged_decode_attention"] = close_err(
-            [(f"paged_decode_attention.step{i}.{o}", x, y)
+            [(f"paged_decode_attention.step{i}.row{r}.{o}", x[r:r + 1], y)
              for i, (args, out) in enumerate(calls)
+             for r in range(args[0].shape[0])
              for o, x, y in zip("acc m l".split(), out,
-                                decode.paged_decode_ref(*args))],
+                                decode.paged_decode_ref(
+                                    *(a[r:r + 1] for a in args[:1]),
+                                    *args[1:3],
+                                    *(a[r:r + 1] for a in args[3:])))],
             TOL[torch.float32]["paged_decode_attention"])
-        # the launch with the most valid pages is the one timed
-        self.decode_args = max(
-            calls, key=lambda c: int((c[0][3] >= 0).sum()))[0]
+        self.decode_args = calls[-1][0]
         emit({"check": "paged_decode_attention on one decode step",
-              "launches": len(calls), "slots": self.decode_args[3].shape[1],
+              "launches": len(calls), "owners": self.decode_args[0].shape[0],
+              "slots": self.decode_args[3].shape[1],
               "max_abs_err": self.path_err["paged_decode_attention"]})
         return srv
 
@@ -1393,9 +1411,11 @@ class Smoke:
     # ---------------------------------------------------- 12. time 5, 6
     def time_attention(self) -> list[dict]:
         """Kernels 5 and 6 on inputs the main path gave them (layer 0 of
-        a prefill call; the decode step's launch with the most pages)
-        against their plain versions; the last runs of each are held
-        against each other. Then kernel 6 at a batched decode shape,
+        a prefill call; the last layer's stacked launch of the decode
+        step, and its owner row with the most pages alone) against their
+        plain versions; the last runs of each are held against each
+        other. Each redesigned kernel's time is printed beside its time
+        in the design it replaced (BEFORE_MS). Then kernel 6 at a batched decode shape,
         which the server does not form (it decodes one sequence at a
         time), on a line of its own."""
         cfg = get_config(ARCH)
@@ -1418,9 +1438,10 @@ class Smoke:
             compare=lambda pairs: close_err(
                 pairs, TOL[torch.bfloat16]["flash_attention"]))]
 
-        # kernel 6 as the server calls it: one sequence, one owner's
-        # table with -1 tails, over one layer of the f32 pool. No single
-        # torch call returns the partials, so library_ms is null.
+        # kernel 6 as the server calls it: one sequence's owners stacked
+        # as rows of one launch (q a stride-0 view, tables with -1
+        # tails), over one layer of the f32 pool. No single torch call
+        # returns the partials, so library_ms is null.
         qd, kp, vp, pt, pos, lens = self.decode_args
         kh, ps = kp.shape[2], kp.shape[1]
         rows_valid = ((pos[:, :, None] + torch.arange(ps, device=dev))
@@ -1434,13 +1455,36 @@ class Smoke:
             lambda: decode.paged_decode_ref(qd, kp, vp, pt, pos, lens),
             None, self._decode_bytes(qd, kp, pt, tokens), REPS,
             flops=4 * tokens * h * d, peak=F32_FLOPS,
-            extra={"sequences": qd.shape[0], "slots": pt.shape[1],
-                   "pages": int((pt >= 0).sum()), "tokens": tokens},
+            extra={"owners": qd.shape[0], "slots": pt.shape[1],
+                   "pages": int((pt >= 0).sum()), "tokens": tokens,
+                   "splits": decode.split_count(
+                       qd.shape[0] * kh, pt.shape[1], ps,
+                       torch.cuda.get_device_properties(
+                           dev).multi_processor_count)},
             compare=lambda pairs: close_err(
                 pairs, TOL[torch.float32]["paged_decode_attention"])))
         for row in rows:
             row["max_abs_err"] = max(row["max_abs_err"],
                                      self.path_err[row["name"]])
+        # the owner row with the most pages alone: one launch of the
+        # shape the previous design launched once per owner
+        r = int((pt >= 0).sum(dim=1).argmax())
+        one = [t[r:r + 1] for t in (qd, pt, pos, lens)]
+        one_ms = event_ms(lambda: decode.paged_decode_attention(
+            one[0], kp, vp, *one[1:]), REPS)[0]
+        emit({"redesigned": "flash_attention", "ms": rows[0]["ms"],
+              "before_ms": BEFORE_MS["flash_attention"],
+              "inputs": "prefill's layer-0 views, (4, 2048, 16, 64) bf16",
+              "before": BEFORE})
+        emit({"redesigned": "paged_decode_attention",
+              "stacked_launch_ms": rows[1]["ms"], "owners": qd.shape[0],
+              "one_owner_launch_ms": one_ms,
+              "before_ms_per_owner_launch":
+                  BEFORE_MS["paged_decode_attention"],
+              "before_ms_per_layer": BEFORE_MS["paged_decode_attention"]
+              * qd.shape[0],
+              "inputs": "one decode step's owner tables, one layer",
+              "before": BEFORE})
 
         # a batched decode step: DECODE_B sequences of DECODE_CTX tokens,
         # each over its own pages, f32 pages as on the server
@@ -1474,6 +1518,10 @@ class Smoke:
                 pairs, TOL[torch.float32]["paged_decode_attention"]))
         emit({"batched_decode_bound_ms": batch["bound_ms"],
               "bound_by": batch["bound_by"]})
+        emit({"redesigned": "paged_decode_attention", "ms": batch["ms"],
+              "before_ms": BEFORE_MS["paged_decode_attention_64x2048"],
+              "inputs": f"{DECODE_B} x {DECODE_CTX} batched decode",
+              "before": BEFORE})
         return rows
 
     # ------------------------------------------------- 13. check kernel 7
@@ -1816,8 +1864,9 @@ class Smoke:
         """Kernel 6's bytes: each valid token's K and V row, q, the page
         table and positions, the lengths, and the partials written."""
         b, h, d = q.shape
+        q_rows = 1 if q.stride(0) == 0 else b    # stacked owners share q
         return (2 * tokens * pages.shape[2] * d * pages.element_size()
-                + q.numel() * q.element_size() + 2 * table.numel() * 4
+                + q_rows * h * d * q.element_size() + 2 * table.numel() * 4
                 + b * 4 + b * h * (d + 2) * 4)
 
     def _timed(self, name, source, replaces, outs, fn, plain, library,

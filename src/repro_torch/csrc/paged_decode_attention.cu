@@ -2,39 +2,59 @@
 //
 // Replaces the Pallas kernel
 // src/repro/kernels/decode_attention/decode_attention.py:
-// paged_decode_attention (_decode_kernel): one decode query per sequence
-// over the KV pages its page table names, returning the un-normalised
+// paged_decode_attention (_decode_kernel): one decode query per row over
+// the KV pages its page table names, returning the un-normalised
 // flash-decoding partials (acc, m, l) that ops.merge_partials combines
 // across page owners. GQA: the G = H / KH query heads of a kv head share
 // its K/V rows.
 //
-// The TPU grid stepped over one page per step and carried (m, l, acc) in
-// VMEM scratch. Here one block owns one (sequence, kv head) and walks the
-// sequence's page-table slots itself, as a run of logical tokens (slot,
-// offset) cut into tiles of 64. For each tile the block first decides
-// which tokens are valid: a slot with page id -1 (or an id past the
-// pool), or whose page_pos is at or past the length, is skipped, and so
-// is every token at or past the length. A tile without a valid token is
-// skipped whole and nothing of it is read (the JAX kernel reads page 0
-// for an invalid slot and masks it). The valid K and V rows are staged in
-// shared memory as f32 with 16-byte loads, then the G x 64 scores, the
-// online-softmax update of (m, l) and acc += p.V run from shared memory.
-// A sequence without a valid slot returns m = -1e30, l = 0, acc = 0, as
-// the JAX kernel and paged_decode_ref do.
-//
-// Mixed types: the wrapper converts q to f32 (B x H x D values); the
-// kernel is templated over the page type (f32 on the server, bf16 as
-// well), and all arithmetic is f32.
-//
 // Bound on an H100 SXM: bytes. Each valid token's K and V rows are read
-// once (2 x D x 4 bytes per kv head for f32 pages), against about 4 x D
-// floating-point operations per query head; at the main path's decode
-// batch (64 sequences x 2048 tokens x 16 kv heads x 64, f32 pages) that
-// is 1.07 GB, about 0.32 ms at 3.35 TB/s. The design keeps every page
-// byte read exactly once per (sequence, kv head) and issues each tile's
-// row loads before any of its arithmetic, so many 16-byte loads are in
-// flight per block; each block holds about 36 KB of shared memory, so
-// several blocks share an SM.
+// once (2 x D x 4 bytes per kv head for f32 pages) against about 4 x D
+// floating-point operations per query head. At the server's shape (one
+// sequence, three page owners stacked as three rows, 16 kv heads, 120
+// valid tokens) that is under 1 MB, 0.3 us at 3.35 TB/s: a launch there
+// is latency, the length of the chain of dependent steps, not bytes. At a
+// batched decode of 64 sequences x 2048 tokens it is 1.07 GB, 0.32 ms.
+//
+// The TPU grid stepped over one page per step and carried (m, l, acc) in
+// VMEM scratch. Here the work of a row is split across the card
+// (flash-decoding split-K):
+//
+// - A block owns one (row, kv head, group of up to 8 query heads) and one
+//   contiguous run of page-table slots; the wrapper picks the number of
+//   runs (splits) from the shape, about two waves of the SMs, no run
+//   shorter than a 64-token tile, none when the rows already fill the
+//   card. The 64 x 2048 shape keeps one block per (row, kv head).
+// - Inside a block every group of lanes that spans one K/V row (16 bytes
+//   a lane: 16 lanes for an f32 row of 64, 8 for bf16) is a worker that
+//   owns every W-th token of the run. It keeps q and its share of acc in
+//   registers, issues the 16-byte loads of four tokens' K and V rows
+//   before their arithmetic, takes the dot products with __shfl_xor_sync
+//   across its lanes, and carries its own online-softmax state (m, l,
+//   acc). One shared-memory pass merges the workers at the end.
+// - A token is read only if it is valid: a slot with page id -1 (or an
+//   id past the pool), or whose page_pos is at or past the length, is
+//   skipped, and so is every token at or past the length. A row without
+//   a valid token returns m = -1e30, l = 0, acc = 0, as the JAX kernel
+//   and paged_decode_ref do.
+// - One launch per call: a split writes its partial to a scratch buffer,
+//   fences it (__threadfence) and takes a ticket from a per-(row, kv
+//   head, head group) counter. The block that draws the last ticket
+//   reads every split's partial (through L2) in split order, merges them
+//   with the log-sum-exp combine, writes the outputs and resets the
+//   counter to 0 for the next launch. The merge order is fixed, so the
+//   result does not depend on which block finishes last; a row whose
+//   splits are all empty merges to (0, -1e30, 0) exactly (every m is
+//   -1e30, so every weight is exp(0) = 1 times l = 0).
+//
+// Mixed types: q is read in its own type (f32 or bf16) through a row
+// stride that may be 0 (the stacked owners of one sequence share one q
+// row); pages are f32 (the server) or bf16; all arithmetic is f32.
+//
+// Measured on an H100 SXM at 700 W (chip_smoke.py, PERF.md): 11.7 us a
+// launch for the server's three stacked owners (the design before took
+// 17.4 us for each owner's own launch), 0.350 ms at 64 x 2048 against
+// its 0.321 ms bound (0.500 before).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -44,249 +64,335 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's NEG_INF
 constexpr int kThreads = 128;
-constexpr int kTile = 64;  // logical tokens per shared-memory tile
-constexpr int kPad = 4;    // f32 row padding: conflict-free row reads
+constexpr int kWarps = kThreads / 32;
 
-// f32 words of shared memory before the row offsets, rounded up to an
-// even count so that the int64 offsets are 8-byte aligned
-__host__ __device__ __forceinline__ int smem_floats(int group, int d) {
-  const int n = 2 * kTile * (d + kPad) + 2 * group * d + group * kTile +
-                3 * group;
-  return (n + 1) & ~1;
+// 16 bytes of page data -> f32
+__device__ __forceinline__ void widen(const uint4& raw, float (&x)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(&raw);
+  x[0] = f.x;
+  x[1] = f.y;
+  x[2] = f.z;
+  x[3] = f.w;
 }
-
-// 16 bytes of page data -> f32 in shared memory
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(src));
-  *reinterpret_cast<float4*>(dst) = x;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4 x = __ldg(reinterpret_cast<const uint4*>(src));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+__device__ __forceinline__ void widen(const uint4& raw, float (&x)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int GB>
+struct Shape {
+  static constexpr int kVec = 16 / sizeof(T);        // elements a lane
+  static constexpr int kLanes = D / kVec;            // lanes a row
+  static constexpr int kRowsPerWarp = 32 / kLanes;   // workers a warp
+  static constexpr int kWorkers = kWarps * kRowsPerWarp;
+  static constexpr int kUnroll = GB <= 2 ? 4 : 2;    // tokens a worker a step
+  static_assert(kLanes >= 1 && kLanes <= 32, "row must fit a warp");
+};
+
+template <typename T, int D, int GB>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const float* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int32_t* __restrict__ page_table,
+    const void* __restrict__ q, int q_bf16, int64_t q_row_stride,
+    const T* __restrict__ k_pages, const T* __restrict__ v_pages,
+    const int32_t* __restrict__ page_table,
     const int32_t* __restrict__ page_pos, const int32_t* __restrict__ lengths,
     int64_t num_pages, int heads, int kv_heads, int slots, int page_size,
     float scale, float* __restrict__ acc_out, float* __restrict__ m_out,
-    float* __restrict__ l_out) {
-  constexpr int kRow = D + kPad;
-  constexpr int kVec = 16 / sizeof(T);  // page elements per 16-byte load
-  extern __shared__ float4 smem4[];
-  const int group = heads / kv_heads;
-  float* const k_s = reinterpret_cast<float*>(smem4);  // [kTile][kRow]
-  float* const v_s = k_s + kTile * kRow;               // [kTile][kRow]
-  float* const q_s = v_s + kTile * kRow;               // [G][D]
-  float* const acc_s = q_s + group * D;                // [G][D]
-  float* const s_s = acc_s + group * D;                // [G][kTile]
-  float* const m_s = s_s + group * kTile;              // [G]
-  float* const l_s = m_s + group;                      // [G]
-  float* const alpha_s = l_s + group;                  // [G]
-  // element offset of each tile token's row in the pages, -1 if invalid
-  int64_t* const row_s =
-      reinterpret_cast<int64_t*>(k_s + smem_floats(group, D));
+    float* __restrict__ l_out, float* __restrict__ partials,
+    int32_t* __restrict__ tickets) {
+  using S = Shape<T, D, GB>;
+  constexpr int V = S::kVec, LN = S::kLanes, W = S::kWorkers,
+                U = S::kUnroll;
+  __shared__ float m_s[W][GB], l_s[W][GB];
+  __shared__ float acc_s[W][GB][D];
+  __shared__ int last_s;
 
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int group = heads / kv_heads, gcount = group / GB;
+  const int kh = blockIdx.y / gcount, gc = blockIdx.y % gcount;
+  const int b = blockIdx.z;
+  const int h0 = kh * group + gc * GB;  // first query head of the block
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int worker = (tid >> 5) * S::kRowsPerWarp + lane / LN;
+  const int part = lane % LN;  // this lane's 16 bytes of a row
   const int32_t len = lengths[b];
-  const int64_t h0 = static_cast<int64_t>(b) * heads + kh * group;
 
-  for (int i = tid; i < group * D; i += kThreads) {
-    q_s[i] = q[h0 * D + i];
-    acc_s[i] = 0.f;
-  }
-  for (int g = tid; g < group; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
+  float qv[GB][V], acc[GB][V], m[GB], l[GB];
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+    const int64_t at = b * q_row_stride + (h0 + g) * D + part * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      qv[g][e] = q_bf16 ? __bfloat162float(
+                              static_cast<const __nv_bfloat16*>(q)[at + e])
+                        : static_cast<const float*>(q)[at + e];
+      acc[g][e] = 0.f;
+    }
+    m[g] = kNegInf;
+    l[g] = 0.f;
   }
 
-  const int64_t ntok = static_cast<int64_t>(slots) * page_size;
-  for (int64_t t0 = 0; t0 < ntok; t0 += kTile) {
-    int valid = 0;
-    if (tid < kTile) {
-      const int64_t t = t0 + tid;
-      int64_t row = -1;
-      if (t < ntok) {
-        const int slot = static_cast<int>(t / page_size);
-        const int off = static_cast<int>(t % page_size);
-        const int32_t pid = page_table[static_cast<int64_t>(b) * slots + slot];
-        const int32_t base = page_pos[static_cast<int64_t>(b) * slots + slot];
+  const int64_t s0 = static_cast<int64_t>(split) * slots / nsplit;
+  const int64_t s1 = static_cast<int64_t>(split + 1) * slots / nsplit;
+  const int64_t t_end = s1 * page_size;
+  const int32_t* table = page_table + static_cast<int64_t>(b) * slots;
+  const int32_t* poss = page_pos + static_cast<int64_t>(b) * slots;
+  for (int64_t t0 = s0 * page_size; t0 < t_end; t0 += W * U) {
+    int64_t row[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t t = t0 + u * W + worker;
+      row[u] = -1;
+      if (t < t_end) {
+        const int64_t slot = t / page_size;
+        const int off = static_cast<int>(t - slot * page_size);
+        const int32_t pid = table[slot];
+        const int32_t base = poss[slot];
         if (pid >= 0 && pid < num_pages && base < len && base + off < len)
-          row = ((static_cast<int64_t>(pid) * page_size + off) * kv_heads +
-                 kh) * D;
-      }
-      row_s[tid] = row;
-      valid = row >= 0;
-    }
-    // block-uniform: a tile with no valid token reads nothing
-    if (!__syncthreads_or(valid)) continue;
-
-    for (int i = tid; i < kTile * (D / kVec); i += kThreads) {
-      const int r = i / (D / kVec), c = (i % (D / kVec)) * kVec;
-      const int64_t row = row_s[r];
-      float* kd = k_s + r * kRow + c;
-      float* vd = v_s + r * kRow + c;
-      if (row >= 0) {
-        load16(k_pages + row + c, kd);
-        load16(v_pages + row + c, vd);
-      } else {
-        // zeros, so that p = 0 times the row stays 0
-        for (int j = 0; j < kVec; ++j) kd[j] = vd[j] = 0.f;
+          row[u] = ((static_cast<int64_t>(pid) * page_size + off) * kv_heads +
+                    kh) * D + part * V;
       }
     }
-    __syncthreads();
-
-    for (int i = tid; i < group * kTile; i += kThreads) {
-      const int g = i / kTile, r = i % kTile;
-      float s = kNegInf;
-      if (row_s[r] >= 0) {
-        const float4* qv = reinterpret_cast<const float4*>(q_s + g * D);
-        const float4* kv = reinterpret_cast<const float4*>(k_s + r * kRow);
+    // every load of the step in flight before any arithmetic
+    uint4 kr[U], vr[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      kr[u] = vr[u] = make_uint4(0, 0, 0, 0);
+      if (row[u] >= 0) {
+        kr[u] = __ldg(reinterpret_cast<const uint4*>(k_pages + row[u]));
+        vr[u] = __ldg(reinterpret_cast<const uint4*>(v_pages + row[u]));
+      }
+    }
+    float s[U][GB];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kx[V];
+      widen(kr[u], kx);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
         float dot = 0.f;
 #pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
-          const float4 a = qv[c], x = kv[c];
-          dot += a.x * x.x + a.y * x.y + a.z * x.z + a.w * x.w;
-        }
-        s = dot * scale;
-      }
-      s_s[i] = s;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per query row
-    for (int g = warp; g < group; g += kThreads / 32) {
-      float* s_row = s_s + g * kTile;
-      float mx = kNegInf;
-      for (int r = lane; r < kTile; r += 32) mx = fmaxf(mx, s_row[r]);
+        for (int e = 0; e < V; ++e) dot = fmaf(qv[g][e], kx[e], dot);
 #pragma unroll
-      for (int o = 16; o; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int r = lane; r < kTile; r += 32) {
-        const float p = row_s[r] >= 0 ? expf(s_row[r] - m_new) : 0.f;
-        s_row[r] = p;
-        sum += p;
+        for (int o = LN / 2; o; o >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, o);
+        s[u][g] = row[u] >= 0 ? dot * scale : -INFINITY;
       }
+    }
 #pragma unroll
-      for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
+    for (int g = 0; g < GB; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+      const float alpha = expf(m[g] - mx);
+      m[g] = mx;
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[g][e] *= alpha;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vx[V];
+      widen(vr[u], vx);
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const float p = expf(s[u][g] - m[g]);  // 0 for an invalid token
+        l[g] += p;
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[g][e] = fmaf(p, vx[e], acc[g][e]);
       }
     }
-    __syncthreads();
-
-    for (int i = tid; i < group * D; i += kThreads) {
-      const int g = i / D, d = i % D;
-      const float* p = s_s + g * kTile;
-      float a = acc_s[i] * alpha_s[g];
-#pragma unroll 8
-      for (int r = 0; r < kTile; ++r) a += p[r] * v_s[r * kRow + d];
-      acc_s[i] = a;
-    }
-    __syncthreads();
   }
 
-  for (int i = tid; i < group * D; i += kThreads) acc_out[h0 * D + i] = acc_s[i];
-  for (int g = tid; g < group; g += kThreads) {
-    m_out[h0 + g] = m_s[g];
-    l_out[h0 + g] = l_s[g];
+  // merge the block's workers
+#pragma unroll
+  for (int g = 0; g < GB; ++g) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc_s[worker][g][part * V + e] = acc[g][e];
+    if (part == 0) {
+      m_s[worker][g] = m[g];
+      l_s[worker][g] = l[g];
+    }
   }
+  __syncthreads();
+  const int64_t out_row = static_cast<int64_t>(b) * heads + h0;
+  for (int i = tid; i < GB * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float mx = kNegInf;
+    for (int w = 0; w < W; ++w) mx = fmaxf(mx, m_s[w][g]);
+    float a = 0.f, sum = 0.f;
+    for (int w = 0; w < W; ++w) {
+      const float wt = expf(m_s[w][g] - mx);
+      a += wt * acc_s[w][g][d];
+      sum += wt * l_s[w][g];
+    }
+    if (nsplit == 1) {
+      acc_out[(out_row + g) * D + d] = a;
+      if (d == 0) {
+        m_out[out_row + g] = mx;
+        l_out[out_row + g] = sum;
+      }
+    } else {
+      float* p = partials + ((out_row + g) * nsplit + split) * (D + 2);
+      p[d] = a;
+      if (d == 0) {
+        p[D] = mx;
+        p[D + 1] = sum;
+      }
+    }
+  }
+  if (nsplit == 1) return;
+
+  // the last split of this (row, kv head, head group) merges them all
+  __threadfence();
+  __syncthreads();
+  const int64_t ticket_id =
+      static_cast<int64_t>(b) * gridDim.y + blockIdx.y;
+  if (tid == 0)
+    last_s = atomicAdd(&tickets[ticket_id], 1) == nsplit - 1;
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  for (int i = tid; i < GB * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    const float* p = partials + (out_row + g) * nsplit * (D + 2);
+    float mx = kNegInf;
+    for (int sp = 0; sp < nsplit; ++sp)
+      mx = fmaxf(mx, __ldcg(p + sp * (D + 2) + D));
+    float a = 0.f, sum = 0.f;
+    for (int sp = 0; sp < nsplit; ++sp) {
+      const float* ps = p + sp * (D + 2);
+      const float wt = expf(__ldcg(ps + D) - mx);
+      a += wt * __ldcg(ps + d);
+      sum += wt * __ldcg(ps + D + 1);
+    }
+    acc_out[(out_row + g) * D + d] = a;
+    if (d == 0) {
+      m_out[out_row + g] = mx;
+      l_out[out_row + g] = sum;
+    }
+  }
+  if (tid == 0) tickets[ticket_id] = 0;
 }
 
-size_t smem_bytes(int group, int d) {
-  return smem_floats(group, d) * sizeof(float) + kTile * sizeof(int64_t);
-}
-
-template <typename T, int D>
-cudaError_t launch(const float* q, const void* k_pages, const void* v_pages,
+template <typename T, int D, int GB>
+cudaError_t launch(const void* q, int q_bf16, int64_t q_row_stride,
+                   const void* k_pages, const void* v_pages,
                    const int32_t* page_table, const int32_t* page_pos,
                    const int32_t* lengths, int64_t batch, int64_t heads,
                    int64_t kv_heads, int64_t num_pages, int64_t page_size,
-                   int64_t slots, float scale, float* acc, float* m, float* l,
+                   int64_t slots, int64_t nsplit, float scale, float* acc,
+                   float* m, float* l, float* partials, int32_t* tickets,
                    cudaStream_t stream) {
-  const int group = static_cast<int>(heads / kv_heads);
-  const size_t smem = smem_bytes(group, D);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_decode_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(static_cast<unsigned>(kv_heads),
+  const int64_t gcount = heads / kv_heads / GB;
+  const dim3 grid(static_cast<unsigned>(nsplit),
+                  static_cast<unsigned>(kv_heads * gcount),
                   static_cast<unsigned>(batch));
-  paged_decode_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
-      page_table, page_pos, lengths, num_pages, static_cast<int>(heads),
-      static_cast<int>(kv_heads), static_cast<int>(slots),
-      static_cast<int>(page_size), scale, acc, m, l);
+  paged_decode_kernel<T, D, GB><<<grid, kThreads, 0, stream>>>(
+      q, q_bf16, q_row_stride, static_cast<const T*>(k_pages),
+      static_cast<const T*>(v_pages), page_table, page_pos, lengths,
+      num_pages, static_cast<int>(heads), static_cast<int>(kv_heads),
+      static_cast<int>(slots), static_cast<int>(page_size), scale, acc, m, l,
+      partials, tickets);
   return cudaGetLastError();
 }
 
+template <typename T, int D>
+cudaError_t dispatch_gb(int64_t gb, const void* q, int q_bf16,
+                        int64_t q_row_stride, const void* k_pages,
+                        const void* v_pages, const int32_t* page_table,
+                        const int32_t* page_pos, const int32_t* lengths,
+                        int64_t batch, int64_t heads, int64_t kv_heads,
+                        int64_t num_pages, int64_t page_size, int64_t slots,
+                        int64_t nsplit, float scale, float* acc, float* m,
+                        float* l, float* partials, int32_t* tickets,
+                        cudaStream_t stream) {
+#define DINOMO_DECODE_GB(G)                                                  \
+  case G:                                                                    \
+    return launch<T, D, G>(q, q_bf16, q_row_stride, k_pages, v_pages,        \
+                           page_table, page_pos, lengths, batch, heads,      \
+                           kv_heads, num_pages, page_size, slots, nsplit,    \
+                           scale, acc, m, l, partials, tickets, stream);
+  switch (gb) {
+    DINOMO_DECODE_GB(1)
+    DINOMO_DECODE_GB(2)
+    DINOMO_DECODE_GB(4)
+    DINOMO_DECODE_GB(8)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef DINOMO_DECODE_GB
+}
+
 template <typename T>
-cudaError_t dispatch_d(int64_t d, const float* q, const void* k_pages,
+cudaError_t dispatch_d(int64_t d, int64_t gb, const void* q, int q_bf16,
+                       int64_t q_row_stride, const void* k_pages,
                        const void* v_pages, const int32_t* page_table,
                        const int32_t* page_pos, const int32_t* lengths,
                        int64_t batch, int64_t heads, int64_t kv_heads,
                        int64_t num_pages, int64_t page_size, int64_t slots,
-                       float scale, float* acc, float* m, float* l,
+                       int64_t nsplit, float scale, float* acc, float* m,
+                       float* l, float* partials, int32_t* tickets,
                        cudaStream_t stream) {
-#define DINOMO_DECODE_CASE(DIM)                                              \
+#define DINOMO_DECODE_D(DIM)                                                 \
   case DIM:                                                                  \
-    return launch<T, DIM>(q, k_pages, v_pages, page_table, page_pos,         \
-                          lengths, batch, heads, kv_heads, num_pages,        \
-                          page_size, slots, scale, acc, m, l, stream);
+    return dispatch_gb<T, DIM>(gb, q, q_bf16, q_row_stride, k_pages,         \
+                               v_pages, page_table, page_pos, lengths,       \
+                               batch, heads, kv_heads, num_pages, page_size, \
+                               slots, nsplit, scale, acc, m, l, partials,    \
+                               tickets, stream);
   switch (d) {
-    DINOMO_DECODE_CASE(16)
-    DINOMO_DECODE_CASE(32)
-    DINOMO_DECODE_CASE(64)
-    DINOMO_DECODE_CASE(128)
+    DINOMO_DECODE_D(16)
+    DINOMO_DECODE_D(32)
+    DINOMO_DECODE_D(64)
+    DINOMO_DECODE_D(128)
     default:
       return cudaErrorInvalidValue;
   }
-#undef DINOMO_DECODE_CASE
+#undef DINOMO_DECODE_D
 }
 
 }  // namespace
 
-// dtype 0: float32 pages, 1: bfloat16 pages. q is f32 (B, H, D); pages
-// (NP, PS, KH, D); page_table, page_pos (B, P) and lengths (B,) int32;
-// acc (B, H, D), m and l (B, H) f32. Every tensor is contiguous.
+// dtype: the pages' type, q_dtype: q's (0 float32, 1 bfloat16). q is
+// (B, H, D) with rows ``q_row_stride`` elements apart (0: one row for
+// all); pages (NP, PS, KH, D); page_table, page_pos (B, P) and lengths
+// (B,) int32; acc (B, H, D), m and l (B, H) f32. ``head_block`` query
+// heads of a kv head share a block (it divides H / KH); ``nsplit`` runs of
+// slots split each row, and then ``partials`` holds B x H x nsplit x
+// (D + 2) floats and ``tickets`` B x KH x (H / KH / head_block) int32
+// zeros, left zero again by the launch.
 extern "C" int paged_decode_attention_launch(
-    int64_t dtype, const float* q, const void* k_pages, const void* v_pages,
-    const int32_t* page_table, const int32_t* page_pos,
-    const int32_t* lengths, int64_t batch, int64_t heads, int64_t kv_heads,
-    int64_t num_pages, int64_t page_size, int64_t slots, int64_t d,
-    float scale, float* acc, float* m, float* l, cudaStream_t stream) {
+    int64_t dtype, int64_t q_dtype, const void* q, int64_t q_row_stride,
+    const void* k_pages, const void* v_pages, const int32_t* page_table,
+    const int32_t* page_pos, const int32_t* lengths, int64_t batch,
+    int64_t heads, int64_t kv_heads, int64_t num_pages, int64_t page_size,
+    int64_t slots, int64_t d, int64_t head_block, int64_t nsplit,
+    float scale, float* acc, float* m, float* l, float* partials,
+    int32_t* tickets, cudaStream_t stream) {
   if (batch <= 0) return 0;
-  if (kv_heads <= 0 || heads % kv_heads || page_size <= 0 || slots < 0)
+  if (kv_heads <= 0 || heads % kv_heads || page_size <= 0 || slots < 0 ||
+      head_block <= 0 || (heads / kv_heads) % head_block || nsplit <= 0 ||
+      nsplit > 65535 || batch > 65535 || (q_dtype != 0 && q_dtype != 1) ||
+      (nsplit > 1 && (partials == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int q_bf16 = static_cast<int>(q_dtype);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(d, q, k_pages, v_pages, page_table, page_pos,
-                            lengths, batch, heads, kv_heads, num_pages,
-                            page_size, slots, scale, acc, m, l, stream);
+    err = dispatch_d<float>(d, head_block, q, q_bf16, q_row_stride, k_pages,
+                            v_pages, page_table, page_pos, lengths, batch,
+                            heads, kv_heads, num_pages, page_size, slots,
+                            nsplit, scale, acc, m, l, partials, tickets,
+                            stream);
   else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(d, q, k_pages, v_pages, page_table,
-                                    page_pos, lengths, batch, heads, kv_heads,
-                                    num_pages, page_size, slots, scale, acc, m,
-                                    l, stream);
+    err = dispatch_d<__nv_bfloat16>(
+        d, head_block, q, q_bf16, q_row_stride, k_pages, v_pages, page_table,
+        page_pos, lengths, batch, heads, kv_heads, num_pages, page_size,
+        slots, nsplit, scale, acc, m, l, partials, tickets, stream);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

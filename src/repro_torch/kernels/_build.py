@@ -41,8 +41,8 @@ SIGNATURES = {
     "log_merge_sorted_launch": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
     "clht_insert_launch": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P),
     "flash_attention_launch": (_I, _P, _P, _P, _P, *(_I,) * 18, _F, _I, _P),
-    "paged_decode_attention_launch": (_I, *(_P,) * 6, *(_I,) * 7, _F, _P, _P,
-                                      _P, _P),
+    "paged_decode_attention_launch": (_I, _I, _P, _I, *(_P,) * 5,
+                                      *(_I,) * 9, _F, *(_P,) * 6),
     "ssd_scan_launch": (_I, *(_P,) * 7, *(_I,) * 13, _P),
     "cache_transition_launch": (_P, _I, _P, *(_I,) * 4, _P, _P, _P, _P),
 }

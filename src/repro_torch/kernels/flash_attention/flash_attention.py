@@ -1,7 +1,7 @@
 """Kernel 5, prefill attention: multi-head / grouped-query attention with
 an online softmax in f32 and the causal mask of the reference's Pallas
-kernel (``csrc/flash_attention.cu``: bf16 inputs on the tensor cores,
-f32 inputs on the CUDA cores).
+kernel (``csrc/flash_attention.cu``: bf16 inputs through TMA and wgmma
+on the tensor cores, f32 inputs on the CUDA cores).
 
 CPU tensors run the plain version in ref.py; CUDA tensors run the kernel.
 A causal call with Sq != Sk raises on both: there the reference's kernel
@@ -69,8 +69,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    # the bf16 kernel reads q, k, v rows as 16-byte vectors and writes
-    # pairs of outputs
+    # the bf16 kernel loads q, k and v with TMA, which needs 16-byte
+    # aligned rows and strides, and writes pairs of outputs
     align = 16 if q.dtype == torch.bfloat16 else 4
     strides = [s for t in (q, k, v) for s in _strides(t, align)]
     strides += _strides(out, 4)

@@ -189,27 +189,63 @@ class PagedKVController:
         return self.ring.members
 
 
-def device_tables(tables: dict, device) -> list[tuple[torch.Tensor,
-                                                      torch.Tensor]]:
-    """The (page_table, page_pos) pairs of the owners that own at least
-    one page, in worker order, as int32 tensors on ``device``."""
-    return [(torch.as_tensor(pt, device=device),
-             torch.as_tensor(pos, device=device))
-            for pt, pos in tables.values() if (pt >= 0).sum()]
+@dataclass
+class StackedOwners:
+    """The page tables of the owners that own at least one page of a
+    decode batch, stacked in worker order as the rows of one
+    paged_decode_attention call: owner i's batch occupies rows
+    i * B .. (i + 1) * B - 1, each with its length."""
+    page_table: torch.Tensor      # (O * B, P) int32
+    page_pos: torch.Tensor        # (O * B, P) int32
+    lengths: torch.Tensor         # (O * B,) int32
+    owners: int
+
+
+def stack_owners(tables: dict, lengths, device) -> StackedOwners | None:
+    """``tables`` ({worker: (table (B, P), pos (B, P))}, numpy) and the
+    batch's ``lengths`` as one StackedOwners on ``device``, sent in one
+    copy; None when no owner holds a page."""
+    owned = [(pt, pos) for pt, pos in tables.values() if (pt >= 0).sum()]
+    if not owned:
+        return None
+    lens = np.asarray(lengths, np.int32).reshape(-1)
+    rows, slots = len(owned) * owned[0][0].shape[0], owned[0][0].shape[1]
+    flat = np.concatenate([np.concatenate([pt for pt, _ in owned]).ravel(),
+                           np.concatenate([pos for _, pos in owned]).ravel(),
+                           np.tile(lens, len(owned))]).astype(np.int32)
+    dev = torch.as_tensor(flat, device=device)
+    n = rows * slots
+    return StackedOwners(dev[:n].view(rows, slots),
+                         dev[n:2 * n].view(rows, slots), dev[2 * n:],
+                         len(owned))
+
+
+def owner_partials(q: torch.Tensor, pool: PagePool, layer: int,
+                   stacked: StackedOwners) -> list:
+    """Each owner's partials (acc, m, l) over its pages, in worker order,
+    from one paged_decode_attention call over the stacked rows; q (B, H,
+    D) is the same for every owner (a stride-0 view when B = 1)."""
+    b = q.shape[0]
+    rows = q.expand(stacked.owners, -1, -1) if b == 1 else \
+        q.repeat(stacked.owners, 1, 1)
+    acc, m, l = paged_decode_partial(rows, pool.k[layer], pool.v[layer],
+                                     stacked.page_table, stacked.page_pos,
+                                     stacked.lengths)
+    return [(acc[i * b:(i + 1) * b], m[i * b:(i + 1) * b],
+             l[i * b:(i + 1) * b]) for i in range(stacked.owners)]
 
 
 def decode_over_owners(q: torch.Tensor, pool: PagePool, layer: int,
                        tables: dict[str, tuple[np.ndarray, np.ndarray]],
                        lengths) -> torch.Tensor:
-    """Run paged decode per owner and merge the partials: the same result
-    as one owner over all pages, which is why ownership remaps are free.
+    """Paged decode per owner, merged: the same result as one owner over
+    all pages, which is why ownership remaps are free. The owners' partials
+    come from one kernel launch over their stacked tables and merge in
+    worker order, as the reference's per-owner calls do.
 
     q: (B, H, D); returns (B, H, D) in q's type."""
-    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
-    parts = [paged_decode_partial(q, pool.k[layer], pool.v[layer], pt, pos,
-                                  lengths)
-             for pt, pos in device_tables(tables, q.device)]
-    if not parts:
+    stacked = stack_owners(tables, lengths, q.device)
+    if stacked is None:
         raise ValueError("no owned pages")
-    acc, m, l = merge_partials(parts)
+    acc, m, l = merge_partials(owner_partials(q, pool, layer, stacked))
     return normalize(acc, m, l).to(q.dtype)

@@ -6,10 +6,12 @@ write); decode attention runs per page owner and merges the partials
 (selective replication); and workers can be added or removed mid-flight
 with zero page movement, leaving the logits unchanged.
 
-On the card each owner's partial is one launch of the
-paged_decode_attention kernel. The reference passes ``use_kernel=False``
-there (its JAX-on-CPU opt-out); the port has no such switch: a CUDA pool
-goes through the kernel, a CPU pool through its plain version.
+On the card the owners' partials of a layer come from one launch of the
+paged_decode_attention kernel over their stacked page tables, which go
+to the card in one copy a token. The reference runs one call per owner
+and passes ``use_kernel=False`` there (its JAX-on-CPU opt-out); the port
+has no such switch: a CUDA pool goes through the kernel, a CPU pool
+through its plain version.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
@@ -26,11 +28,11 @@ import torch
 
 from ..configs import get_smoke_config
 from ..device import resolve_device
-from ..kernels.decode_attention.ops import merge_partials, \
-    paged_decode_partial
+from ..kernels.decode_attention.ops import merge_partials
 from ..kernels.decode_attention.ref import normalize
 from ..kvcache.paged_store import (PagedKVController, decode_over_owners,
-                                   device_tables, pool_append, pool_init)
+                                   owner_partials, pool_append, pool_init,
+                                   stack_owners)
 from ..kvcache.prefix_cache import PrefixCache
 from ..models.layers import mlp, qkv_proj, rmsnorm, unembed
 from ..models.model_zoo import build_model
@@ -94,10 +96,8 @@ class PagedServer:
         seq = self.ctl.sequences[sid]
         old_len = seq.length
         pid, off = self.ctl.append_slot(sid)
-        tables = device_tables(self.ctl.page_tables([sid]), self.device) \
-            if old_len else []
-        lengths = torch.tensor([old_len], dtype=torch.int32,
-                               device=self.device)
+        stacked = stack_owners(self.ctl.page_tables([sid]), [old_len],
+                               self.device) if old_len else None
         positions = self._positions(old_len)
         h = self._embed(tok)
         new_k, new_v = [], []
@@ -108,10 +108,8 @@ class PagedServer:
             new_k.append(k0)
             new_v.append(v0)
             parts = [self._self_partial(q[:, 0], k0, v0)]
-            for pt, ppos in tables:
-                parts.append(paged_decode_partial(
-                    q[:, 0], self.pool.k[li], self.pool.v[li], pt, ppos,
-                    lengths))
+            if stacked is not None:
+                parts += owner_partials(q[:, 0], self.pool, li, stacked)
             att = normalize(*merge_partials(parts)).to(h.dtype)  # (1, H, D)
             h = h + att.reshape(1, 1, -1) @ lp["attn"]["wo"]
             h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)

@@ -164,3 +164,35 @@ def test_ownership_split_merge_invariance(nsplit):
     np.testing.assert_allclose(
         f32(merged), f32(jd.normalize(*jd.merge_partials(jparts))),
         atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("page_size", [1, 4, 8, 16, 24, 64, 100])
+def test_split_count_covers_every_slot_once(page_size):
+    """The kernel's split of a row's slots, for every shape on a grid:
+    the runs cover every slot exactly once, in order; none is shorter
+    than one tile of tokens unless it is the only run; there are no
+    more runs than tiles; and rows that already fill two waves of the
+    SMs are not split."""
+    for blocks in (1, 2, 3, 16, 48, 100, 131, 263, 264, 265, 1024, 4096):
+        for slots in (0, 1, 2, 7, 8, 9, 41, 63, 64, 65, 256, 512, 4097):
+            n = td.split_count(blocks, slots, page_size)
+            bounds = td.split_bounds(n, slots)
+            assert n >= 1 and bounds[0] == 0 and bounds[-1] == slots
+            sizes = np.diff(bounds)
+            assert (sizes >= 0).all() and sizes.sum() == slots
+            if n > 1:
+                assert (sizes * page_size >= td.TILE).all(), \
+                    (blocks, slots, page_size, n)
+            tiles = -(-slots * page_size // td.TILE)
+            assert n <= max(1, tiles)
+            if blocks >= 2 * td.H100_SMS:
+                assert n == 1
+            if blocks < 2 * td.H100_SMS and slots * page_size >= \
+                    2 * td.TILE * 2 * td.H100_SMS:
+                assert n > 1      # a long row on an idle card is split
+
+
+@pytest.mark.parametrize("group,block", [(1, 1), (2, 2), (3, 1), (6, 2),
+                                         (8, 8), (12, 4), (16, 8)])
+def test_head_block_divides_the_group(group, block):
+    assert td.head_block(group) == block

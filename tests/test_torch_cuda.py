@@ -152,6 +152,17 @@ from repro_torch.kernels import flash_attention as tf  # noqa: E402
     (1, 2, 2, 256, 256, 16, True, torch.bfloat16),
     (1, 4, 2, 100, 300, 64, False, torch.bfloat16),
     (1, 16, 16, 2048, 2048, 64, True, torch.bfloat16),
+    # the wgmma kernel's edges: one query, ragged 128-row blocks, GQA
+    # group 4, head dims 16 and 32, non-causal Sq != Sk both ways
+    (1, 4, 1, 1, 1, 64, True, torch.bfloat16),
+    (1, 8, 2, 127, 127, 64, True, torch.bfloat16),
+    (2, 4, 1, 128, 128, 32, True, torch.bfloat16),
+    (1, 4, 4, 129, 129, 16, True, torch.bfloat16),
+    (1, 8, 2, 200, 200, 32, True, torch.bfloat16),
+    (1, 4, 1, 77, 300, 16, False, torch.bfloat16),
+    (1, 4, 2, 300, 77, 32, False, torch.bfloat16),
+    (1, 8, 2, 2048, 2048, 32, True, torch.bfloat16),
+    (1, 4, 4, 2048, 2048, 16, True, torch.bfloat16),
 ])
 def test_flash_attention_matches_plain(dev, b, h, kh, sq, sk, d, causal,
                                        dtype):
@@ -223,6 +234,103 @@ def test_paged_decode_matches_plain(dev, b, h, kh, d, ps, npages, p, dtype):
         ref = td.paged_decode_ref(qq, kp, vp, *tables)
         assert_partials_close(got, ref,
                               3e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+def server_case(dev, context, owners=1, slots=None, seed=0, ps=8, kh=16,
+                d=64):
+    """The server's shape (f32 pages of 8 tokens, 16 kv heads of 64, one
+    query head each): one sequence of ``context`` tokens whose pages are
+    dealt round-robin to ``owners`` owners, each owner's table compacted
+    to the front and padded with -1 to ``slots``, one row per owner."""
+    rng = np.random.default_rng(seed)
+    npages = -(-context // ps)
+    slots = slots or npages
+    pool = npages + 8
+    kp = torch.from_numpy(rng.standard_normal((pool, ps, kh, d)).astype(
+        np.float32)).to(dev)
+    vp = torch.from_numpy(rng.standard_normal((pool, ps, kh, d)).astype(
+        np.float32)).to(dev)
+    q = torch.from_numpy(rng.standard_normal((1, kh, d)).astype(
+        np.float32)).to(dev)
+    pids = rng.choice(pool, npages, replace=False)
+    pt = np.full((owners, slots), -1, np.int32)
+    pos = np.zeros((owners, slots), np.int32)
+    for j, pid in enumerate(pids):
+        o, c = j % owners, j // owners
+        pt[o, c], pos[o, c] = pid, j * ps
+    lens = np.full((owners,), context, np.int32)
+    tables = [torch.from_numpy(x).to(dev) for x in (pt, pos, lens)]
+    return q, kp, vp, tables
+
+
+@pytest.mark.parametrize("context", [1, 7, 64, 65, 120, 2048, 4096])
+def test_paged_decode_splits_match_plain(dev, context):
+    """One sequence at the server's widths, from one split to many: each
+    launch merges its splits in-kernel and equals the plain version."""
+    q, kp, vp, tables = server_case(dev, context)
+    slots = tables[0].shape[1]
+    n = td.split_count(16, slots, 8)
+    assert (n > 1) == (context >= 128)
+    n0 = _build.launches["paged_decode_attention"]
+    got = td.paged_decode_attention(q, kp, vp, *tables)
+    assert _build.launches["paged_decode_attention"] == n0 + 1
+    assert_partials_close(got, td.paged_decode_ref(q, kp, vp, *tables), 2e-5)
+    # the counters are left at zero: the next launch gives the same
+    again = td.paged_decode_attention(q, kp, vp, *tables)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+def test_paged_decode_stacked_owners_equal_separate_calls(dev):
+    """The server's three owners as three rows of one call (q a stride-0
+    view, lengths repeated) give each owner's separate call bit for bit,
+    where both split the slots alike, as at the server's 41 slots."""
+    q, kp, vp, (pt, pos, lens) = server_case(dev, 120, owners=3, slots=41)
+    assert td.split_count(3 * 16, 41, 8) == td.split_count(16, 41, 8) > 1
+    stacked = td.paged_decode_attention(q.expand(3, -1, -1), kp, vp, pt, pos,
+                                        lens)
+    for o in range(3):
+        alone = td.paged_decode_attention(q, kp, vp, pt[o:o + 1],
+                                          pos[o:o + 1], lens[o:o + 1])
+        for x, y in zip(stacked, alone):
+            assert torch.equal(x[o:o + 1], y)
+    assert_partials_close(stacked, td.paged_decode_ref(
+        q.expand(3, -1, -1), kp, vp, pt, pos, lens), 2e-5)
+
+
+@pytest.mark.parametrize("context", [120, 2048])
+def test_paged_decode_bf16_q_equals_q_converted_first(dev, context):
+    q, kp, vp, tables = server_case(dev, context, seed=1)
+    qb = q.to(torch.bfloat16)
+    for x, y in zip(td.paged_decode_attention(qb, kp, vp, *tables),
+                    td.paged_decode_attention(qb.float(), kp, vp, *tables)):
+        assert torch.equal(x, y)
+
+
+def test_paged_decode_all_invalid_rows_in_a_split_batch(dev):
+    """Rows without a valid token inside a batch whose rows are split:
+    exactly (0, -1e30, 0), and no page of theirs is read."""
+    q, kp, vp, (pt, pos, lens) = server_case(dev, 2048, owners=2, seed=2)
+    pt, pos = pt.repeat(2, 1), pos.repeat(2, 1)
+    lens = torch.tensor([2048, 2048, 0, 2048], dtype=torch.int32, device=dev)
+    pt[1] = -1                                  # no page at all
+    pos[3] = 4096                               # every slot past the length
+    assert td.split_count(4 * 16, pt.shape[1], 8) > 1
+    got = td.paged_decode_attention(q.expand(4, -1, -1), kp, vp, pt, pos,
+                                    lens)
+    ref = td.paged_decode_ref(q.expand(4, -1, -1), kp, vp, pt, pos, lens)
+    assert_partials_close(got, ref, 2e-5)
+    for row in (1, 2, 3):
+        assert float(got[0][row].abs().max()) == 0
+        assert float(got[2][row].abs().max()) == 0
+        assert bool((got[1][row] == np.float32(-1e30)).all())
+    # rows 1-3 read nothing: poisoning every page they do not share with
+    # row 0 leaves them as they are
+    kp[...] = float("nan")
+    again = td.paged_decode_attention(q.expand(4, -1, -1), kp, vp, pt, pos,
+                                      lens)
+    for x, y in zip(again, got):
+        assert torch.equal(x[1:], y[1:])
 
 
 def test_paged_decode_all_invalid_tables(dev):

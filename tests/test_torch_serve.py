@@ -24,6 +24,7 @@ from repro.launch import serve as jserve  # noqa: E402
 from repro_torch import state  # noqa: E402
 from repro_torch.core import dac as tdac  # noqa: E402
 from repro_torch.core import hashring as thr  # noqa: E402
+from repro_torch.kernels import decode_attention as td  # noqa: E402
 from repro_torch.kvcache import paged_store as tps  # noqa: E402
 from repro_torch.kvcache import prefix_cache as tpc  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
@@ -240,3 +241,63 @@ def test_server_logits_survive_reconfiguration(servers):
     np.testing.assert_allclose(f32(ta), f32(tb), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(f32(ja), f32(jb), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(f32(tb), f32(jb), atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("batch,workers", [(1, 3), (2, 3), (1, 5)])
+def test_stacked_owners_equal_the_per_owner_loop_and_the_reference(
+        batch, workers):
+    """decode_over_owners stacks every owner's table as rows of one call:
+    on the CPU that equals, bit for bit, the per-owner loop it replaces
+    (one call per owner, merged in worker order), and the JAX package's
+    decode_over_owners at 2e-5 (f32, another order of sums)."""
+    rng = np.random.default_rng(batch * 10 + workers)
+    L, NP, PS, KH, D, H = 2, 64, 4, 2, 16, 4
+    names = [f"w{i}" for i in range(workers)]
+    tc = tps.PagedKVController(NP, PS, names)
+    jc = jps.PagedKVController(NP, PS, names)
+    kv = rng.standard_normal((2, L, NP, PS, KH, D)).astype(np.float32)
+    tpool = tps.PagePool(k=torch.from_numpy(kv[0]), v=torch.from_numpy(kv[1]))
+    jpool = jps.PagePool(k=jnp.asarray(kv[0]), v=jnp.asarray(kv[1]))
+    lengths = []
+    for sid in range(batch):
+        n = int(rng.integers(20, 60))
+        for ctl in (tc, jc):
+            ctl.new_sequence(sid)
+            for _ in range(n):
+                ctl.append_slot(sid)
+        lengths.append(n)
+    sids = list(range(batch))
+    tables = tc.page_tables(sids)
+    assert tables.keys() == jc.page_tables(sids).keys()
+    assert sum(bool((pt >= 0).sum()) for pt, _ in tables.values()) > 1
+    q = rng.standard_normal((batch, H, D)).astype(np.float32)
+    qt = torch.from_numpy(q)
+    for layer in range(L):
+        got = tps.decode_over_owners(qt, tpool, layer, tables, lengths)
+        lens = torch.tensor(lengths, dtype=torch.int32)
+        parts = [td.paged_decode_partial(qt, tpool.k[layer], tpool.v[layer],
+                                         torch.from_numpy(pt),
+                                         torch.from_numpy(pos), lens)
+                 for pt, pos in tables.values() if (pt >= 0).sum()]
+        loop = td.normalize(*td.merge_partials(parts))
+        assert torch.equal(got, loop)
+        want = jps.decode_over_owners(jnp.asarray(q), jpool, layer,
+                                      jc.page_tables(sids), lengths)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_stack_owners_sends_one_table_per_owner_with_pages():
+    tables = {"a": (np.array([[3, -1]], np.int32), np.array([[0, 0]],
+                                                            np.int32)),
+              "b": (np.array([[-1, -1]], np.int32), np.zeros((1, 2),
+                                                             np.int32)),
+              "c": (np.array([[5, 7]], np.int32), np.array([[8, 16]],
+                                                           np.int32))}
+    st = tps.stack_owners(tables, [20], "cpu")
+    assert st.owners == 2
+    assert st.page_table.tolist() == [[3, -1], [5, 7]]
+    assert st.page_pos.tolist() == [[0, 0], [8, 16]]
+    assert st.lengths.tolist() == [20, 20]
+    assert st.page_table.is_contiguous() and st.lengths.dtype == torch.int32
+    assert tps.stack_owners({"b": tables["b"]}, [20], "cpu") is None
