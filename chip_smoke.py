@@ -21,7 +21,8 @@ CLHT index, log segment and value heap:
   read-back  every key written while serving, through lookup (its
              pointer) and kvs_lookup (its value row)
 
-and times each kernel at the shapes the serving path gives it. Then one
+and times each kernel at the shapes the serving path gives it (kernel D
+also on the slow-path entries of one served write batch). Then one
 KN serves the same pool from its DAC cache:
 
   kn_window  an ArrayDAC of 1 GiB (the paper's KN cache against its 32 GB
@@ -126,7 +127,6 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
-TF32_FLOPS = 494.7e12       # H100 SXM dense TF32 tensor-core rate
 SPIN_CYCLES = 2_000_000     # about 1 ms of device spin before a timed call
 
 DPM_KERNELS = ("clht_probe", "kvs_lookup_fused", "log_merge_sorted",
@@ -161,6 +161,13 @@ BEFORE = "commit 6166d87, NVIDIA H100 80GB HBM3, 700.00 W"
 BEFORE_MS = {"flash_attention": 0.45325759798288345,
              "paged_decode_attention": 0.017422399949282408,
              "paged_decode_attention_64x2048": 0.4994655936956406}
+# kernels 7 and D in the design they replace (commit 61d41b4: kernel 7 on
+# the f32 CUDA cores, kernel D one thread over the batch), measured by this
+# script at the same shapes on an NVIDIA H100 80GB HBM3 at 700 W
+BEFORE_SLICE6 = "commit 61d41b4, NVIDIA H100 80GB HBM3, 700.00 W"
+BEFORE_SLICE6_MS = {"ssd_scan": 2.857639992237091,
+                    "clht_insert": 11.547859191894531,
+                    "clht_insert_write_batch": 6.395474}
 # stated tolerances (atol = rtol), see tests/test_torch_cuda.py
 TOL = {torch.float32: {"flash_attention": 3e-5,
                        "paged_decode_attention": 2e-5, "ssd_scan": 3e-4},
@@ -794,6 +801,44 @@ class Smoke:
             lambda t: insert_outs(clht.clht_insert_plain(t, dk, dp)), None,
             d_bytes, max(2, REPS // 4), setup=copy, plain_reps=1,
             extra={"entries": k, "lines_walked": probes}))
+
+        # D where the write path spends it (an extra timing, not a row of
+        # the kernels line): the slow-path entries of one served
+        # write_heavy_update batch -- the updates log_merge leaves because
+        # their key lives in an overflow bucket, the hot keys many times
+        # over -- into the table as log_merge left it
+        with uncounted():
+            base = self.clone_table(table)
+            wp = torch.arange(heap.head, heap.head + wk.numel(),
+                              dtype=torch.int32, device=dev)
+            _, _, wok = merge.log_merge(
+                base.lines, clht.bucket_of(wk, table.num_buckets), wk, wp)
+            slow = (wok != 1).nonzero().flatten()
+            sk, sp = wk[slow].contiguous(), wp[slow].contiguous()
+        sgroups = torch.unique(torch.stack([
+            clht.bucket_of(sk, table.num_buckets), sk]), dim=1).shape[1]
+        sprobes = int(clht.clht_lookup(base, sk)[2].sum())
+        ws = self._timed(
+            "clht_insert", "clht_insert.cu", "src/repro/core/clht.py:184",
+            ("lines", "overflow_head", "old", "ok", "num_new"),
+            lambda t: insert_outs(clht.clht_insert(t, sk, sp)),
+            lambda t: insert_outs(clht.clht_insert_plain(t, sk, sp)), None,
+            sk.numel() * 16 + sprobes * 32 + sgroups * 32,
+            max(2, REPS // 4), setup=lambda: (self.clone_table(base),),
+            plain_reps=1, label="clht_insert_write_batch",
+            extra={"entries": sk.numel(), "chain_key_groups": sgroups,
+                   "lines_walked": sprobes})
+        del base
+        emit({"redesigned": "clht_insert", "ms": out[-1]["ms"],
+              "before_ms": BEFORE_SLICE6_MS["clht_insert"],
+              "inputs": f"the load's mean slow-path batch, {k} fresh keys",
+              "write_batch_ms": ws["ms"],
+              "write_batch_before_ms":
+                  BEFORE_SLICE6_MS["clht_insert_write_batch"],
+              "write_batch_inputs": f"{sk.numel()} slow-path entries of one "
+                                    f"served write_heavy_update batch, "
+                                    f"{sgroups} (chain, key) groups",
+              "before": BEFORE_SLICE6})
         return out
 
     def profile(self, st) -> None:
@@ -1589,6 +1634,7 @@ class Smoke:
         self.counts["ssd_scan"] = launches
         peak = torch.cuda.max_memory_allocated() / 2**30
         sec = sorted(secs)[len(secs) // 2]
+        self.ssm_prefill_s = sec
         emit({"phase": "ssm_prefill", "arch": SSM_ARCH,
               "params": cfg.param_count(), "init_s": init_s,
               "batch": SSM_B, "seq": SSM_S, "seconds": secs,
@@ -1824,13 +1870,16 @@ class Smoke:
         scan. No single PyTorch call computes the SSD scan, so library_ms
         is null.
 
-        Bound: the FLOP the function needs, at the TF32 tensor-core rate
-        (the kernel's math is f32): per (b, h, chunk) L (L + 1) P for S x
-        (S is lower triangular with its diagonal) and 4 L N P for C h and
-        the state update; per (b, group, chunk) L (L + 1) N for C B^T,
-        which the heads of a group share. Bytes are x and y once, b, c
-        and dt once, a and d, at the memory rate. The f32 CUDA-core rate,
-        which this kernel uses, is printed beside it."""
+        Bound: the FLOP the function needs, at the bf16 tensor-core rate
+        (the bf16 kernel's products run there): per (b, h, chunk)
+        L (L + 1) P for S x (S is lower triangular with its diagonal) and
+        4 L N P for C h and the state update; per (b, group, chunk)
+        L (L + 1) N for C B^T, which the heads of a group share. Bytes
+        are x and y once, b, c and dt once, a and d, at the memory rate,
+        which bounds it. The f32 CUDA-core rate, at which the f32 kernel
+        runs, is printed beside it. Also printed: kernel 7's share of a
+        prefill call (its launches a call times its time, over the
+        call's median)."""
         x, dt, a, b, c, d = self.ssd_args
         bsz, s, h, p = x.shape
         grp, n = b.shape[2], b.shape[3]
@@ -1846,17 +1895,26 @@ class Smoke:
             "src/repro/kernels/ssd_scan/ssd_scan.py:70", ("y",),
             lambda: (ssd_k.ssd(x, dt, a, b, c, d, chunk=lc),),
             lambda: (ssd_k.ssd_chunked(x, dt, a, b, c, d, lc),),
-            None, nbytes, REPS, plain_reps=3, flops=flops, peak=TF32_FLOPS,
+            None, nbytes, REPS, plain_reps=3, flops=flops, peak=BF16_FLOPS,
             extra={"shape": [bsz, s, h, p], "state": n, "groups": grp,
                    "chunk": lc, "gflop": flops / 1e9, "bytes": nbytes,
                    "f32_cuda_core_bound_ms": flops / F32_FLOPS * 1e3},
             compare=ssd_path_err)
         row["max_abs_err"] = max(row["max_abs_err"], self.path_err["ssd_scan"])
+        layers = self.counts["ssd_scan"] // SSM_REPS
         emit({"ssd_scan_needed_tflops": flops / row["ms"] / 1e9,
               "share_of_bound": row["bound_ms"] / row["ms"],
               "bound_by": row["bound_by"],
               "share_of_f32_cuda_core_bound": flops / F32_FLOPS * 1e3
-              / row["ms"]})
+              / row["ms"],
+              "share_of_prefill_call": layers * row["ms"]
+              / (self.ssm_prefill_s * 1e3), "prefill_call_ms":
+              self.ssm_prefill_s * 1e3, "launches_per_call": layers})
+        emit({"redesigned": "ssd_scan", "ms": row["ms"],
+              "before_ms": BEFORE_SLICE6_MS["ssd_scan"],
+              "inputs": "prefill's layer-0 views, (4, 2048, 80, 64) bf16, "
+                        "N 128, G 1, L 64",
+              "before": BEFORE_SLICE6})
         return [row]
 
     @staticmethod
@@ -1871,7 +1929,7 @@ class Smoke:
 
     def _timed(self, name, source, replaces, outs, fn, plain, library,
                nbytes, reps, setup=None, plain_reps=None, extra=None,
-               compare=max_abs_err, flops=0, peak=1.0):
+               compare=max_abs_err, flops=0, peak=1.0, label=None):
         """One row of the kernels line: device ms of the kernel, its
         plain version and the library call, the kernel held against the
         plain version, and the bound: the larger of ``nbytes`` at the
@@ -1895,7 +1953,7 @@ class Smoke:
                "bound_ms": max(by_bytes, by_ops),
                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
                "library_ms": lib_ms}
-        emit({"timing": name, "ms": ms, "plain_ms": plain_ms,
+        emit({"timing": label or name, "ms": ms, "plain_ms": plain_ms,
               "library_ms": lib_ms, "bound_ms": row["bound_ms"],
               "max_abs_err": err, **(extra or {})})
         return row

@@ -37,6 +37,7 @@ SLOTS = 3          # one cache line, as in P-CLHT
 MAX_CHAIN = 8      # bounded chain walk
 LINE = 8           # int32 per packed bucket line
 LINK = 2 * SLOTS   # lane of the chain link
+MAX_ENTRIES = 1 << 29   # kernel D packs an entry index into 30 bits
 
 _M32 = 0xFFFFFFFF
 
@@ -203,8 +204,8 @@ def clht_insert(table: CLHT, keys: torch.Tensor, ptrs: torch.Tensor,
     pointer replaced by entry i (-1 for a fresh insert or a masked entry),
     ``ok[i]`` False for masked entries and where the overflow region ran
     out, ``num_new`` (0-d int32) the count of fresh inserts. CPU tensors
-    take the plain loop; CUDA tensors the single-thread kernel
-    ``csrc/clht_insert.cu``."""
+    take the plain loop; CUDA tensors the kernel ``csrc/clht_insert.cu``,
+    which walks the chains in parallel (its header says how)."""
     keys = keys.to(torch.int32)
     ptrs = ptrs.to(torch.int32)
     if not on_cuda(table.lines, keys, ptrs):
@@ -219,17 +220,52 @@ def clht_insert(table: CLHT, keys: torch.Tensor, ptrs: torch.Tensor,
     if mask is not None:
         mask = mask.to(torch.bool).contiguous()
         _build.require(mask, "mask", torch.bool, 1, align=1)
-    old = torch.empty(n, dtype=torch.int32, device=keys.device)
-    ok = torch.empty(n, dtype=torch.int32, device=keys.device)
-    num_new = torch.zeros((), dtype=torch.int32, device=keys.device)
+    if n >= MAX_ENTRIES:
+        raise ValueError(f"clht_insert: {n} entries; the kernel takes fewer "
+                         f"than {MAX_ENTRIES}")
+    dev = keys.device
+    old = torch.empty(n, dtype=torch.int32, device=dev)
+    ok = torch.empty(n, dtype=torch.int32, device=dev)
+    num_new = torch.zeros((), dtype=torch.int32, device=dev)
     if n:
-        _build.launch(
-            "clht_insert", "clht_insert_launch", n,
-            table.lines.data_ptr(), table.total_buckets, table.num_buckets,
-            table.overflow_head.data_ptr(), keys.data_ptr(), ptrs.data_ptr(),
-            None if mask is None else mask.data_ptr(), n, old.data_ptr(),
-            ok.data_ptr(), num_new.data_ptr(), _build.stream(keys))
+        _insert_kernel(table, keys, ptrs, mask, old, ok, num_new)
     return table, old, ok.to(torch.bool), num_new
+
+
+def _insert_kernel(table: CLHT, keys, ptrs, mask, old, ok, num_new) -> None:
+    """Kernel D's steps on the card, with no host sync: key1 = (bucket,
+    key) and its stable sort; the marks (group, previous occurrence, the
+    group's last ptr, key2) and key2's stable sort; the plan (which
+    entries link a bucket); the inclusive count of its link flags; the
+    apply and fill. One launch of kernel D is counted, at the apply."""
+    n, dev = keys.shape[0], keys.device
+    stream = _build.stream(keys)
+    mptr = None if mask is None else mask.data_ptr()
+    key1 = torch.empty(n, dtype=torch.int64, device=dev)
+    _build.run("clht_insert_prepare", keys.data_ptr(), mptr, n,
+               table.num_buckets, key1.data_ptr(), stream)
+    key1s, order1 = torch.sort(key1, stable=True)
+    grp, prev, last_ptr, flags, status1, status2 = torch.empty(
+        (6, n), dtype=torch.int32, device=dev)
+    key2 = torch.empty(n, dtype=torch.int64, device=dev)
+    _build.run("clht_insert_mark", key1s.data_ptr(), order1.data_ptr(),
+               ptrs.data_ptr(), n, grp.data_ptr(), prev.data_ptr(),
+               last_ptr.data_ptr(), key2.data_ptr(), flags.data_ptr(),
+               status1.data_ptr(), status2.data_ptr(), stream)
+    key2s, order2 = torch.sort(key2, stable=True)
+    _build.run("clht_insert_plan", table.lines.data_ptr(), table.num_buckets,
+               keys.data_ptr(), ptrs.data_ptr(), key2s.data_ptr(),
+               order2.data_ptr(), n, grp.data_ptr(), last_ptr.data_ptr(),
+               flags.data_ptr(), status1.data_ptr(), stream)
+    incl = torch.cumsum(flags, 0, dtype=torch.int32)
+    _build.launch(
+        "clht_insert", "clht_insert_launch", n,
+        table.lines.data_ptr(), table.total_buckets, table.num_buckets,
+        table.overflow_head.data_ptr(), keys.data_ptr(), ptrs.data_ptr(),
+        mptr, n, key2s.data_ptr(), order2.data_ptr(), grp.data_ptr(),
+        prev.data_ptr(), last_ptr.data_ptr(), flags.data_ptr(),
+        incl.data_ptr(), status2.data_ptr(), old.data_ptr(), ok.data_ptr(),
+        num_new.data_ptr(), stream)
 
 
 def clht_delete(table: CLHT, keys: torch.Tensor,

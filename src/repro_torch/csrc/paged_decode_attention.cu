@@ -45,7 +45,9 @@
 //   counter to 0 for the next launch. The merge order is fixed, so the
 //   result does not depend on which block finishes last; a row whose
 //   splits are all empty merges to (0, -1e30, 0) exactly (every m is
-//   -1e30, so every weight is exp(0) = 1 times l = 0).
+//   -1e30, so every weight is exp(0) = 1 times l = 0). Launches in
+//   flight at once must not share counters: the wrapper keeps one zeroed
+//   buffer per stream (launches of one stream run in order).
 //
 // Mixed types: q is read in its own type (f32 or bf16) through a row
 // stride that may be 0 (the stacked owners of one sequence share one q

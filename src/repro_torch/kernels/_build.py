@@ -39,7 +39,10 @@ SIGNATURES = {
     "kvs_lookup_fused_launch": (_P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                                 _P),
     "log_merge_sorted_launch": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
-    "clht_insert_launch": (_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P),
+    "clht_insert_prepare": (_P, _P, _I, _I, _P, _P),
+    "clht_insert_mark": (_P, _P, _P, _I, *(_P,) * 8),
+    "clht_insert_plan": (_P, _I, _P, _P, _P, _P, _I, *(_P,) * 5),
+    "clht_insert_launch": (_P, _I, _I, _P, _P, _P, _P, _I, *(_P,) * 12),
     "flash_attention_launch": (_I, _P, _P, _P, _P, *(_I,) * 18, _F, _I, _P),
     "paged_decode_attention_launch": (_I, _I, _P, _I, *(_P,) * 5,
                                       *(_I,) * 9, _F, *(_P,) * 6),
@@ -135,14 +138,21 @@ def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def launch(kernel: str, fn: str, items: int, *args) -> None:
-    """Call C entry point ``fn`` (launching ``kernel`` on ``items`` keys or
-    entries), raise on a launch error, and count the launch."""
+def run(fn: str, *args, kernel: str | None = None) -> None:
+    """Call C entry point ``fn`` and raise on a launch error; counts
+    nothing (a step of a kernel whose launch ``launch`` counts)."""
     lib = build()
     err = getattr(lib, fn)(*args)
     if err:
         msg = lib.dinomo_error_string(err).decode()
-        raise RuntimeError(f"{kernel}: CUDA launch failed: {msg} ({err})")
+        raise RuntimeError(f"{kernel or fn}: CUDA launch failed: {msg} "
+                           f"({err})")
+
+
+def launch(kernel: str, fn: str, items: int, *args) -> None:
+    """Call C entry point ``fn`` (launching ``kernel`` on ``items`` keys or
+    entries), raise on a launch error, and count the launch."""
+    run(fn, *args, kernel=kernel)
     launches[kernel] += 1
     work[kernel] += items
 

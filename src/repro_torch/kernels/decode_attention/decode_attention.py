@@ -23,8 +23,10 @@ HEAD_DIMS = (16, 32, 64, 128)
 TILE = 64           # tokens: no split is shorter, unless it is the only one
 H100_SMS = 132
 
-# per device: the kernel's split counters, zeros between launches
-_tickets: dict[int, torch.Tensor] = {}
+# per (device, stream): the kernel's split counters, zeros between launches.
+# Launches on one stream run in order, so they may share counters; two
+# streams never do, so split launches in flight at once never mix tickets.
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def split_count(blocks: int, slots: int, page_size: int,
@@ -52,15 +54,18 @@ def head_block(group: int) -> int:
     return next(g for g in (8, 4, 2, 1) if group % g == 0)
 
 
-def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 counters on ``device``, allocated once
-    (again only to grow); each launch leaves them zero."""
+def _tickets_for(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters for launches on ``stream`` of
+    ``device``, allocated once (again only to grow); each launch leaves
+    them zero. ``stream`` is the current stream, on which the buffer is
+    allocated and zeroed, so the caching allocator orders its reuse
+    after the stream's launches."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
-    t = _tickets.get(idx)
+    t = _tickets.get((idx, stream))
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _tickets[idx] = t
+        _tickets[(idx, stream)] = t
     return t
 
 
@@ -114,7 +119,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, page_pos,
     if nsplit > 1:
         partials = torch.empty(b * h * nsplit * (d + 2), dtype=torch.float32,
                                device=q.device)
-        tickets = _tickets_for(q.device, blocks)
+        tickets = _tickets_for(q.device, _build.stream(q), blocks)
     _build.launch("paged_decode_attention", "paged_decode_attention_launch",
                   b, _DTYPES[k_pages.dtype], _DTYPES[q.dtype], q.data_ptr(),
                   q.stride(0), k_pages.data_ptr(), v_pages.data_ptr(),

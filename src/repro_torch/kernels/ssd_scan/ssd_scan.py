@@ -1,7 +1,9 @@
 """Kernel 7, the Mamba2 SSD chunked scan (``csrc/ssd_scan.cu``): per
 (batch, head) and chunk of L tokens, the intra-chunk quadratic form
 S = (C.B^T) o exp(min(cum_i - cum_j, 0)) o dt_j (i >= j), the carried
-(N, P) state and D.x, all in f32 from f32 or bf16 inputs.
+(N, P) state and D.x, accumulated in f32. f32 inputs are computed in
+f32; bf16 inputs (the model's) on the tensor cores, with S, B o w and the
+state's copy for C.h rounded to bf16 as operands.
 
 CPU tensors run the plain version (``ref.ssd_chunked``); CUDA tensors run
 the kernel.

@@ -98,6 +98,77 @@ def test_insert_lookup_delete_parity(nb, overflow, nkeys, space, seed):
     assert int(tnew) == int(jnew)
 
 
+def chain_keys(nb, bucket, count):
+    """``count`` distinct non-negative keys whose primary bucket is
+    ``bucket``."""
+    cand = np.arange(400 * count * nb, dtype=np.int32)
+    sel = cand[tc.bucket_of(torch.from_numpy(cand), nb).numpy() == bucket]
+    assert sel.size >= count
+    return sel[:count]
+
+
+def adversarial_batch(name):
+    """(nb, overflow, keys inserted first, keys, ptrs) where a parallel
+    insert's shortcuts are tested hardest."""
+    rng = np.random.default_rng(len(name))
+    pre = None
+    if name == "long_chains":       # chains far past MAX_CHAIN lines
+        nb, overflow = 4, 2048
+        keys = rng.integers(0, 900, 1800)
+    elif name == "hot_key_in_overflow":
+        # three keys fill bucket 5's line, the hot key sits in an overflow
+        # line and repeats among fresh keys of its own chain
+        nb, overflow = 64, 512
+        own = chain_keys(nb, 5, 154)
+        pre, hot = own[:4], own[3]
+        keys = np.concatenate([np.full(1500, hot), own[4:],
+                               rng.integers(0, 10**6, 150)])
+        keys = keys[rng.permutation(keys.size)]
+    else:                           # exhaustion mid-batch, duplicates after
+        nb, overflow = 16, 6
+        keys = rng.integers(0, 400, 1200)
+    keys = keys.astype(np.int32)
+    ptrs = rng.integers(0, 2**31 - 1, keys.size).astype(np.int32)
+    return nb, overflow, pre, keys, ptrs
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", ["long_chains", "hot_key_in_overflow",
+                                  "exhaustion"])
+def test_insert_parity_adversarial(name, masked):
+    """The inputs the card tests hold kernel D to, JAX against the port:
+    chains longer than MAX_CHAIN (keys linked out of the walk's reach), a
+    hot key repeated in an overflow line among fresh keys of its chain,
+    the overflow region running out mid-batch with duplicates after."""
+    nb, overflow, pre, keys, ptrs = adversarial_batch(name)
+    mask = np.random.default_rng(7).random(keys.size) < 0.8 if masked \
+        else None
+    jt = jc.clht_init(nb, overflow)
+    tt = tc.clht_init(nb, overflow, device="cpu")
+    if pre is not None:
+        jt, *_ = jc.clht_insert(jt, jnp.asarray(pre), jnp.asarray(pre + 9))
+        tc.clht_insert(tt, torch.from_numpy(pre), torch.from_numpy(pre + 9))
+    jt, jold, jok, jnew = jc.clht_insert(
+        jt, jnp.asarray(keys), jnp.asarray(ptrs),
+        None if mask is None else jnp.asarray(mask))
+    tt, told, tok, tnew = tc.clht_insert(
+        tt, torch.from_numpy(keys), torch.from_numpy(ptrs),
+        None if mask is None else torch.from_numpy(mask))
+    assert_same_table(jt, tt)
+    np.testing.assert_array_equal(told.numpy(), np.asarray(jold))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert int(tnew) == int(jnew)
+    okv = np.asarray(jok) if mask is None else np.asarray(jok)[mask]
+    if name == "exhaustion":
+        assert int(tt.overflow_head) == tt.total_buckets
+        assert okv.any() and not okv.all()
+    else:
+        assert okv.all()
+    if name == "long_chains":       # some key was linked past the walk
+        assert int(tnew) > np.unique(keys if mask is None
+                                     else keys[mask]).size
+
+
 def test_state_round_trip():
     rng = np.random.default_rng(5)
     keys = rng.integers(0, 500, 200).astype(np.int32)

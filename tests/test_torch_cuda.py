@@ -99,6 +99,70 @@ def test_clht_insert_matches_plain(dev, nb, overflow, n):
         assert torch.equal(x, y)
 
 
+def chain_keys(nb, bucket, count, start=0):
+    """``count`` distinct keys from ``start`` up whose primary bucket is
+    ``bucket``."""
+    cand = torch.arange(start, start + 400 * count * nb, dtype=torch.int32)
+    sel = cand[tc.bucket_of(cand, nb) == bucket][:count]
+    assert sel.numel() == count
+    return sel.numpy()
+
+
+def insert_case(name):
+    """Adversarial batches for kernel D: (nb, overflow, keys inserted
+    first, keys, ptrs)."""
+    g = np.random.default_rng(len(name))
+    if name == "long_chains":        # chains far past MAX_CHAIN lines
+        nb, ov, pre = 4, 4096, None
+        keys = g.integers(0, 1500, 3000)
+    elif name == "hot_key_in_overflow":
+        # bucket 5 holds three keys; the hot key sits in an overflow line
+        # and repeats 4000 times among 300 fresh keys of its own chain
+        nb, ov = 64, 1024
+        own = chain_keys(nb, 5, 304)
+        pre, hot, fresh = own[:4], own[3], own[4:]
+        keys = np.concatenate([np.full(4000, hot), fresh,
+                               g.integers(0, 10**6, 300)])
+        keys = keys[g.permutation(keys.size)]
+    else:                            # exhaustion mid-batch, duplicates after
+        assert name == "exhaustion"
+        nb, ov, pre = 16, 6, None
+        keys = g.integers(0, 400, 1500)
+    keys = keys.astype(np.int32)
+    ptrs = g.integers(0, 2**31 - 1, keys.size).astype(np.int32)
+    return nb, ov, pre, keys, ptrs
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", ["long_chains", "hot_key_in_overflow",
+                                  "exhaustion"])
+def test_clht_insert_adversarial_matches_plain(dev, name, masked):
+    """Kernel D's parallel per-chain insert against the sequential plain
+    version, bit for bit, where its shortcuts are tested hardest."""
+    nb, ov, pre, keys, ptrs = insert_case(name)
+    g = np.random.default_rng(7)
+    mask = torch.from_numpy(g.random(keys.size) < 0.8).to(dev) \
+        if masked else None
+    a = tc.clht_init(nb, ov, device=dev)
+    if pre is not None:
+        tc.clht_insert_plain(a, torch.from_numpy(pre).to(dev),
+                             torch.from_numpy(pre).to(dev) + 9)
+    b = tc.CLHT(a.lines.clone(), a.overflow_head.clone(), nb)
+    kd, pd = torch.from_numpy(keys).to(dev), torch.from_numpy(ptrs).to(dev)
+    n0 = _build.launches["clht_insert"]
+    got = tc.clht_insert(a, kd, pd, mask)
+    assert _build.launches["clht_insert"] == n0 + 1
+    ref = tc.clht_insert_plain(b, kd, pd, mask)
+    assert torch.equal(a.lines, b.lines)
+    assert int(a.overflow_head) == int(b.overflow_head)
+    for x, y in zip(got[1:], ref[1:]):
+        assert torch.equal(x, y)
+    if name == "exhaustion":
+        assert int(a.overflow_head) == a.total_buckets
+        okv = ref[2] if mask is None else ref[2][mask]
+        assert bool(okv.any()) and not bool(okv.all())
+
+
 def test_write_path_and_read_back(dev):
     table = tc.clht_init(128, device=dev)
     seg = tl.segment_init(2000, device=dev)
@@ -298,6 +362,29 @@ def test_paged_decode_stacked_owners_equal_separate_calls(dev):
         q.expand(3, -1, -1), kp, vp, pt, pos, lens), 2e-5)
 
 
+def test_paged_decode_split_launches_on_two_streams(dev):
+    """Split launches in flight at once on two streams keep their tickets
+    apart: each equals its plain version and its single-stream run."""
+    cases = [server_case(dev, 4096, seed=1), server_case(dev, 2048, seed=2)]
+    single = [td.paged_decode_attention(q, kp, vp, *t)
+              for q, kp, vp, t in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(8):
+        for i, (s, (q, kp, vp, t)) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(s):
+                outs[i].append(td.paged_decode_attention(q, kp, vp, *t))
+    torch.cuda.synchronize()
+    for i, (q, kp, vp, t) in enumerate(cases):
+        assert td.split_count(16, t[0].shape[1], 8) > 1
+        ref = td.paged_decode_ref(q, kp, vp, *t)
+        for got in outs[i]:
+            for x, y in zip(got, single[i]):
+                assert torch.equal(x, y)
+            assert_partials_close(got, ref, 2e-5)
+
+
 @pytest.mark.parametrize("context", [120, 2048])
 def test_paged_decode_bf16_q_equals_q_converted_first(dev, context):
     q, kp, vp, tables = server_case(dev, context, seed=1)
@@ -432,6 +519,26 @@ def test_ssd_scan_strided_views_and_underflow(dev):
                                atol=0, rtol=0)
     torch.testing.assert_close(got.float(), tss.ssd_ref(x, dt, a, bm, cm, d)
                                [0].float(), atol=4e-2, rtol=4e-2)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_scan_bf16_at_prefill_shape(dev, g):
+    """The tensor-core path at mamba2-2.7b's widths (80 heads of 64, N 128,
+    L 64), x, B and C as strided views of one projection, against the
+    plain chunked scan at chip_smoke.py's main-path bar: both round y to
+    bf16 once, so rtol 2^-7 (one unit in y's last place) and atol 2^-8 of
+    max |y|."""
+    b, s, h, n, p = 2, 2048, 80, 128, 64
+    x, dt, a, bm, cm, d = ssd_case(dev, b, s, h, g, n, p, torch.bfloat16, g)
+    xbc = torch.cat([x.reshape(b, s, -1), bm.reshape(b, s, -1),
+                     cm.reshape(b, s, -1)], dim=-1)
+    xv = xbc[..., :h * p].view(b, s, h, p)
+    bv = xbc[..., h * p:h * p + g * n].view(b, s, g, n)
+    cv = xbc[..., h * p + g * n:].view(b, s, g, n)
+    got = tss.ssd_scan(xv, dt, a, bv, cv, d, chunk=64)
+    ref = tss.ssd_chunked(x, dt, a, bm, cm, d, 64).float()
+    torch.testing.assert_close(got.float(), ref, rtol=2 ** -7,
+                               atol=2 ** -8 * float(ref.abs().max()))
 
 
 def test_ssd_scan_refuses_bad_inputs(dev):
