@@ -9,7 +9,8 @@ Run from the repository root with no arguments:
 
 It builds the port's CUDA kernels (src/repro_torch/csrc/*.cu, nvcc for
 sm_90a, into build/repro_torch/), holds every kernel against its plain
-torch version on the card, then serves the repo's own dataset -- 2^25
+torch version on the card (kernels C and 4 also on the adversarial
+inputs of tests/torch_cases.py), then serves the repo's own dataset -- 2^25
 keys with 1 KB values (the paper's 32 GB dataset) in a device-resident
 CLHT index, log segment and value heap:
 
@@ -92,6 +93,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import clht, log  # noqa: E402
@@ -116,6 +118,8 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
 from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
+from torch_cases import (MERGE_CASES, TRANSITION_CASES,  # noqa: E402
+                         merge_case, transition_case)
 
 KEYS_LOG2 = 25              # the paper's 32 GB of 1 KB values
 WIDTH = 256                 # int32 lanes per value row = 1 KB
@@ -168,6 +172,12 @@ BEFORE_SLICE6 = "commit 61d41b4, NVIDIA H100 80GB HBM3, 700.00 W"
 BEFORE_SLICE6_MS = {"ssd_scan": 2.857639992237091,
                     "clht_insert": 11.547859191894531,
                     "clht_insert_write_batch": 6.395474}
+# kernels C and 4 in the design they replace (commit 9bd28d4: kernel C one
+# thread per bucket group, kernel 4 one thread reading each row and victim
+# as its turn comes), measured by this script at the same shapes on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
+BEFORE_SLICE7 = "commit 9bd28d4, NVIDIA H100 80GB HBM3, 700.00 W"
+BEFORE_SLICE7_MS = {"log_merge_sorted": 3.098, "cache_transition": 0.0792}
 # stated tolerances (atol = rtol), see tests/test_torch_cuda.py
 TOL = {torch.float32: {"flash_attention": 3e-5,
                        "paged_decode_attention": 2e-5, "ssd_scan": 3e-4},
@@ -507,6 +517,20 @@ class Smoke:
              ("ok", got[1], ref[1]), ("log_merge.lines", lo[:, :7], l2[:, :7]),
              ("log_merge.old", o1, o2), ("log_merge.ok", k1, k2)])
         assert not bool(got[1].all())        # some buckets were full
+        # C on tests/torch_cases.py's adversarial groups (hot keys, more new
+        # keys than empty slots, keys -1 and -3, a key twice in a line,
+        # clamped bucket ids), each pattern in groups on both paths
+        checks = []
+        for name in MERGE_CASES:
+            lines, *rest = (torch.from_numpy(x).to(dev)
+                            for x in merge_case(name))
+            lk, lr = lines.clone(), lines.clone()
+            got = merge.log_merge_sorted(lk, *rest)
+            ref = merge.log_merge_sorted_ref(lr, *rest)
+            checks += [(f"{name}.{o}", a, b) for o, a, b in
+                       zip(("lines", "old", "ok"), (lk, *got), (lr, *ref))]
+        self.errors["log_merge_sorted"] = max(
+            self.errors["log_merge_sorted"], max_abs_err(checks))
 
         # D: chain growth and overflow exhaustion (64 overflow buckets)
         table = clht.clht_init(1 << 10, 64, device=dev)
@@ -553,8 +577,22 @@ class Smoke:
             for o, a, b, c in zip(("dec", "nvic", "used"), got, ref, plain):
                 checks += [(o, a, b),
                            (o + ".np", a.cpu(), torch.from_numpy(c))]
-        self.errors["cache_transition"] = max_abs_err(checks)
         assert not bool(got[0].any())        # floor division refused all
+        # tests/torch_cases.py's adversarial windows: victims <= 0, an
+        # empty queue, a queue run dry, tens of small victims a make-space,
+        # promotes at Eq. 1's floor, 2^13 ops over 4,096 victims
+        for name in TRANSITION_CASES:
+            rows, vic, used0, z0, cap = transition_case(name)
+            r = torch.from_numpy(rows).to(dev)
+            v = torch.from_numpy(vic).to(dev)
+            got = transition.cache_transition(r, v, used0, z0, cap=cap,
+                                              top=int(rows[:, 2].max()))
+            plain = transition.cache_transition_np(rows, vic, used0, z0,
+                                                   cap=cap)
+            checks += [(f"{name}.{o}", a.cpu(), torch.from_numpy(c))
+                       for o, a, c in zip(("dec", "nvic", "used"), got,
+                                          plain)]
+        self.errors["cache_transition"] = max_abs_err(checks)
         torch.cuda.synchronize()
         emit({"kernels_vs_plain": self.errors})
 
@@ -777,6 +815,11 @@ class Smoke:
             None, c_bytes, REPS, setup=fresh, plain_reps=1,
             extra={"entries": wk.numel(), "groups": groups,
                    "largest_group": int((starts[1:] - starts[:-1]).max())}))
+        emit({"redesigned": "log_merge_sorted", "ms": out[-1]["ms"],
+              "before_ms": BEFORE_SLICE7_MS["log_merge_sorted"],
+              "inputs": f"the {wk.numel()} updates of one served "
+                        f"write_heavy_update batch, bucket-sorted",
+              "before": BEFORE_SLICE7})
 
         # D on the load's mean slow-path batch: fresh keys into the full
         # table (a copy per run), with no mask, as the main path calls it.
@@ -1072,16 +1115,18 @@ class Smoke:
 
     def _kn_twin(self, kn, args, wp, ctx):
         """Gather a planned window's inputs (before its apply), run kernel
-        4 on the card, hold it bit for bit against cache_transition_np,
-        and take its verdict against the plan. Returns (verdict, the
-        gathered window, the outputs)."""
+        4 on the card (its int32 guard checked on the gathered rows, so
+        nothing is read back before the launch), hold it bit for bit
+        against cache_transition_np, and take its verdict against the
+        plan. Returns (verdict, the gathered window, the outputs)."""
         cache = kn.cache
         win = transition.gather_window(cache, kn, *args, *ctx, VALUE_BYTES,
                                        wp.include_refills)
         rows = torch.from_numpy(win.rows).to(self.dev)
         vic = torch.from_numpy(win.victims.astype(np.int32)).to(self.dev)
         got = transition.cache_transition(rows, vic, win.used0, win.z0,
-                                          cap=cache.capacity)
+                                          cap=cache.capacity,
+                                          top=int(win.rows[:, 2].max()))
         want = transition.cache_transition_np(
             win.rows, win.victims, win.used0, win.z0, cap=cache.capacity)
         max_abs_err([(f"cache_transition.{o}", g.cpu(), torch.from_numpy(w))
@@ -1123,10 +1168,11 @@ class Smoke:
     def time_transition(self) -> list[dict]:
         """Kernel 4 on a 512-op window of the KN path that consumed
         victims, the launch alone, against the plain torch loop; beside it
-        the wrapper's time (its int32 guard reads the rows' largest value
-        size back) and the launch over as many neutral rows (no scan
-        work). No PyTorch call runs a sequential space
-        machine, so library_ms is null.
+        the wrapper's time by both routes (its int32 guard reading the
+        rows' largest value size back, or given it by a caller that holds
+        the rows, as the KN path does) and the launch over as many
+        neutral rows (no scan work). No PyTorch call runs a sequential
+        space machine, so library_ms is null.
 
         Bound: the bytes the function moves -- each 32-byte row read,
         each victim consumed read (4 B), three int32 outputs per op
@@ -1148,6 +1194,9 @@ class Smoke:
 
         wrapper_ms = event_ms(lambda: transition.cache_transition(
             r, v, used0, z0, cap=cap), REPS)[0]
+        top = int(rows[:, 2].max())
+        host_guard_ms = event_ms(lambda: transition.cache_transition(
+            r, v, used0, z0, cap=cap, top=top), REPS)[0]
         # the same launch over neutral rows: what a launch costs with no
         # scan work behind it
         idle = torch.zeros_like(r)
@@ -1155,7 +1204,7 @@ class Smoke:
             idle, v, used0, z0, cap, *(torch.empty(n, dtype=torch.int32,
                                                    device=dev)
                                        for _ in range(3))), REPS)[0]
-        return [self._timed(
+        row = self._timed(
             "cache_transition", "cache_transition.cu",
             "src/repro/kernels/cache_transition/cache_transition.py:125",
             ("dec", "nvic", "used"), launch_only,
@@ -1163,7 +1212,14 @@ class Smoke:
             None, n * 32 + nvic * 4 + 3 * 4 * n, REPS, plain_reps=1,
             extra={"ops": n, "victims_consumed": nvic,
                    "queue": int(victims.size), "wrapper_ms": wrapper_ms,
-                   "neutral_rows_ms": launch_ms})]
+                   "wrapper_host_guard_ms": host_guard_ms,
+                   "neutral_rows_ms": launch_ms})
+        emit({"redesigned": "cache_transition", "ms": row["ms"],
+              "before_ms": BEFORE_SLICE7_MS["cache_transition"],
+              "inputs": f"a {n}-op window of the KN path that consumed "
+                        f"{nvic} victims, the launch alone",
+              "before": BEFORE_SLICE7})
+        return [row]
 
     # --------------------------------------------------- 8. check 5 and 6
     def check_attention(self) -> None:

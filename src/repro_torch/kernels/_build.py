@@ -38,7 +38,8 @@ SIGNATURES = {
     "clht_probe_launch": (_P, _I, _P, _P, _I, _P, _P, _P),
     "kvs_lookup_fused_launch": (_P, _I, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                                 _P),
-    "log_merge_sorted_launch": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P),
+    "log_merge_sorted_launch": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I,
+                                _P),
     "clht_insert_prepare": (_P, _P, _I, _I, _P, _P),
     "clht_insert_mark": (_P, _P, _P, _I, *(_P,) * 8),
     "clht_insert_plan": (_P, _I, _P, _P, _P, _P, _I, *(_P,) * 5),

@@ -41,7 +41,7 @@ INT32_MAX = 2**31 - 1
 
 
 def cache_transition(ops: torch.Tensor, victims: torch.Tensor, used0, z0,
-                     *, cap: int, block: int = 256):
+                     *, cap: int, block: int = 256, top: int | None = None):
     """Run the transition space machine over a window of encoded ops.
 
     ops:     (N, 8) int32 op rows (see module docstring); N must be a
@@ -54,17 +54,23 @@ def cache_transition(ops: torch.Tensor, victims: torch.Tensor, used0, z0,
     consumed through each op, occupancy after each op.
 
     The reference computes in int32 and wraps; this raises instead
-    where the capacity plus the largest insert does not fit in int32
-    (on the card that check reads the rows' largest value size back)."""
+    where the capacity plus the largest insert does not fit in int32, or
+    the starting state does not.
+    ``top``: the rows' largest value size (lane 2), where the caller
+    holds the rows on the host; without it the check reads it back from
+    the card."""
     n = ops.shape[0]
     assert n % block == 0, "pad ops to a multiple of the block"
     if ops.dim() != 2 or ops.shape[1] != OP_LANES or victims.dim() != 1:
         raise ValueError(f"expected ops (N, {OP_LANES}) and victims (V,); "
                          f"got {tuple(ops.shape)}, {tuple(victims.shape)}")
-    top = int(ops[:, 2].max()) if n else 0
+    if top is None:
+        top = int(ops[:, 2].max()) if n else 0
     if cap + max(top, 0) > INT32_MAX:
         raise OverflowError(f"cap {cap} plus the largest insert {top} "
                             f"does not fit in int32")
+    if not all(-INT32_MAX - 1 <= int(x) <= INT32_MAX for x in (used0, z0)):
+        raise OverflowError(f"used0 {used0} or z0 {z0} is outside int32")
     if not on_cuda(ops, victims):
         return cache_transition_ref(ops, victims, used0, z0, cap=cap)
     _build.require(ops, "ops", torch.int32, 2, align=16)

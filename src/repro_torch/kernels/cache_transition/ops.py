@@ -60,14 +60,17 @@ def plan_window_transitions(opk, kd, pc, plen, victims, used0, z0, *,
     (the card unless the caller asks for the CPU).
 
     Returns (dec, nvic, used) truncated back to the window length (see
-    cache_transition for the output semantics)."""
+    cache_transition for the output semantics). The int32 guard reads
+    the encoded rows on the host, so the card's launch reads nothing
+    back."""
     dev = resolve_device(device)
     rows = encode_window(opk, kd, pc, plen, value_bytes=value_bytes,
                          block=block)
     dec, nvic, used = cache_transition(
         torch.from_numpy(rows).to(dev),
         torch.from_numpy(np.asarray(victims, np.int32)).to(dev),
-        used0, z0, cap=cap, block=block)
+        used0, z0, cap=cap, block=block,
+        top=int(rows[:, 2].max()) if rows.size else 0)
     n = opk.shape[0]
     return dec[:n], nvic[:n], used[:n]
 

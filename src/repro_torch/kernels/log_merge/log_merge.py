@@ -6,8 +6,10 @@ Entries are merged *in order* per bucket: ``log_merge`` stable-sorts them
 by bucket -- legal because distinct buckets are independent and a stable
 sort keeps log order within a bucket, the only order CLHT state depends
 on -- finds where each bucket group starts, and hands the groups to
-``log_merge_sorted``: one CUDA thread per group (``csrc/log_merge.cu``) on
-the card, the plain torch version on the CPU. Superseded pointers are
+``log_merge_sorted``: on the card ``csrc/log_merge.cu`` walks each small
+group on one thread and each group of more than ``WALK_MAX`` entries on a
+block of threads, in parallel (its header says why that is exact); on the
+CPU the plain torch version runs. Superseded pointers are
 returned per entry so the caller can keep the per-segment GC counters of
 paper Sec. 4.
 """
@@ -21,6 +23,10 @@ from ...device import on_cuda
 from .. import _build
 from .ref import log_merge_sorted_ref
 
+# groups of at most this many entries are walked by one thread; larger ones
+# by a block of 1024 threads
+WALK_MAX = 32
+
 
 def log_merge_sorted(lines: torch.Tensor, starts: torch.Tensor,
                      bucket_ids: torch.Tensor, keys: torch.Tensor,
@@ -32,7 +38,9 @@ def log_merge_sorted(lines: torch.Tensor, starts: torch.Tensor,
     bucket_ids: (E,) sorted bucket per entry
     keys, ptrs: (E,) int32 entries, log order within each group
     returns (old_ptrs, ok): (E,) int32 superseded pointer (-1 if none)
-    and (E,) int32 {0,1} (0: bucket full or padding key)."""
+    and (E,) int32 {0,1} (0: bucket full or padding key).
+
+    On the card nothing is read back to the host."""
     if not on_cuda(lines, starts, bucket_ids, keys, ptrs):
         return log_merge_sorted_ref(lines, starts, bucket_ids, keys, ptrs)
     _build.require(lines, "lines", torch.int32, 2, align=16)
@@ -48,11 +56,14 @@ def log_merge_sorted(lines: torch.Tensor, starts: torch.Tensor,
     ok = torch.empty(e, dtype=torch.int32, device=keys.device)
     groups = starts.shape[0] - 1
     if groups > 0:
+        # two counters (groups listed, groups drawn), then the large groups
+        big = torch.empty(groups + 2, dtype=torch.int32, device=keys.device)
+        big[:2].zero_()
         _build.launch("log_merge_sorted", "log_merge_sorted_launch", e,
                       lines.data_ptr(), lines.shape[0], starts.data_ptr(),
                       groups, bucket_ids.data_ptr(), keys.data_ptr(),
                       ptrs.data_ptr(), old.data_ptr(), ok.data_ptr(),
-                      _build.stream(keys))
+                      big.data_ptr(), WALK_MAX, _build.stream(keys))
     return old, ok
 
 

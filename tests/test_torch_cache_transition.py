@@ -265,3 +265,241 @@ def test_twin_verdict_names_each_cause():
                             used, cap) == "queue_dry"
     assert tct.twin_verdict(window(), off, keys, dec, nvic, used,
                             cap) == "other"
+
+
+# ------------------------------------------ kernel 4 on adversarial windows
+import torch_cases as cases  # noqa: E402
+
+SB = 32
+
+
+def _decode(row):
+    """A row as the kernel decodes it: (code, thr, d1, d0, zd)."""
+    code, rm, vb, zhit, zfill = (int(x) for x in row[:5])
+    code = code if 1 <= code <= 3 else 0
+    thr = d1 = d0 = zd = 0
+    if code == 1:
+        thr, d1, zd = SB - vb, vb - SB, zhit
+    elif code == 2:
+        thr, d1, d0, zd = rm - vb, vb - rm, SB - rm, zfill
+    elif code == 3:
+        d1 = d0 = -rm
+    return code, thr, d1, d0, zd
+
+
+def _step(op, state, pre, q0, qn, more, nv):
+    """One op at (uh, zz, k) with the queue's prefix sums staged from q0:
+    (the change of state, dec, brk: the make-space runs past the staged
+    prefix sums while more victims follow)."""
+    code, thr, d1, d0, zd = op
+    uh, zz, k = state
+    zs = SB * zd
+    z1 = zz - zs if code == 1 else zz
+    w = uh - thr
+    pred = w <= 0 or (code == 1 and w <= z1)
+    u2 = uh + (d1 if pred else d0)
+    kk = min(max(k, 0), qn)
+    hi, brk = kk, False
+    if u2 > 0 and q0 + kk < nv:
+        target = pre[kk] + u2
+        if pre[qn] < target and more:
+            brk = True
+        else:
+            hi = next((i for i in range(kk + 1, qn + 1)
+                       if pre[i] >= target), qn)
+            u2 -= pre[hi] - pre[kk]
+            if u2 + SB <= 0:
+                u2 += SB
+    zn = z1 + zs if code == 2 and not pred else z1
+    return (u2 - uh, zn - zz, hi - k), pred and code in (1, 2), brk
+
+
+def mirror_transition(rows, victims, used0, z0, cap, row_tile, queue_tile,
+                      lanes=32):
+    """numpy mirror of csrc/cache_transition.cu: rows decoded a tile at a
+    time into (thr, d1, d0), u kept less the capacity, each op's test
+    u - thr <= 0 (or, for a promote, u - thr <= 32 z), the queue's prefix
+    sums staged ``queue_tile`` at a time from the cursor. Where they are
+    nondecreasing, the warp's scan: rounds of ``lanes`` ops whose states
+    are guessed as the round's state plus the changes of the ops before
+    them at their guesses, again until no guess moves; a make-space past
+    the staged sums stops the scan there (the queue is staged again at the
+    cursor, or, from the cursor, the op is left to the wide scan). The
+    wide scan: one op at a time, victims one by one past the staged sums
+    or where one is negative."""
+    n, nv = rows.shape[0], victims.size
+    vic = victims.astype(np.int64)
+    out = np.zeros((3, n), np.int64)
+    uh, zz, vi = int(used0) - cap, SB * int(z0), 0      # u less cap
+    wide = False
+    base = start = 0
+    while base < n:
+        count = min(n - base, row_tile)
+        ops = [_decode(r) for r in rows[base:base + count]]
+        q0 = vi
+        qn = min(nv - q0, queue_tile)
+        pre = np.concatenate([[0], np.cumsum(vic[q0:q0 + qn])]).tolist()
+        mono = not (vic[q0:q0 + qn] < 0).any()
+        more = q0 + qn < nv
+        j = start
+        if mono and not wide:
+            state = (uh, zz, 0)
+            while j < count:
+                m = min(lanes, count - j)
+                guess = [state] * m
+                while True:
+                    res = [_step(ops[j + i], guess[i], pre, q0, qn, more, nv)
+                           for i in range(m)]
+                    new, acc = [], state
+                    for i in range(m):
+                        new.append(acc)
+                        acc = tuple(a + b for a, b in zip(acc, res[i][0]))
+                    if new == guess:
+                        break
+                    guess = new
+                brk = [r[2] for r in res]
+                c = brk.index(True) if any(brk) else m
+                for i in range(c):
+                    post = tuple(a + b for a, b in zip(guess[i], res[i][0]))
+                    out[:, base + j + i] = (res[i][1], q0 + post[2],
+                                            post[0] + cap)
+                    state = post
+                j += c
+                if any(brk):
+                    wide = state[2] == 0
+                    break
+            uh, zz, vi = state[0], state[1], q0 + state[2]
+        else:
+            wide = False
+            while j < count:
+                code, thr, d1, d0, zd = ops[j]
+                zs = SB * zd
+                z1 = zz - zs if code == 1 else zz
+                w = uh - thr
+                pred = w <= 0 or (code == 1 and w <= z1)
+                x = uh + (d1 if pred else d0)
+                if x > 0 and vi < nv:
+                    k = vi - q0
+                    if mono and (k > qn or (pre[qn] < pre[k] + x and more)):
+                        if vi > q0:
+                            break           # stage the queue from the cursor
+                    elif mono:
+                        hi = next((i for i in range(k + 1, qn + 1)
+                                   if pre[i] >= pre[k] + x), qn)
+                        x -= pre[hi] - pre[k]
+                        vi = q0 + hi
+                        if x + SB <= 0:
+                            x += SB
+                    while x > 0 and vi < nv:        # one by one
+                        x -= int(vic[vi])
+                        vi += 1
+                        if x + SB <= 0:
+                            x += SB
+                uh = x
+                zz = z1 + zs if code == 2 and not pred else z1
+                out[:, base + j] = pred and code in (1, 2), vi, uh + cap
+                j += 1
+        if j == count:
+            base, start = base + row_tile, 0
+        else:
+            start = j
+    return tuple(o.astype(np.int32) for o in out)
+
+
+@pytest.mark.parametrize("name", cases.TRANSITION_CASES)
+def test_adversarial_windows_match_the_jax_kernel_and_oracles(name):
+    """Victims <= 0, an empty queue, a queue that runs dry mid-window,
+    make-spaces of tens of small victims, promotes at Eq. 1's floor: the
+    port's wrapper on the CPU, its torch loop and its numpy oracle against
+    the JAX oracles and the JAX kernel in interpret mode (the kernel and
+    the scan oracle take no empty queue)."""
+    rows, vic, used0, z0, cap = cases.transition_case(name)
+    want = [np.asarray(x) for x in jct.cache_transition_np(rows, vic, used0,
+                                                           z0, cap=cap)]
+    oracles = []
+    if vic.size:
+        oracles += [jct.cache_transition_ref(rows, vic, used0, z0, cap=cap),
+                    jct.cache_transition(rows, vic, used0, z0, cap=cap,
+                                         interpret=True)]
+    rt, vt = torch.from_numpy(rows), torch.from_numpy(vic)
+    got = [tct.cache_transition(rt, vt, used0, z0, cap=cap),
+           tct.cache_transition_ref(rt, vt, used0, z0, cap=cap),
+           tct.cache_transition_np(rows, vic, used0, z0, cap=cap)]
+    for outs in oracles + got:
+        for w, g in zip(want, outs):
+            g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("tiles", [(1024, 2048), (64, 16), (1, 1)])
+@pytest.mark.parametrize("name", [*cases.TRANSITION_CASES, "sweep0",
+                                  "pressure", "floor_div", "dry"])
+def test_the_kernels_searched_make_space_matches_plain(name, tiles):
+    """The CUDA kernel's design, mirrored in numpy, equals the plain loop
+    on every output: the searched make-space, the division-free Eq. 1,
+    the restaging of the queue at the cursor (tiny tiles restage at
+    almost every make-space)."""
+    if name in cases.TRANSITION_CASES:
+        rows, vic, used0, z0, cap = cases.transition_case(name)
+    else:
+        (opk, kd, pc, plen, vb), vic, used0, z0, cap, _ = CASES[name]()
+        rows = tct.encode_window(opk, kd, pc, plen, value_bytes=vb)
+    want = tct.cache_transition_np(rows, vic, used0, z0, cap=cap)
+    got = mirror_transition(rows, vic, used0, z0, cap, *tiles)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_the_edges_of_the_adversarial_windows_are_hit():
+    """Each window reaches what it is named for."""
+    def run(name):
+        rows, vic, used0, z0, cap = cases.transition_case(name)
+        return (rows, vic, cap,
+                *tct.cache_transition_np(rows, vic, used0, z0, cap=cap))
+
+    rows, vic, cap, dec, nvic, used = run("dry_mid")
+    dry = np.flatnonzero(nvic == vic.size)
+    assert 0 < dry[0] < rows.shape[0] // 2 and used.max() > cap
+    rows, vic, cap, dec, nvic, used = run("many_small")
+    assert nvic[-1] / rows.shape[0] > 20 and nvic[-1] > 2 * 2048
+    rows, vic, cap, dec, nvic, used = run("victims_nonpositive")
+    assert (vic[:nvic[-1]] < 0).any() and (vic[:nvic[-1]] == 0).any()
+    rows, vic, cap, dec, nvic, used = run("empty_queue")
+    assert used.max() > cap and not nvic.any()
+    rows, vic, cap, dec, nvic, used = run("long_make_space")
+    assert np.diff(np.r_[0, nvic]).max() > 2048        # past a staged tile
+    rows, vic, cap, dec, nvic, used = run("wide_values")
+    assert nvic[-1] > 0 and rows[:, 2].max() >= 1 << 28
+    rows, vic, cap, dec, nvic, used = run("window_8192")
+    assert nvic[-1] > 2048 and dec.any() and not dec.all()
+    rows, vic, cap, dec, nvic, used = run("floor_mix")
+    # promotes whose deficit is positive and not a multiple of 32, both
+    # taken and refused at Eq. 1's zero-count test
+    free = cap - np.concatenate([[cap - 100], used[:-1]])
+    deficit = rows[:, 2] - SB - free
+    odd = (deficit > 0) & (deficit % SB != 0)
+    assert dec[odd].any() and not dec[odd].all()
+
+
+def test_both_routes_refuse_what_int32_cannot_hold():
+    """The host route (plan_window_transitions, and a caller passing the
+    rows' largest value size) checks the int32 guard on the host; the
+    device route reads it back. Both refuse the same capacity."""
+    (opk, kd, pc, plen, vb), vic, used0, z0, _, _ = sweep_case(256, 256,
+                                                               4096, 0)
+    rows = tct.encode_window(opk, kd, pc, plen, value_bytes=vb)
+    cap = 2**31 - 64
+    with pytest.raises(OverflowError):
+        tct.plan_window_transitions(opk, kd, pc, plen, vic, used0, z0,
+                                    cap=cap, value_bytes=vb, device="cpu")
+    with pytest.raises(OverflowError):
+        tct.cache_transition(torch.from_numpy(rows), torch.from_numpy(vic),
+                             used0, z0, cap=cap, top=int(rows[:, 2].max()))
+    with pytest.raises(OverflowError):
+        tct.cache_transition(torch.from_numpy(rows), torch.from_numpy(vic),
+                             used0, z0, cap=cap)
+    # the kernel keeps 32 x the zero count: the starting state is int32
+    for bad in ((2**31, z0), (used0, -2**31 - 1)):
+        with pytest.raises(OverflowError):
+            tct.cache_transition(torch.from_numpy(rows),
+                                 torch.from_numpy(vic), *bad, cap=4096)

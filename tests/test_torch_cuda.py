@@ -700,3 +700,107 @@ def test_cache_transition_refuses_bad_inputs(dev):
         tct.cache_transition(r, v, used0, z0, cap=2**31 - 100)
     with pytest.raises(ValueError, match="mixed"):
         tct.cache_transition(r, v.cpu(), used0, z0, cap=cap)
+
+
+# --------------------------------------- kernels C and 4: adversarial inputs
+import importlib  # noqa: E402
+
+import torch_cases as cases  # noqa: E402
+
+from repro_torch.data import Workload  # noqa: E402
+
+tm_k = importlib.import_module("repro_torch.kernels.log_merge.log_merge")
+
+
+def merge_on(dev, lines, starts, bids, keys, ptrs, fn):
+    """``fn`` (the kernel's wrapper or its plain version) on a copy of
+    ``lines`` on ``dev``: (lines after, old, ok)."""
+    lt = torch.from_numpy(lines).to(dev)
+    old, ok = fn(lt, *(torch.from_numpy(x).to(dev)
+                       for x in (starts, bids, keys, ptrs)))
+    return lt, old, ok
+
+
+@pytest.mark.parametrize("walk_max", [0, 32])
+@pytest.mark.parametrize("name", cases.MERGE_CASES)
+def test_log_merge_sorted_adversarial_matches_plain(dev, monkeypatch, name,
+                                                    walk_max):
+    """Kernel C bit for bit against its plain version: hot keys, more new
+    keys than empty slots, -1 and -3 keys, lines holding a key twice,
+    clamped bucket ids; with every group on the block path (WALK_MAX 0)
+    and with the wrapper's split."""
+    monkeypatch.setattr(tm_k, "WALK_MAX", walk_max)
+    case = cases.merge_case(name)
+    n0 = _build.launches["log_merge_sorted"]
+    got = merge_on(dev, *case, tm.log_merge_sorted)
+    assert _build.launches["log_merge_sorted"] == n0 + 1
+    ref = merge_on(dev, *case, tm.log_merge_sorted_ref)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_log_merge_sorted_on_a_zipf_write_batch(dev):
+    """Kernel C on the updates of a YCSB write_heavy_update batch of 2^20
+    ops at zipf 0.99 over 2^25 keys, into 2^22 half-full lines: a group
+    of more than 25 K entries (the hottest key's bucket)."""
+    nb = 1 << 22
+    kinds, keys = Workload(1 << 25, zipf=0.99, mix="write_heavy_update",
+                           seed=3).ops_arrays(1 << 20)
+    wk = torch.from_numpy(keys[kinds == 1].astype(np.int32)).to(dev)
+    bs, order, starts = tm.sort_by_bucket(tc.bucket_of(wk, nb))
+    ks = wk[order].contiguous()
+    ps = torch.arange(ks.numel(), dtype=torch.int32, device=dev)
+    assert int((starts[1:] - starts[:-1]).max()) > 25_000
+    g = np.random.default_rng(3)
+    lines = np.full((nb, 8), -1, np.int32)
+    lines[:, :3] = np.where(g.random((nb, 3)) < 0.5,
+                            g.integers(0, 1 << 25, (nb, 3)), -1)
+    lines[:, 3:6] = g.integers(0, 2**31 - 1, (nb, 3))
+    base = torch.from_numpy(lines).to(dev)
+    lk, lr = base.clone(), base.clone()
+    got = tm.log_merge_sorted(lk, starts, bs, ks, ps)
+    ref = tm.log_merge_sorted_ref(lr, starts, bs, ks, ps)
+    assert torch.equal(lk, lr)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", cases.TRANSITION_CASES)
+def test_cache_transition_adversarial_matches_plain(dev, name):
+    """Kernel 4 bit for bit against its torch loop and its numpy oracle:
+    victims <= 0, an empty queue, a queue run dry mid-window, make-spaces
+    of tens of small victims (past the staged queue), promotes at Eq. 1's
+    floor, and a 2^13-op window with a 4,096-victim queue across the
+    staged tiles."""
+    rows, vic, used0, z0, cap = cases.transition_case(name)
+    r, v = torch.from_numpy(rows).to(dev), torch.from_numpy(vic).to(dev)
+    got = tct.cache_transition(r, v, used0, z0, cap=cap,
+                               top=int(rows[:, 2].max()))
+    ref = tct.cache_transition_ref(r, v, used0, z0, cap=cap)
+    plain = tct.cache_transition_np(rows, vic, used0, z0, cap=cap)
+    for g, rr, p in zip(got, ref, plain):
+        assert torch.equal(g, rr)
+        np.testing.assert_array_equal(g.cpu().numpy(), p)
+
+
+def test_kernels_c_and_4_do_not_synchronize(dev):
+    """log_merge_sorted and kernel 4's launch read nothing back to the
+    host: under sync debug mode "error" any synchronizing call raises."""
+    lines, starts, bids, keys, ptrs = (
+        torch.from_numpy(x).to(dev) for x in cases.merge_case("hot_key"))
+    rows, vic, used0, z0, cap = cases.transition_case("window_8192")
+    r, v = torch.from_numpy(rows).to(dev), torch.from_numpy(vic).to(dev)
+    outs = [torch.empty(rows.shape[0], dtype=torch.int32, device=dev)
+            for _ in range(3)]
+    tm.log_merge_sorted(lines.clone(), starts, bids, keys, ptrs)  # build
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tm.log_merge_sorted(lines, starts, bids, keys, ptrs)
+        tct.launch(r, v, used0, z0, cap, *outs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = tct.cache_transition_np(rows, vic.astype(np.int64), used0, z0,
+                                   cap=cap)
+    for g, w in zip(outs, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w)

@@ -198,3 +198,129 @@ def test_log_append_merge_fused_matches_ref(nb, cap, width, batches, space):
         assert (p_t == -1).all() and (o_t == -1).all() and not k_t.any()
         for jx, tx in zip((jt2, js2, jh2), plane):
             assert_same(jx, tx)
+
+
+# ------------------------------------------- kernel C on adversarial groups
+import importlib  # noqa: E402
+
+import torch_cases as cases  # noqa: E402
+
+jmk = importlib.import_module("repro.kernels.log_merge.log_merge")
+
+
+def mirror_merge_sorted(lines, starts, bids, keys, ptrs, walk_max, tile):
+    """numpy mirror of csrc/log_merge.cu: a group of at most ``walk_max``
+    entries walked in log order; a larger one in tiles of ``tile``
+    entries, where each tile's new keys claim the empty slots in log order
+    and every entry's old is its slot's previous entry."""
+    lines = lines.copy()
+    old = np.full(keys.size, -1, np.int32)
+    ok = np.zeros(keys.size, np.int32)
+    tb = lines.shape[0]
+    for g in range(starts.size - 1):
+        lo, hi = int(starts[g]), int(starts[g + 1])
+        if hi <= lo:
+            continue
+        b = min(max(int(bids[lo]), 0), tb - 1)
+        v = lines[b].copy()
+        if hi - lo <= walk_max:
+            for i in range(lo, hi):
+                k = int(keys[i])
+                match = [s for s in range(3) if v[s] == k]
+                empty = [s for s in range(3) if v[s] == -1]
+                target = (match or empty or [-1])[0]
+                if k >= 0 and target >= 0:
+                    old[i] = v[3 + target] if match else -1
+                    ok[i] = 1
+                    v[target], v[3 + target] = k, ptrs[i]
+            lines[b] = v
+            continue
+        want = [int(v[s]) if v[s] >= 0 and v[s] not in v[:s] else -1
+                for s in range(3)]
+        empties = [s for s in range(3) if v[s] == -1]
+        claimed = 0
+        last = [-1, -1, -1]
+        for base in range(lo, hi, tile):
+            span = range(base, min(hi, base + tile))
+            while claimed < len(empties):
+                fresh = [i for i in span if keys[i] >= 0
+                         and int(keys[i]) not in want]
+                if not fresh:
+                    break
+                want[empties[claimed]] = int(keys[fresh[0]])
+                claimed += 1
+            for i in span:
+                k = int(keys[i])
+                if k < 0 or k not in want:
+                    continue
+                s = want.index(k)
+                old[i] = (ptrs[last[s]] if last[s] >= 0
+                          else (-1 if v[s] == -1 else v[3 + s]))
+                ok[i] = 1
+                last[s] = i
+        for s in range(3):
+            if last[s] >= 0:
+                lines[b, s], lines[b, 3 + s] = want[s], ptrs[last[s]]
+    return lines, old, ok
+
+
+@pytest.mark.parametrize("name", [c for c in cases.MERGE_CASES
+                                  if c != "clamp"])
+def test_log_merge_sorted_adversarial_matches_the_jax_kernel(name):
+    """Kernel C's plain version (what the wrapper runs on the CPU) against
+    the Pallas kernel in interpret mode: hot keys, more new keys than
+    empty slots, -1 and -3 keys, lines holding a key twice."""
+    lines, starts, bids, keys, ptrs = cases.merge_case(name)
+    first = np.zeros(keys.size, np.int32)
+    first[starts[:-1]] = 1
+    wide = np.full((lines.shape[0], 128), -1, np.int32)
+    wide[:, :8] = lines
+    rows, o_j, k_j = jmk.log_merge_sorted(
+        jnp.asarray(wide), jnp.asarray(bids), jnp.asarray(first),
+        jnp.asarray(keys), jnp.asarray(ptrs), interpret=True)
+    lt = torch.from_numpy(lines.copy())
+    o_t, k_t = tm.log_merge_sorted(lt, *map(torch.from_numpy,
+                                            (starts, bids, keys, ptrs)))
+    np.testing.assert_array_equal(o_t.numpy(), np.asarray(o_j))
+    np.testing.assert_array_equal(k_t.numpy(), np.asarray(k_j))
+    want = lines.copy()
+    want[bids[starts[:-1]]] = np.asarray(rows)[starts[1:] - 1, :8]
+    np.testing.assert_array_equal(lt.numpy(), want)
+
+
+@pytest.mark.parametrize("walk_max,tile", [(32, 1024), (4, 8), (0, 1)])
+@pytest.mark.parametrize("name", cases.MERGE_CASES)
+def test_the_kernels_parallel_merge_matches_plain(name, walk_max, tile):
+    """The CUDA kernel's design, mirrored in numpy, equals the plain
+    version bit for bit: groups split by size, claims found tile by tile,
+    each old from the slot's previous entry (small tiles cross many tile
+    edges)."""
+    lines, starts, bids, keys, ptrs = cases.merge_case(name)
+    lt = torch.from_numpy(lines.copy())
+    o_t, k_t = tm.log_merge_sorted_ref(lt, *map(torch.from_numpy,
+                                                (starts, bids, keys, ptrs)))
+    lm, o_m, k_m = mirror_merge_sorted(lines, starts, bids, keys, ptrs,
+                                       walk_max, tile)
+    np.testing.assert_array_equal(o_m, o_t.numpy())
+    np.testing.assert_array_equal(k_m, k_t.numpy())
+    np.testing.assert_array_equal(lm, lt.numpy())
+
+
+def test_clamped_buckets_merge_into_the_edge_lines():
+    """Bucket ids outside the table merge into the first and last lines,
+    as the kernel's clamp does: the entry-at-a-time oracle on the clamped
+    ids gives the same result."""
+    lines, starts, bids, keys, ptrs = cases.merge_case("clamp")
+    lt = torch.from_numpy(lines.copy())
+    o_t, k_t = tm.log_merge_sorted(lt, *map(torch.from_numpy,
+                                            (starts, bids, keys, ptrs)))
+    live = keys >= 0
+    clamped = np.clip(bids, 0, lines.shape[0] - 1)
+    l_r, o_r, k_r = tm.log_merge_ref(torch.from_numpy(lines),
+                                     t(clamped[live]), t(keys[live]),
+                                     t(ptrs[live]))
+    np.testing.assert_array_equal(lt.numpy(), l_r.numpy())
+    np.testing.assert_array_equal(o_t.numpy()[live], o_r.numpy())
+    np.testing.assert_array_equal(k_t.numpy()[live], k_r.numpy())
+    assert (o_t.numpy()[~live] == -1).all() and not k_t.numpy()[~live].any()
+    assert (lt.numpy()[[0, -1], :3] != lines[[0, -1], :3]).any(axis=1).all()

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's kernels 7 (ssd_scan) and D (clht_insert) against an
-earlier version of them on the same card, in one process, on the same
-inputs.
+"""Time the port's kernels 7 (ssd_scan), D (clht_insert), C
+(log_merge_sorted) and 4 (cache_transition) against an earlier version of
+them on the same card, in one process, on the same inputs.
 
-    python3 tools/ab_kernels.py --baseline DIR
+    python3 tools/ab_kernels.py --baseline DIR [--only NAME,...]
 
 DIR is a checkout of the earlier commit (for example ``git archive
 <commit> | tar -x -C DIR``); its package is loaded under another name and
@@ -25,6 +25,20 @@ against the plain version. Shapes:
                write_heavy_update batch of 2^20 ops at zipf 0.99 (the
                updates log_merge leaves to kernel D); each bit for bit
                against clht_insert_plain
+  log_merge_sorted
+               the 2^19 updates of a YCSB write_heavy_update batch of
+               2^20 ops at zipf 0.99, bucket-sorted, into the same 2^25-key
+               table (a fresh copy of its lines before every run), bit for
+               bit against log_merge_sorted_ref; then the current kernel
+               at other values of WALK_MAX (the largest group one thread
+               walks)
+  cache_transition
+               the launch alone on (a) a seeded 512-op window of a full
+               1 GiB cache whose fills and promotes make space, with a
+               queue of 1,064-byte victims, and (b) tests/torch_cases.py's
+               2^13-op window with a 4,096-victim queue, which crosses the
+               staged tiles; each also over as many neutral rows (no scan
+               work); bit for bit against cache_transition_np
 
 Needs a CUDA card; prints one JSON object per line, the card's name and
 power limit first.
@@ -44,21 +58,30 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))
 
 from repro_torch.core import clht  # noqa: E402
 from repro_torch.data import Workload  # noqa: E402
+from repro_torch.kernels import cache_transition as trans  # noqa: E402
 from repro_torch.kernels import log_merge as merge  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
+from torch_cases import transition_case  # noqa: E402
+
+# the module behind kernel C's wrapper (the package exports the function
+# log_merge over its name)
+merge_k = importlib.import_module("repro_torch.kernels.log_merge.log_merge")
 
 SPIN_CYCLES = 2_000_000
 REPS = 30
 KEYS_LOG2 = 25
 LOAD_SLOW = 21_836      # the load's mean slow-path entries per launch
+KERNELS = ("ssd_scan", "clht_insert", "log_merge_sorted", "cache_transition")
 
 
 def load_baseline(root: Path):
     """The package at root/src/repro_torch, imported as
-    ``baseline_repro_torch``: its (ssd_scan module, clht module)."""
+    ``baseline_repro_torch``: its ssd_scan, clht, log_merge and
+    cache_transition modules."""
     pkg = root / "src" / "repro_torch"
     spec = importlib.util.spec_from_file_location(
         "baseline_repro_torch", pkg / "__init__.py",
@@ -66,9 +89,10 @@ def load_baseline(root: Path):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["baseline_repro_torch"] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module(
-                "baseline_repro_torch.kernels.ssd_scan.ssd_scan"),
-            importlib.import_module("baseline_repro_torch.core.clht"))
+    return tuple(importlib.import_module(f"baseline_repro_torch.{m}") for m in
+                 ("kernels.ssd_scan.ssd_scan", "core.clht",
+                  "kernels.log_merge.log_merge",
+                  "kernels.cache_transition.cache_transition"))
 
 
 def event_ms(fn, reps: int, setup=None) -> float:
@@ -146,23 +170,44 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=REPS)
+    ap.add_argument("--only", default=",".join(KERNELS),
+                    help="comma-separated kernels to time")
     args = ap.parse_args()
+    only = args.only.split(",")
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
         return 2
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    old_ssd, old_clht = load_baseline(args.baseline.resolve())
+    old = load_baseline(args.baseline.resolve())
     dev = torch.device("cuda")
+    if "ssd_scan" in only:
+        ab_ssd(old[0], dev, args.reps)
+    if "cache_transition" in only:
+        ab_transition(old[3], dev, args.reps)
+    if "clht_insert" in only or "log_merge_sorted" in only:
+        table = full_table(dev)
+        kinds, keys = Workload(table.num_buckets, zipf=0.99,
+                               mix="write_heavy_update",
+                               seed=1).ops_arrays(1 << 20)
+        wk = torch.from_numpy(keys[kinds == 1].astype(np.int32)).to(dev)
+        if "clht_insert" in only:
+            ab_insert(old[1], table, wk, args.reps)
+        if "log_merge_sorted" in only:
+            ab_merge(old[2], table, wk, args.reps)
+    return 0
 
-    # kernel 7 at prefill's layer shape
+
+def ab_ssd(old_ssd, dev, reps: int) -> None:
+    """Kernel 7 at prefill's layer shape, then the current kernel at
+    batch 1."""
     xs = ssd_inputs(dev)
     ref = ssd_k.ssd_chunked(*xs, 64)
     row = {"kernel": "ssd_scan", "shape": [4, 2048, 80, 64], "state": 128,
            "groups": 1, "chunk": 64,
            **turns(lambda: old_ssd.ssd_scan(*xs, chunk=64),
-                   lambda: ssd_k.ssd_scan(*xs, chunk=64), args.reps),
+                   lambda: ssd_k.ssd_scan(*xs, chunk=64), reps),
            "baseline_err_over_bar": ssd_err(
                old_ssd.ssd_scan(*xs, chunk=64), ref),
            "err_over_bar": ssd_err(ssd_k.ssd_scan(*xs, chunk=64), ref)}
@@ -173,22 +218,20 @@ def main() -> int:
     print(json.dumps({"kernel": "ssd_scan", "shape": [1, 2048, 80, 64],
                       "blocks": 80, "ms": event_ms(
                           lambda: ssd_k.ssd_scan(*one, chunk=64),
-                          args.reps)}), flush=True)
-    del xs, ref, one
+                          reps)}), flush=True)
 
-    # kernel D on the full table
-    table = full_table(dev)
-    n = 1 << KEYS_LOG2
+
+def ab_insert(old_clht, table, wk, reps: int) -> None:
+    """Kernel D on the full table: the load's mean slow-path batch, and
+    the slow-path entries of a write batch's updates."""
+    n, dev = table.num_buckets, wk.device
     fresh = torch.arange(n, n + LOAD_SLOW, dtype=torch.int32, device=dev)
-    kinds, keys = Workload(n, zipf=0.99, mix="write_heavy_update",
-                           seed=1).ops_arrays(1 << 20)
-    wk = torch.from_numpy(keys[kinds == 1].astype(np.int32)).to(dev)
     wp = torch.arange(n, n + wk.numel(), dtype=torch.int32, device=dev)
     after = clht.CLHT(table.lines.clone(), table.overflow_head.clone(), n)
     _, _, ok = merge.log_merge(after.lines, clht.bucket_of(wk, n), wk, wp)
     slow = (ok != 1).nonzero().flatten()
     sk, sp = wk[slow].contiguous(), wp[slow].contiguous()
-    reps = max(2, args.reps // 3)
+    reps = max(2, reps // 3)
     for name, base, k, p in (("load slow path", table, fresh, fresh),
                              ("write_heavy_update slow path", after, sk,
                               sp)):
@@ -202,7 +245,86 @@ def main() -> int:
                        copy(old_clht), copy(clht)),
                "equal_to_plain": insert_equal(base, k, p, old_clht)}
         print(json.dumps(row), flush=True)
-    return 0
+
+
+def ab_merge(old_merge, table, wk, reps: int) -> None:
+    """Kernel C on a write batch's updates, bucket-sorted, into the full
+    table's lines (a fresh copy before every run); each version bit for
+    bit against the plain version; then the current kernel at other
+    values of WALK_MAX."""
+    n = table.num_buckets
+    bs, order, starts = merge.sort_by_bucket(clht.bucket_of(wk, n))
+    ks = wk[order].contiguous()
+    ps = torch.arange(ks.numel(), dtype=torch.int32, device=wk.device)
+    args = (starts, bs, ks, ps)
+    fresh = lambda: (table.lines.clone(),)        # noqa: E731
+    sizes = starts[1:] - starts[:-1]
+    ref_lines = table.lines.clone()
+    ref = [ref_lines, *merge.log_merge_sorted_ref(ref_lines, *args)]
+
+    def equal(fn) -> bool:
+        lines = table.lines.clone()
+        got = [lines, *fn(lines, *args)]
+        return all(torch.equal(a, b) for a, b in zip(got, ref))
+
+    row = {"kernel": "log_merge_sorted", "entries": ks.numel(),
+           "groups": sizes.numel(), "largest_group": int(sizes.max()),
+           **turns(lambda lines: old_merge.log_merge_sorted(lines, *args),
+                   lambda lines: merge.log_merge_sorted(lines, *args), reps,
+                   fresh, fresh),
+           "equal_to_plain": {"baseline": equal(old_merge.log_merge_sorted),
+                              "current": equal(merge.log_merge_sorted)}}
+    print(json.dumps(row), flush=True)
+    default = merge_k.WALK_MAX
+    for walk_max in (0, 8, 128, 1024):
+        merge_k.WALK_MAX = walk_max
+        print(json.dumps({
+            "kernel": "log_merge_sorted", "walk_max": walk_max,
+            "groups_walked": int((sizes <= walk_max).sum()),
+            "ms": event_ms(lambda lines: merge.log_merge_sorted(
+                lines, *args), reps, fresh),
+            "equal_to_plain": equal(merge.log_merge_sorted)}), flush=True)
+    merge_k.WALK_MAX = default
+
+
+def ab_transition(old_trans, dev, reps: int) -> None:
+    """Kernel 4's launch on a 512-op make-space window of a full 1 GiB
+    cache and on a 2^13-op window over 4,096 victims, and on as many
+    neutral rows; each version bit for bit against the plain loop."""
+    g = np.random.default_rng(7)
+    n = 512
+    opk = g.choice([0, 1], n)
+    rows = trans.encode_window(opk, g.choice([1, 2], n),
+                               g.choice([0, 1, 3], n), np.full(n, 1024),
+                               value_bytes=1024)
+    cap = 1 << 30
+    windows = {"make_space_512": (rows, np.full(1100, 1064, np.int32),
+                                  cap - 500, 40, cap),
+               "window_8192": transition_case("window_8192")}
+    for name, (rows, vic, used0, z0, cap) in windows.items():
+        r, v = torch.from_numpy(rows).to(dev), torch.from_numpy(vic).to(dev)
+        idle = torch.zeros_like(r)
+        want = trans.cache_transition_np(rows, vic, used0, z0, cap=cap)
+
+        def launch(mod, ops):
+            outs = [torch.empty(rows.shape[0], dtype=torch.int32, device=dev)
+                    for _ in range(3)]
+            return lambda: (mod.launch(ops, v, used0, z0, cap, *outs), outs)
+
+        def equal(mod) -> bool:
+            outs = launch(mod, r)()[1]
+            return all(np.array_equal(o.cpu().numpy(), w)
+                       for o, w in zip(outs, want))
+
+        row = {"kernel": "cache_transition", "window": name,
+               "ops": rows.shape[0], "queue": int(vic.size),
+               "victims_consumed": int(want[1][-1]),
+               **turns(launch(old_trans, r), launch(trans, r), reps),
+               "neutral_rows": turns(launch(old_trans, idle),
+                                     launch(trans, idle), reps),
+               "equal_to_plain": {"baseline": equal(old_trans),
+                                  "current": equal(trans)}}
+        print(json.dumps(row), flush=True)
 
 
 def insert_equal(base, keys, ptrs, old_clht) -> dict:
