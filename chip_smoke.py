@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's four paths on one NVIDIA H100: the DPM data
-plane, one KN's planned DAC windows over it, the paged LLM serving path
-and the SSM family's prefill and recurrent decode.
+"""Drive the PyTorch port's paths on one NVIDIA H100: the DPM data plane,
+one KN's planned DAC windows over it, the DPM pool with its planned merge,
+the paged LLM serving path and the SSM family's prefill and recurrent
+decode.
 
 Run from the repository root with no arguments:
 
@@ -39,8 +40,23 @@ KN serves the same pool from its DAC cache:
              disagreement under a named cause; a window whose reads
              missed is also checked on its prefix before the first miss
 
-and times kernel 4 on a 512-op window of that path. Then it runs
-qwen1.5-0.5b at its published widths (24 layers, d_model 1024, 16
+and times kernel 4 on a 512-op window of that path. Then the port's DPM
+pool (core/dpm_pool.py: host lists and index, as the reference's) runs on
+the card at 2^21 keys of 1 KB values:
+
+  dpm_pool   the keys loaded through the pool's batched writes and
+             merge_all, then 8 rounds of YCSB write_heavy_update at zipf
+             0.99 by three KNs: log_write_batch, merge_budget, and the
+             round's reads through index_lookup_batch on the card (the
+             pool's packed copy of its index, kernel A and the chain walk),
+             each kernel-A launch held bit for bit to clht_probe_ref on
+             its inputs, each read against the host index's walk and the
+             last acknowledged write merged; every written key read back after
+             merge_all, verify_integrity() empty; the same log merged into
+             a slice-1 card table by merge_segment_planned (kernel D for
+             its chain-growth tail) equal to the pool's index row for row
+
+Then it runs qwen1.5-0.5b at its published widths (24 layers, d_model 1024, 16
 heads, vocab 151,936; random bf16 weights from a seeded generator):
 
   prefill      build_model(CONFIG).prefill of 4 prompts x 2048 tokens
@@ -72,7 +88,8 @@ weights from a seeded generator):
   time_ssd     ssd_scan at prefill's layer-0 inputs
 
 Every failure raises. The last line of standard output is
-{"ok": true, "device": {...}}; the line before it lists the kernels.
+{"ok": true, "device": {...}}; the line before it lists the kernels, each
+with its launches summed over every phase that ran it.
 Without a card, or without the repository beside it, it exits non-zero
 and prints no result.
 """
@@ -101,12 +118,16 @@ from repro_torch.core.cluster import (KVSNode, _WritePlan,  # noqa: E402
                                       apply_window_plan, warm_load)
 from repro_torch.core.dac import (SHORTCUT_BYTES,  # noqa: E402
                                   VALUE_OVERHEAD_BYTES)
-from repro_torch.core.transition import (PLAN_STATS,  # noqa: E402
-                                         plan_dac_window, reset_plan_stats)
+from repro_torch.core.dpm_pool import DPMPool  # noqa: E402
+from repro_torch.core.transition import (MERGE_PLAN_STATS,  # noqa: E402
+                                         PLAN_STATS, plan_dac_window,
+                                         reset_merge_plan_stats,
+                                         reset_plan_stats)
 from repro_torch.data import Workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import cache_transition as transition  # noqa: E402
 from repro_torch.kernels import clht_probe as probe  # noqa: E402
+from repro_torch.kernels.clht_probe import ops as probe_ops  # noqa: E402
 from repro_torch.kernels import decode_attention as decode  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import log_merge as merge  # noqa: E402
@@ -145,6 +166,16 @@ KN_WINDOW = 512             # ops per planning chunk, as _run_window_at
 KN_SEGCACHE = 4 * 2048      # segcache entries: 4 of the reference's segments
 KN_WRITE_BATCH = 8          # writes per amortized log flush (one RT)
 VALUE_BYTES = WIDTH * 4
+# the DPM pool phase: the port's DPMPool (host lists and index, its
+# batched reads on the card) at 2^21 keys, not the paper's 2^25: a pool
+# of Python lists at 2^25 keys would take minutes and gigabytes on the
+# host, and at 2^22 the phase took up to 121 s of the smoke's time
+POOL_KEYS_LOG2 = 21
+POOL_SEGMENT = 512          # benchmarks/bench_dataplane.py:86's segments
+POOL_LOAD_BATCH = 1 << 16   # keys per batched load write
+POOL_KNS = ("kn1", "kn2", "kn3")     # a key's owner: key % 3
+POOL_ROUNDS = 8
+POOL_ROUND_OPS = 1 << 18    # YCSB ops per round over the three KNs
 ARCH = "qwen1.5-0.5b"
 PREFILL_B, PREFILL_S, PREFILL_REPS = 4, 2048, 3
 SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 8, 256, 128, 64
@@ -178,6 +209,11 @@ BEFORE_SLICE6_MS = {"ssd_scan": 2.857639992237091,
 # NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
 BEFORE_SLICE7 = "commit 9bd28d4, NVIDIA H100 80GB HBM3, 700.00 W"
 BEFORE_SLICE7_MS = {"log_merge_sorted": 3.098, "cache_transition": 0.0792}
+# kernel A in the design it replaces (commit ae9bb1d: one thread a key,
+# the line as two 16-byte loads), measured by this script at the same
+# shape on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
+BEFORE_SLICE8 = "commit ae9bb1d, NVIDIA H100 80GB HBM3, 700.00 W"
+BEFORE_SLICE8_MS = {"clht_probe": 0.0291}
 # stated tolerances (atol = rtol), see tests/test_torch_cuda.py
 TOL = {torch.float32: {"flash_attention": 3e-5,
                        "paged_decode_attention": 2e-5, "ssd_scan": 3e-4},
@@ -341,16 +377,17 @@ def event_ms(fn, reps: int, setup=None):
 
 
 @contextlib.contextmanager
-def recorded(module, name: str, replace=None):
+def recorded(module, name: str, replace=None, clone=False):
     """Record the calls of ``module.name`` made inside the block, as a
     list of (positional args, output); ``replace`` maps a call's index to the
-    output returned in place of the real one."""
+    output returned in place of the real one; ``clone`` keeps a copy of a
+    tuple of tensors as it was returned (the caller may write into it)."""
     fn = getattr(module, name)
     calls = []
 
     def wrapper(*args, **kwargs):
         out = fn(*args, **kwargs)
-        calls.append((args, out))
+        calls.append((args, tuple(t.clone() for t in out) if clone else out))
         return (replace or {}).get(len(calls) - 1, out)
 
     setattr(module, name, wrapper)
@@ -372,22 +409,20 @@ def uncounted():
 
 
 def probe_batch(table, keys: np.ndarray):
-    """Batched index reads of ``keys`` on the card, as the reference's
-    index_lookup_batch prefetches a batch's misses: kernel A on the
-    primary lines, the chain walk for keys that missed a chained line.
-    Returns (ptrs, lines walked, primary buckets), numpy, ptr -1 absent."""
+    """Batched index reads of ``keys`` on the card, as the DPM pool's
+    index_lookup_batch makes them (kernel A on the primary lines, the
+    chain walk for keys that missed a chained line). Returns (ptrs, lines
+    walked, primary buckets), numpy, ptr -1 absent."""
     kd = torch.from_numpy(keys.astype(np.int32)).to(table.lines.device)
-    bids = clht.bucket_of(kd, table.num_buckets)
-    ptrs, found = probe.clht_probe(table.lines, bids, kd)
-    found = found.bool()
-    walked = torch.ones_like(ptrs)
-    slow = ((~found) & (table.nxt[bids.long()] >= 0)).nonzero().flatten()
-    if slow.numel():
-        ptrs[slow], found[slow], walked[slow] = clht.clht_lookup(table,
-                                                                 kd[slow])
-    ptrs = torch.where(found, ptrs, -1)
+    ptrs, walked = probe.lookup_walk(table, kd)
     return (ptrs.cpu().numpy().astype(np.int64), walked.cpu().numpy(),
-            bids.cpu().numpy())
+            clht.bucket_of(kd, table.num_buckets).cpu().numpy())
+
+
+def _last_writes(keys: np.ndarray) -> np.ndarray:
+    """Positions of each distinct key's last occurrence in ``keys``."""
+    _, first = np.unique(keys[::-1], return_index=True)
+    return keys.size - 1 - first
 
 
 class PoolView:
@@ -412,9 +447,20 @@ class Smoke:
     def __init__(self):
         self.dev = torch.device("cuda")
         self.errors: dict[str, int] = {}
+        # each kernel's launches on the main path, summed over the phases
+        # (tally), and each phase's own
+        self.counts = dict.fromkeys(_build.KERNELS, 0)
+        self.phase_counts: dict[str, dict] = {}
         # kernel vs plain on every launch of one main-path call (prefill,
         # a decode step)
         self.path_err: dict[str, float] = {}
+
+    def tally(self, phase: str, counts: dict) -> None:
+        """Add a phase's main-path launches (counted from 0 just before
+        it ran) to the kernels' totals."""
+        self.phase_counts[phase] = {k: c for k, c in counts.items() if c}
+        for k, c in counts.items():
+            self.counts[k] += c
 
     def clone_table(self, t):
         return clht.CLHT(lines=t.lines.clone(),
@@ -743,7 +789,7 @@ class Smoke:
         missing = [k for k in DPM_KERNELS if counts[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched: {missing}")
-        self.counts = counts
+        self.tally("dpm_serve", counts)
         self.slow_per_launch = max(
             1, _build.work["clht_insert"]
             // max(1, counts["clht_insert"]))
@@ -789,6 +835,11 @@ class Smoke:
                 lambda: torch.index_select(heap.data, 0, safe), b_bytes,
                 REPS),
         ]
+        emit({"redesigned": "clht_probe", "ms": out[0]["ms"],
+              "before_ms": BEFORE_SLICE8_MS["clht_probe"],
+              "inputs": f"the {nk} keys of one served read_only batch at "
+                        f"zipf {ZIPF}, {lines_touched} distinct lines",
+              "before": BEFORE_SLICE8})
 
         # C on one served write batch: sorted entries, fresh copy of the
         # lines for every run. Per entry 8 B read (key, ptr) and 8 B
@@ -967,7 +1018,7 @@ class Smoke:
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = dict(_build.launches)
-        self.counts["cache_transition"] = counts["cache_transition"]
+        self.tally("kn_window", counts)
         v, pv = tally["verdicts"], tally["prefix_verdicts"]
         planned = PLAN_STATS["planned_windows"]
         prefixes = sum(pv.values())
@@ -1165,6 +1216,199 @@ class Smoke:
                                        segment_cached=True)
                 kn._segcache_put(k, ptr, VALUE_BYTES)
 
+    # ------------------------------------------------------ 7c. the pool
+    def dpm_pool(self) -> None:
+        """The port's DPMPool on the card: 2^POOL_KEYS_LOG2 keys of 1 KB
+        values (a value is its write's version with a length of 1 KB: the
+        pool keeps an opaque payload and its length) loaded through the
+        pool's batched writes and merge_all, then POOL_ROUNDS rounds of
+        YCSB write_heavy_update at zipf 0.99 by three KNs (a key's owner
+        is key % 3): each KN's updates through log_write_batch, then
+        merge_budget of the round's writes, then the round's reads
+        through index_lookup_batch on the card (kernel A and the chain
+        walk on the pool's packed copy of its index).
+
+        Every kernel-A launch of a batched read equals clht_probe_ref on
+        the same lines, bucket ids and keys; every batched read equals
+        the host index's walk
+        (NumpyCLHT.lookup_batch: pointers and lines walked) and the
+        pointer of its key's last acknowledged write that the merge has
+        reached (a KN's log merges as a prefix, in order); after a final
+        merge_all every written key reads its last acknowledged write,
+        and verify_integrity() is empty. The same log, merged into a
+        slice-1 table on the card by merge_segment_planned (the host plan
+        as bulk scatters, the chain-growth tail through kernel D), equals
+        the pool's index row for row after the load and at the end."""
+        n = 1 << POOL_KEYS_LOG2
+        dev = self.dev
+        order = np.random.default_rng(SEED + 3).permutation(n)
+        traffic = Workload(n, zipf=ZIPF, mix="write_heavy_update",
+                           seed=SEED + 3)
+        rounds = [traffic.ops_arrays(POOL_ROUND_OPS)
+                  for _ in range(POOL_ROUNDS)]
+        reset_merge_plan_stats()
+        pool = DPMPool(num_buckets=n, segment_capacity=POOL_SEGMENT,
+                       device=dev)
+        acked = np.full(n, -1, np.int64)      # last acknowledged pointer
+        merged = np.full(n, -1, np.int64)     # ... that the merge reached
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+
+        # load: batched writes by a loader KN, merge_all, the KN dropped
+        t_phase = t0 = time.perf_counter()
+        pool.register_kn("loader")
+        for lo in range(0, n, POOL_LOAD_BATCH):
+            keys = order[lo:lo + POOL_LOAD_BATCH]
+            ptrs, _ = pool.log_write_batch("loader", keys.tolist(),
+                                           [0] * keys.size,
+                                           [VALUE_BYTES] * keys.size)
+            acked[keys] = ptrs
+        load_merged = pool.merge_all("loader")
+        pool.drop_kn("loader")
+        load_s = time.perf_counter() - t0
+        merged[:] = acked
+        if load_merged != n or pool.index.size != n:
+            raise AssertionError(f"the load merged {load_merged} entries "
+                                 f"and indexed {pool.index.size} keys of {n}")
+        emit({"phase": "dpm_pool_load", "keys": n, "seconds": load_s,
+              "keys_per_s": n / load_s, "segment_capacity": POOL_SEGMENT,
+              "overflow_buckets_used": pool.index.overflow_head - n,
+              **MERGE_PLAN_STATS})
+        slice1 = clht.clht_init(n, device=dev)
+        self._pool_slice1(pool, slice1, [(order, acked[order])], "load")
+
+        for kn in POOL_KNS:
+            pool.register_kn(kn)
+        logs = {kn: ([], []) for kn in POOL_KNS}     # per KN, in log order
+        segs_of = {kn: {} for kn in POOL_KNS}        # per KN, by creation
+        frontier = dict.fromkeys(POOL_KNS, 0)        # entries merged
+        read_s = merge_s = 0.0
+        n_reads = n_merged = walked = version = n_checked = 0
+        for kinds, keys in rounds:
+            for i, kn in enumerate(POOL_KNS):
+                wk = keys[(kinds == 1) & (keys % len(POOL_KNS) == i)]
+                ptrs, _ = pool.log_write_batch(
+                    kn, wk.tolist(), list(range(version, version + wk.size)),
+                    [VALUE_BYTES] * wk.size)
+                version += wk.size
+                acked[wk] = ptrs          # a key's writes: one KN, in order
+                logs[kn][0].append(wk)
+                logs[kn][1].append(np.asarray(ptrs, np.int64))
+                for seg in pool.segments[kn]:
+                    segs_of[kn].setdefault(id(seg), seg)
+            t0 = time.perf_counter()
+            n_merged += pool.merge_budget(int((kinds == 1).sum()))
+            merge_s += time.perf_counter() - t0
+            for kn in POOL_KNS:
+                f = sum(seg.merged_upto for seg in segs_of[kn].values())
+                lk = np.concatenate(logs[kn][0])[frontier[kn]:f]
+                lp = np.concatenate(logs[kn][1])[frontier[kn]:f]
+                last = _last_writes(lk)
+                merged[lk[last]] = lp[last]
+                frontier[kn] = f
+            rk = keys[kinds == 0]
+            t0 = time.perf_counter()
+            with recorded(probe_ops, "clht_probe", clone=True) as calls:
+                ptrs, probes = pool.index_lookup_batch(rk)
+            read_s += time.perf_counter() - t0
+            n_checked += self._pool_probe_check(calls)
+            n_reads += rk.size
+            walked += int(probes.sum())
+            self._pool_read_check(pool, rk, ptrs, probes, merged)
+        t0 = time.perf_counter()
+        n_merged += pool.merge_all()
+        merge_s += time.perf_counter() - t0
+        written = np.unique(np.concatenate(
+            [k for kn in POOL_KNS for k in logs[kn][0]]))
+        with recorded(probe_ops, "clht_probe", clone=True) as calls:
+            ptrs, probes = pool.index_lookup_batch(written)
+        n_checked += self._pool_probe_check(calls)
+        self._pool_read_check(pool, written, ptrs, probes, acked)
+        problems = pool.verify_integrity()
+        if problems:
+            raise AssertionError(f"dpm_pool: verify_integrity: "
+                                 f"{problems[:4]}")
+        torch.cuda.synchronize()
+        if _build.launches["clht_probe"] != POOL_ROUNDS + 1 \
+                or n_checked != POOL_ROUNDS + 1:
+            raise AssertionError(f"dpm_pool: kernel A launched "
+                                 f"{_build.launches['clht_probe']} times, "
+                                 f"{n_checked} held to its plain version, "
+                                 f"for {POOL_ROUNDS + 1} batched reads")
+        self._pool_slice1(pool, slice1, [
+            (np.concatenate(logs[kn][0]), np.concatenate(logs[kn][1]))
+            for kn in POOL_KNS], "traffic")
+        if not _build.launches["clht_insert"]:
+            raise AssertionError("dpm_pool: merge_segment_planned never "
+                                 "reached kernel D")
+        self.tally("dpm_pool", dict(_build.launches))
+        emit({"phase": "dpm_pool", "seconds": time.perf_counter() - t_phase,
+              "kns": len(POOL_KNS),
+              "rounds": POOL_ROUNDS, "ops": POOL_ROUNDS * POOL_ROUND_OPS,
+              "writes": version, "reads": n_reads,
+              "reads_per_s": n_reads / read_s,
+              "mean_lines_walked": walked / n_reads,
+              "merged_entries": n_merged,
+              "merged_entries_per_s": n_merged / merge_s,
+              "written_keys_read_back": int(written.size),
+              "kernel_a_launches_equal_to_plain": n_checked,
+              "integrity_problems": 0, **MERGE_PLAN_STATS,
+              "launches": {k: c for k, c in _build.launches.items() if c}})
+
+    @staticmethod
+    def _pool_probe_check(calls) -> int:
+        """Each recorded kernel-A call of a batched read against
+        clht_probe_ref on the same lines, bucket ids and keys, bit for
+        bit, raw (ptrs, found) before the chain walk writes into them.
+        Returns the calls checked."""
+        for args, (ptrs, found) in calls:
+            want_p, want_f = probe.clht_probe_ref(*args)
+            if not (torch.equal(ptrs, want_p) and torch.equal(found, want_f)):
+                raise AssertionError("dpm_pool: a kernel-A launch of a "
+                                     "batched read disagrees with "
+                                     "clht_probe_ref")
+        return len(calls)
+
+    @staticmethod
+    def _pool_read_check(pool, keys, ptrs, probes, want) -> None:
+        """A batched read on the card against the host index's walk
+        (pointers and lines walked) and the expected pointers."""
+        host = pool.index.lookup_batch(keys)
+        if not (np.array_equal(ptrs, host[0])
+                and np.array_equal(probes, host[1])):
+            raise AssertionError("dpm_pool: a batched read on the card "
+                                 "disagrees with the host index walk")
+        if not np.array_equal(ptrs, want[keys]):
+            raise AssertionError("dpm_pool: a read disagrees with the last "
+                                 "acknowledged write the merge reached")
+
+    def _pool_slice1(self, pool, table, logs, what: str) -> None:
+        """Merge the (keys, ptrs) logs into the slice-1 card ``table``
+        through merge_segment_planned, one segment each, and hold the
+        table against the pool's index and its card copy, row for row."""
+        dev = self.dev
+        for keys, ptrs in logs:
+            seg = log.segment_init(keys.size, device=dev)
+            log.log_append(seg, torch.from_numpy(keys.astype(np.int32)).to(
+                dev), torch.from_numpy(ptrs.astype(np.int32)).to(dev))
+            _, _, ok = merge.merge_segment_planned(table, seg)
+            if not bool(ok.all()):
+                raise AssertionError(f"dpm_pool: the slice-1 table refused "
+                                     f"an entry of the {what}")
+        lines = pool.sync_index().lines
+        ix = pool.index
+        want = torch.full_like(table.lines, -1)
+        want[:, :clht.SLOTS] = torch.from_numpy(ix.keys).to(dev)
+        want[:, clht.SLOTS:clht.LINK] = torch.from_numpy(ix.ptrs).to(dev)
+        want[:, clht.LINK] = torch.from_numpy(ix.nxt).to(dev)
+        if not (torch.equal(table.lines, want) and torch.equal(lines, want)
+                and int(table.overflow_head) == ix.overflow_head):
+            raise AssertionError(f"dpm_pool: after the {what} the slice-1 "
+                                 f"table, the pool's card copy and its host "
+                                 f"index differ")
+        emit({"phase": f"dpm_pool_slice1_{what}", "equal": True,
+              "clht_insert_launches": _build.launches["clht_insert"]})
+
     def time_transition(self) -> list[dict]:
         """Kernel 4 on a 512-op window of the KN path that consumed
         victims, the launch alone, against the plain torch loop; beside it
@@ -1322,7 +1566,7 @@ class Smoke:
                     not bool(torch.isfinite(kv[name]).all()):
                 raise AssertionError(f"prefill: {name} cache wrong or not "
                                      "finite")
-        self.counts["flash_attention"] = launches
+        self.tally("prefill", dict(_build.launches))
         # kernel 5 on the inputs prefill gives it: every layer's q, k, v
         # in model layout (B, S, H, D), read through transposed strides
         with uncounted(), recorded(transformer, "attention") as calls:
@@ -1384,8 +1628,7 @@ class Smoke:
                for s in sids) or any(not 0 <= t < cfg.vocab_size
                                      for out in decoded for t in out):
             raise AssertionError("a sequence has the wrong length or token")
-        self.counts["paged_decode_attention"] = counts[
-            "paged_decode_attention"]
+        self.tally("serve_paged", counts)
         total = srv.stats["tokens"]
         emit({"phase": "serve", "arch": ARCH, "requests": SERVE_REQUESTS,
               "prompt": PROMPT, "shared_prefix": SHARED,
@@ -1687,7 +1930,7 @@ class Smoke:
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError("ssm prefill: logits of the wrong shape, "
                                  "type or not finite")
-        self.counts["ssd_scan"] = launches
+        self.tally("ssm_prefill", dict(_build.launches))
         peak = torch.cuda.max_memory_allocated() / 2**30
         sec = sorted(secs)[len(secs) // 2]
         self.ssm_prefill_s = sec
@@ -1844,6 +2087,7 @@ class Smoke:
         if _build.launches["ssd_scan"] != cfg.num_layers:
             raise AssertionError("the teacher-forced forward did not run "
                                  "ssd_scan once a layer, or decode ran it")
+        self.tally("ssm_decode", dict(_build.launches))
         conv = mamba2._causal_conv
         with mock.patch.object(mamba2, "_causal_conv",
                                lambda xbc, w, b: conv(xbc.float(), w.float(),
@@ -1957,7 +2201,7 @@ class Smoke:
                    "f32_cuda_core_bound_ms": flops / F32_FLOPS * 1e3},
             compare=ssd_path_err)
         row["max_abs_err"] = max(row["max_abs_err"], self.path_err["ssd_scan"])
-        layers = self.counts["ssd_scan"] // SSM_REPS
+        layers = self.phase_counts["ssm_prefill"]["ssd_scan"] // SSM_REPS
         emit({"ssd_scan_needed_tflops": flops / row["ms"] / 1e9,
               "share_of_bound": row["bound_ms"] / row["ms"],
               "bound_by": row["bound_by"],
@@ -2004,7 +2248,7 @@ class Smoke:
         by_ops = flops / peak * 1e3
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/csrc/{source}",
-               "replaces": replaces, "launches": self.counts[name],
+               "replaces": replaces, "launches": None,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(by_bytes, by_ops),
                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -2032,6 +2276,8 @@ def main() -> int:
     kernels += smoke.time_transition()
     del st
     torch.cuda.empty_cache()
+    smoke.dpm_pool()
+    torch.cuda.empty_cache()
     smoke.prefill()
     srv = smoke.serve_paged()
     kernels += smoke.time_attention()
@@ -2046,6 +2292,14 @@ def main() -> int:
     del smoke.ssm_params, smoke.ssd_args
     torch.cuda.empty_cache()
     emit({"total_s": time.perf_counter() - t_start})
+    # launches on the main path, summed over every phase that ran it
+    emit({"launches_by_phase": smoke.phase_counts})
+    for row in kernels:
+        row["launches"] = smoke.counts[row["name"]]
+    missing = [k for k in _build.KERNELS if not smoke.counts[k]]
+    if missing or {row["name"] for row in kernels} != set(_build.KERNELS):
+        raise AssertionError(f"kernels never launched on the main path or "
+                             f"missing from the kernels line: {missing}")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

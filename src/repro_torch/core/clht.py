@@ -21,16 +21,25 @@ Functions that change the table update it in place and return it.
 ``clht_insert`` runs the sequential insert: the plain version below on
 CPU tensors, the hand-written kernel ``csrc/clht_insert.cu`` on CUDA
 tensors.
+
+``NumpyCLHT`` is the same structure in int64 numpy arrays, updated one
+operation at a time on the host: the DPM pool's index
+(``core.dpm_pool``), the port's copy of the reference's. It can note the
+rows each mutation writes, so that a packed copy on the card is kept
+equal to it by uploading only those rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..device import on_cuda, resolve_device
 from ..kernels import _build
+from .transition import (MERGE_MAX_CHAIN, MERGE_PLAN_STATS,
+                         _merge_bucket_batch, plan_merge_window)
 
 EMPTY = -1
 SLOTS = 3          # one cache line, as in P-CLHT
@@ -38,6 +47,7 @@ MAX_CHAIN = 8      # bounded chain walk
 LINE = 8           # int32 per packed bucket line
 LINK = 2 * SLOTS   # lane of the chain link
 MAX_ENTRIES = 1 << 29   # kernel D packs an entry index into 30 bits
+assert MERGE_MAX_CHAIN == MAX_CHAIN
 
 _M32 = 0xFFFFFFFF
 
@@ -288,3 +298,228 @@ def clht_delete(table: CLHT, keys: torch.Tensor,
     dev = keys.device
     return (table, torch.tensor(old, dtype=torch.int32, device=dev),
             torch.tensor(found, dtype=torch.bool, device=dev))
+
+
+# ==========================================================================
+# Numpy mirror with identical layout/semantics (the pool's host index).
+# ==========================================================================
+class NumpyCLHT:
+    """Same structure, imperatively updated: the per-op path of the DPM
+    pool. ``probes`` returned by lookup equals the number of bucket rows
+    (cache lines / one-sided reads) touched.
+
+    After ``track_rows()`` every mutation notes the rows it writes
+    (``noted_rows``; ``clear_noted`` forgets them once they are
+    uploaded): the pool uploads just those rows to its packed copy on
+    the card."""
+
+    def __init__(self, num_buckets: int, overflow_buckets: int | None = None):
+        assert num_buckets & (num_buckets - 1) == 0
+        if overflow_buckets is None:
+            overflow_buckets = max(num_buckets // 2, 8)
+        total = num_buckets + overflow_buckets
+        self.num_buckets = num_buckets
+        self.keys = np.full((total, SLOTS), -1, np.int64)
+        self.ptrs = np.full((total, SLOTS), -1, np.int64)
+        self.nxt = np.full((total,), -1, np.int64)
+        self.overflow_head = num_buckets
+        self.size = 0
+        # bumped on every mutation: batched probes prefetched against one
+        # version are only valid while the version is unchanged
+        self.version = 0
+        self._noted: np.ndarray | None = None   # None: rows are not noted
+
+    # ----- written rows (the card copy's upload list) -------------------
+    def track_rows(self) -> None:
+        """Start noting the rows each mutation writes (one flag a row, so
+        the notes never outgrow the table)."""
+        self._noted = np.zeros(self.nxt.shape[0], bool)
+
+    def _note(self, rows) -> None:
+        if self._noted is not None:
+            self._noted[rows] = True
+
+    def noted_rows(self) -> np.ndarray:
+        """The distinct rows written since the last ``clear_noted``,
+        ascending."""
+        if self._noted is None:
+            return np.empty(0, np.int64)
+        return np.flatnonzero(self._noted)
+
+    def clear_noted(self) -> None:
+        if self._noted is not None:
+            self._noted.fill(False)
+
+    # ----- the per-op plane ---------------------------------------------
+    def _bucket(self, key: int) -> int:
+        m = 0xFFFFFFFF
+        x = key & m
+        x = ((x ^ (x >> 16)) * 0x7FEB352D) & m
+        x = ((x ^ (x >> 15)) * 0x846CA68B) & m
+        x = (x ^ (x >> 16)) & m
+        return x & (self.num_buckets - 1)
+
+    def lookup(self, key: int):
+        """-> (ptr or None, probes)"""
+        b = self._bucket(key)
+        probes = 0
+        for _ in range(MAX_CHAIN):
+            probes += 1
+            for s in range(SLOTS):
+                if self.keys[b, s] == key:
+                    return int(self.ptrs[b, s]), probes
+            if self.nxt[b] == -1:
+                return None, probes
+            b = int(self.nxt[b])
+        return None, probes
+
+    def _bucket_batch(self, keys: np.ndarray) -> np.ndarray:
+        """Vectorized ``_bucket``: identical mixing per element (the
+        single shared implementation lives with the merge planner)."""
+        return _merge_bucket_batch(keys, self.num_buckets)
+
+    def lookup_batch(self, keys: np.ndarray):
+        """Vectorized chain walk over a batch of keys.
+
+        -> (ptrs, probes): int64 arrays; ptr == -1 where absent. Matches
+        ``lookup`` per element.
+        """
+        keys = np.asarray(keys, dtype=np.int64)
+        n = keys.shape[0]
+        cur = self._bucket_batch(keys)
+        ptrs = np.full(n, -1, np.int64)
+        probes = np.zeros(n, np.int64)
+        active = np.ones(n, bool)
+        for _ in range(MAX_CHAIN):
+            if not active.any():
+                break
+            rows_k = self.keys[cur]                     # (n, SLOTS)
+            hit = (rows_k == keys[:, None]) & active[:, None]
+            hit_any = hit.any(axis=1)
+            probes += active
+            if hit_any.any():
+                rows_p = self.ptrs[cur]
+                # first matching slot, as in the scalar walk (insert keeps
+                # keys unique per chain, so at most one slot matches)
+                slot = np.argmax(hit, axis=1)
+                ptrs[hit_any] = rows_p[np.arange(n), slot][hit_any]
+            nxt = self.nxt[cur]
+            active = active & ~hit_any & (nxt != -1)
+            cur = np.where(active, nxt, cur)
+        return ptrs, probes
+
+    def apply_merge_plan(self, plan) -> None:
+        """Apply one :class:`~repro_torch.core.transition.MergeWindowPlan`
+        in bulk: in-place final-pointer scatters for present keys, slot
+        claims for absent keys (primary-row or chain empties resolved by
+        the planner, claim order proven exact), one version bump per
+        live entry -- exactly the scalar insert sequence's evolution."""
+        if plan.upd_rows.size:
+            self.ptrs[plan.upd_rows, plan.upd_slots] = plan.upd_ptrs
+            self._note(plan.upd_rows)
+        if plan.n_new:
+            self.keys[plan.new_rows, plan.new_slots] = plan.new_keys
+            self.ptrs[plan.new_rows, plan.new_slots] = plan.new_ptrs
+            self.size += plan.n_new
+            self._note(plan.new_rows)
+        self.version += plan.n_index
+
+    def insert_batch(self, keys: np.ndarray, ptrs: np.ndarray):
+        """Planned sequential insert: element-wise identical to calling
+        ``insert`` per (key, ptr) in order -- same superseded pointers
+        (including within-batch duplicate chains), same slot placement,
+        same overflow allocation order.
+
+        The batch runs through the planned merge plane
+        (transition.plan_merge_window -> apply_merge_plan); entries past
+        a plan's self-truncation point (a bucket whose chain must grow)
+        replay through the scalar insert in order before re-planning.
+
+        -> (old_ptrs, ok, grown_buckets): old_ptrs[i] is the pointer
+        entry i superseded (-1 for a fresh insert), ok[i] mirrors the
+        scalar ok flag, and grown_buckets lists primary buckets whose
+        chains grew."""
+        keys = np.asarray(keys, dtype=np.int64)
+        ptrs = np.asarray(ptrs, dtype=np.int64)
+        n = keys.shape[0]
+        old = np.full(n, -1, np.int64)
+        ok = np.ones(n, bool)
+        grown: list[int] = []
+        i = 0
+        while i < n:
+            plan = plan_merge_window(self, keys[i:], ptrs[i:],
+                                     tombstones=False)
+            if plan is None:
+                head0 = self.overflow_head
+                o, okk = self.insert(int(keys[i]), int(ptrs[i]))
+                if self.overflow_head != head0:
+                    grown.append(int(self._bucket(int(keys[i]))))
+                if o is not None:
+                    old[i] = o
+                ok[i] = okk
+                MERGE_PLAN_STATS["replayed_windows"] += 1
+                MERGE_PLAN_STATS["replayed_entries"] += 1
+                i += 1
+                continue
+            self.apply_merge_plan(plan)
+            old[i:i + plan.ops] = plan.old
+            MERGE_PLAN_STATS["planned_windows"] += 1
+            MERGE_PLAN_STATS["planned_entries"] += plan.ops
+            i += plan.ops
+        return old, ok, grown
+
+    def insert(self, key: int, ptr: int):
+        """-> (old_ptr or None, ok)"""
+        b = self._bucket(key)
+        empty = None
+        tail = b
+        for _ in range(MAX_CHAIN):
+            for s in range(SLOTS):
+                if self.keys[b, s] == key:
+                    old = int(self.ptrs[b, s])
+                    self.ptrs[b, s] = ptr
+                    self.version += 1
+                    self._note(b)
+                    return old, True
+                if empty is None and self.keys[b, s] == -1:
+                    empty = (b, s)
+            tail = b
+            if self.nxt[b] == -1:
+                break
+            b = int(self.nxt[b])
+        if empty is not None:
+            eb, es = empty
+            self.keys[eb, es] = key
+            self.ptrs[eb, es] = ptr
+            self.size += 1
+            self.version += 1
+            self._note(eb)
+            return None, True
+        if self.overflow_head < self.keys.shape[0]:
+            nb = self.overflow_head
+            self.overflow_head += 1
+            self.nxt[tail] = nb
+            self.keys[nb, 0] = key
+            self.ptrs[nb, 0] = ptr
+            self.size += 1
+            self.version += 1
+            self._note([tail, nb])
+            return None, True
+        return None, False  # overflow region exhausted
+
+    def delete(self, key: int):
+        b = self._bucket(key)
+        for _ in range(MAX_CHAIN):
+            for s in range(SLOTS):
+                if self.keys[b, s] == key:
+                    old = int(self.ptrs[b, s])
+                    self.keys[b, s] = -1
+                    self.ptrs[b, s] = -1
+                    self.size -= 1
+                    self.version += 1
+                    self._note(b)
+                    return old, True
+            if self.nxt[b] == -1:
+                return None, False
+            b = int(self.nxt[b])
+        return None, False

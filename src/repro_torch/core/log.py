@@ -10,6 +10,10 @@ live in an append-only ValueHeap. The entry count and merge cursor of a
 segment and the heap's head are Python ints on the host: they follow from
 the shapes of the batches appended, so keeping them there costs no device
 sync. Functions update the segment and heap in place and return them.
+
+``PySegment`` is the DPM pool's segment on the host (``core.dpm_pool``):
+Python lists of entries, seal bytes, request IDs and fence generations,
+the port's copy of the reference's.
 """
 
 from __future__ import annotations
@@ -132,3 +136,88 @@ def merge_segment(table: CLHT, seg: LogSegment):
     invalidated = (old_ptrs != EMPTY).sum().to(torch.int32)
     seg.merged = seg.count
     return table, seg, old_ptrs, invalidated
+
+
+# --------------------------------------------------------------------------
+# The host segment of the DPM pool (core.dpm_pool).
+# --------------------------------------------------------------------------
+class PySegment:
+    """Per-KN log segment in the simulator: entries + seal + GC counters.
+
+    Entries optionally carry a client *request ID* (``reqs``, -1 when
+    absent): the exactly-once retry contract embeds the ID in the
+    durable log entry, so 'was this request applied?' is answered by the
+    log itself -- a retry deduplicates against sealed entries, and a
+    crash-discarded torn entry takes its request ID with it (the retry
+    then applies fresh, still exactly once overall).
+
+    Entries also carry the writer's *fence generation* (``gens``): the
+    ownership epoch the writing KN held when it appended.  When the
+    pool publishes a new generation for a KN (ownership handoff), every
+    segment records a watermark in ``gen_marks`` -- ``(entry_index,
+    min_gen)`` meaning entries at or after ``entry_index`` must carry a
+    generation >= ``min_gen``.  A sealed entry below its watermark is a
+    zombie write that slipped past the fence; ``verify_integrity``
+    flags it."""
+
+    __slots__ = ("entries", "sealed", "reqs", "gens", "gen_marks",
+                 "capacity", "valid", "kn", "merged_upto")
+
+    def __init__(self, capacity: int, kn: str):
+        self.entries: list[tuple[int, int]] = []   # (key, ptr)
+        self.sealed: list[bool] = []
+        self.reqs: list[int] = []                  # request IDs (-1 = none)
+        self.gens: list[int] = []                  # writer fence generations
+        self.gen_marks: list[tuple[int, int]] = []  # (entry_index, min_gen)
+        self.capacity = capacity
+        self.valid = 0          # live values still pointed to by the index
+        self.kn = kn
+        self.merged_upto = 0    # merge cursor (entries before it are in the index)
+
+    def full(self) -> bool:
+        return len(self.entries) >= self.capacity
+
+    def append(self, key: int, ptr: int, sealed: bool = True,
+               req: int = -1, gen: int = 0) -> None:
+        assert not self.full()
+        self.entries.append((key, ptr))
+        self.sealed.append(sealed)
+        self.reqs.append(req)
+        self.gens.append(gen)
+        self.valid += 1
+
+    def sealed_entries(self) -> list[tuple[int, int]]:
+        """Longest sealed prefix (crash-consistent view). Fully sealed
+        segments (the overwhelmingly common case) return the entry list
+        itself -- callers only slice (copies) or take len()."""
+        if False not in self.sealed:
+            return self.entries
+        out = []
+        for (k, p), s in zip(self.entries, self.sealed):
+            if not s:
+                break
+            out.append((k, p))
+        return out
+
+    def recover_torn(self) -> list[tuple[int, int, int]]:
+        """Crash recovery: truncate to the longest sealed prefix,
+        exactly ``recover_segment``'s semantics on the tensor plane (a torn
+        entry invalidates itself and everything after it; the merge
+        cursor rewinds if it had run past the prefix -- it cannot in
+        healthy operation, but recovery trusts nothing). Returns the
+        discarded (key, ptr, req) entries so the pool can null their
+        heap rows and unregister their request IDs (a discarded entry
+        was never applied: its retry must go through)."""
+        if False not in self.sealed:
+            return []
+        cut = self.sealed.index(False)
+        dropped = [(k, p, r) for (k, p), r in zip(self.entries[cut:],
+                                                  self.reqs[cut:])]
+        del self.entries[cut:]
+        del self.sealed[cut:]
+        del self.reqs[cut:]
+        del self.gens[cut:]
+        self.valid -= len(dropped)
+        if self.merged_upto > cut:
+            self.merged_upto = cut
+        return dropped

@@ -35,8 +35,9 @@ device twin's gather (``kernels.cache_transition.ops.gather_window``)
 calls too: the ``cache_transition`` kernel runs the planner's
 structural space machine on those vectors.
 
-The static-split planner, the merge plan and the Clover read plan of
-the reference are not ported yet.
+The merge plane's planner (``plan_merge_window``, the DPM pool's
+planned merge) is copied at the end of this module. The static-split
+planner and the Clover read plan of the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,9 +55,20 @@ PLAN_STATS = {"planned_windows": 0, "planned_ops": 0,
               "replayed_windows": 0, "replayed_ops": 0}
 
 
+# merge-plane coverage counters: entries merged through a
+# MergeWindowPlan vs replayed through the scalar insert/_merge_entry
+MERGE_PLAN_STATS = {"planned_windows": 0, "planned_entries": 0,
+                    "replayed_windows": 0, "replayed_entries": 0}
+
+
 def reset_plan_stats() -> None:
     for k in PLAN_STATS:
         PLAN_STATS[k] = 0
+
+
+def reset_merge_plan_stats() -> None:
+    for k in MERGE_PLAN_STATS:
+        MERGE_PLAN_STATS[k] = 0
 
 
 def _last_occurrence(keys: np.ndarray):
@@ -979,3 +991,251 @@ def _collect_values(cache, pool, keys_l, opk, pos, miss, res_kind,
                     p = ptr0[j]
             out.append((pos_l[j], heap[p] if p >= 0 else None))
     return out
+
+
+# ===========================================================================
+# Planned merge plane: the staged DPM-processor merge path
+# (DPMPool.merge_entries_batch -> NumpyCLHT inserts) as a plan/apply
+# split, mirroring the DacWindowPlan contract.  DINOMO's log-free
+# P-CLHT indexing (paper Sec. 4.4) evolves deterministically given the
+# chain-walk results, so one vectorized sweep over a flush's merge
+# entries resolves grouped bucket targets, old-pointer supersession,
+# indirect-pointer filtering and per-bucket slot assignment as arrays.
+# The plan self-truncates (``plan.ops``) at the first entry whose
+# exactness it cannot prove cheaply -- a tombstone (delete semantics),
+# a bucket whose chain must grow (overflow allocation + nxt relink),
+# or the per-epoch merge allowance running out (the budget clamps the
+# plan itself, never a scalar replay) -- and the caller replays that
+# entry through the exact scalar machinery before re-planning.
+# ===========================================================================
+
+# Merge windows below this size replay scalar: the plan's fixed numpy
+# overhead (~15 vector ops) would dominate.
+MIN_MERGE_PLAN_OPS = 8
+
+# mirrors clht.MAX_CHAIN / clht.SLOTS semantics; clht.py imports this
+# module (apply_merge_plan), so the constant lives here and clht.py
+# asserts agreement at import time.
+MERGE_MAX_CHAIN = 8
+
+
+class MergeWindowPlan:
+    """One merge window's bulk index decisions (covers ``ops`` entries,
+    log order, tombstone-free, every covered entry provably exact)."""
+
+    __slots__ = (
+        "ops",                      # entries covered (self-truncated)
+        "old",                      # per-entry superseded ptr (-1 fresh)
+        "n_index",                  # live (non-indirect) entries
+        "n_new",                    # fresh slot claims
+        "upd_rows", "upd_slots", "upd_ptrs",    # in-place final-ptr
+        "new_rows", "new_slots", "new_keys", "new_ptrs",   # slot claims
+        "inv_ptrs",                 # value ptrs superseded by the window
+        "live_keys",                # unique live keys (dirty tracking)
+    )
+
+
+def _merge_locate(tk, tn, keys, b0):
+    """Vectorized chain walk locating each key's (row, slot) over raw
+    table arrays; mirrors the scalar insert walk's match search."""
+    n = keys.shape[0]
+    cur = b0.copy()
+    rows = np.zeros(n, np.int64)
+    slots = np.zeros(n, np.int64)
+    found = np.zeros(n, bool)
+    active = np.ones(n, bool)
+    for _ in range(MERGE_MAX_CHAIN):
+        if not active.any():
+            break
+        rk = tk[cur]
+        hit = (rk == keys[:, None]) & active[:, None]
+        hit_any = hit.any(axis=1)
+        if hit_any.any():
+            s = np.argmax(hit, axis=1)
+            rows[hit_any] = cur[hit_any]
+            slots[hit_any] = s[hit_any]
+            found |= hit_any
+        nxt = tn[cur]
+        active = active & ~hit_any & (nxt != -1)
+        cur = np.where(active, nxt, cur)
+    return rows, slots, found
+
+
+def _merge_chain_empties(tk, tn, ub):
+    """Empty (row, slot) positions along each bucket's chain, in the
+    exact order the scalar insert sequence would claim them (chain
+    position first, then ascending slot).  Returns (rows, slots, bidx)
+    grouped by bucket index into ``ub``."""
+    parts_b: list = []
+    parts_r: list = []
+    parts_s: list = []
+    cur = ub.copy()
+    active = np.ones(ub.size, bool)
+    for _ in range(MERGE_MAX_CHAIN):
+        em = (tk[cur] == -1) & active[:, None]
+        if em.any():
+            bi, sl = np.nonzero(em)
+            parts_b.append(bi)
+            parts_r.append(cur[bi])
+            parts_s.append(sl.astype(np.int64))
+        nxt = tn[cur]
+        active = active & (nxt != -1)
+        if not active.any():
+            break
+        cur = np.where(active, nxt, cur)
+    if not parts_b:
+        z = np.empty(0, np.int64)
+        return z, z, z
+    eb = np.concatenate(parts_b)
+    er = np.concatenate(parts_r)
+    es = np.concatenate(parts_s)
+    o = np.argsort(eb, kind="stable")   # group by bucket, keep chain order
+    return er[o], es[o], eb[o]
+
+
+def _merge_bucket_batch(keys, num_buckets):
+    """Vectorized primary-bucket hash (mirrors NumpyCLHT._bucket)."""
+    m = np.uint32(0xFFFFFFFF)
+    x = (np.asarray(keys, dtype=np.int64)
+         & np.int64(0xFFFFFFFF)).astype(np.uint32)
+    x = (x ^ (x >> np.uint32(16))) * np.uint32(0x7FEB352D)
+    x = (x ^ (x >> np.uint32(15))) * np.uint32(0x846CA68B)
+    x = (x ^ (x >> np.uint32(16))) & m
+    return (x & np.uint32(num_buckets - 1)).astype(np.int64)
+
+
+def plan_merge_window(index, keys, ptrs, indirect_keys=None,
+                      max_ops=None, tombstones=True):
+    """Plan one merge window over ``index`` (anything exposing numpy
+    ``keys``/``ptrs``/``nxt`` arrays + ``num_buckets``: NumpyCLHT, or a
+    host view of the card's CLHT, ``kernels.log_merge.ops.
+    _HostTableView``).  keys/ptrs are the window's (key, ptr)
+    entries in log order; ``indirect_keys`` is the sorted replicated-key
+    array (entries for those keys are filtered -- they published via CAS
+    and must not touch the index); ``max_ops`` is the remaining
+    per-epoch merge allowance (clamps the plan itself).
+
+    Returns a MergeWindowPlan covering the first ``plan.ops`` entries,
+    or None when the window head cannot be planned (caller replays one
+    entry scalar and re-plans).  Every covered decision is identical to
+    the scalar insert sequence: same superseded pointers (within-window
+    duplicate chains included), same slot placement (first empty along
+    the chain, claims in first-occurrence order), same version/size
+    evolution.  Truncation points: a tombstone, a key whose chain would
+    have to grow (no empty left along it), or the allowance."""
+    n = keys.shape[0]
+    if max_ops is not None and max_ops < n:
+        n = int(max_ops)
+        keys = keys[:n]
+        ptrs = ptrs[:n]
+    if n < MIN_MERGE_PLAN_OPS:
+        return None
+    if tombstones:
+        tpos = np.flatnonzero(keys < 0)
+        if tpos.size:
+            n = int(tpos[0])
+            if n < MIN_MERGE_PLAN_OPS:
+                return None
+            keys = keys[:n]
+            ptrs = ptrs[:n]
+    tk = index.keys
+    tp = index.ptrs
+    tn = index.nxt
+    # indirect-pointer filtering: one vectorized membership pass
+    # replaces the per-entry dict check
+    if indirect_keys is not None and indirect_keys.size:
+        skip = np.isin(keys, indirect_keys)
+        li = np.flatnonzero(~skip)
+        lk = keys[li]
+        lp = ptrs[li]
+    else:
+        li = None
+        lk = keys
+        lp = ptrs
+    nl = lk.shape[0]
+    old = np.full(n, -1, np.int64)
+    plan = MergeWindowPlan()
+    plan.ops = n
+    plan.old = old
+    plan.n_index = nl
+    e = np.empty(0, np.int64)
+    if nl == 0:
+        plan.n_new = 0
+        plan.upd_rows = plan.upd_slots = plan.upd_ptrs = e
+        plan.new_rows = plan.new_slots = e
+        plan.new_keys = plan.new_ptrs = e
+        plan.inv_ptrs = e
+        plan.live_keys = e
+        return plan
+    # ---- group by key: last-wins final ptr, per-entry supersession ---
+    order = np.argsort(lk, kind="stable")
+    sk = lk[order]
+    sp = lp[order]
+    first = np.ones(nl, bool)
+    first[1:] = sk[1:] != sk[:-1]
+    last = np.ones(nl, bool)
+    last[:-1] = first[1:]
+    uk = sk[first]
+    ufinal = sp[last]
+    gpos = li[order] if li is not None else order
+    ufirst = gpos[first]                 # global first-occurrence pos
+    # one chain walk resolves the pre-window mapping (old ptrs) and the
+    # in-place update targets for present keys
+    b0 = _merge_bucket_batch(uk, index.num_buckets)
+    rows, slots, found = _merge_locate(tk, tn, uk, b0)
+    ucur = np.where(found, tp[rows, slots], -1)
+    prev = np.empty(nl, np.int64)
+    prev[first] = ucur
+    if nl > 1:
+        dup = ~first
+        prev[dup] = sp[:-1][dup[1:]]
+    old[gpos] = prev
+    # ---- per-bucket slot assignment for absent keys ------------------
+    ab = ~found
+    if ab.any():
+        ak = uk[ab]
+        afirst = ufirst[ab]
+        ub, binv = np.unique(b0[ab], return_inverse=True)
+        er, es, eb = _merge_chain_empties(tk, tn, ub)
+        cnt = np.bincount(eb, minlength=ub.size)
+        off = np.concatenate(([0], np.cumsum(cnt)[:-1]))
+        # rank of each absent key within its bucket, in first-occurrence
+        # order (the order the scalar sequence claims empties in)
+        ordk = np.lexsort((afirst, binv))
+        gb = binv[ordk]
+        gfirst = np.ones(ak.size, bool)
+        gfirst[1:] = gb[1:] != gb[:-1]
+        gstart = np.flatnonzero(gfirst)
+        gid = np.cumsum(gfirst) - 1
+        rank = np.empty(ak.size, np.int64)
+        rank[ordk] = np.arange(ak.size, dtype=np.int64) - gstart[gid]
+        fits = rank < cnt[binv]
+        if not fits.all():
+            # a contested/overflowing bucket breaks provable exactness
+            # (the scalar walk would allocate an overflow bucket and
+            # relink the chain): truncate at the first such key's first
+            # occurrence and re-plan the prefix
+            cut = int(afirst[~fits].min())
+            if cut < MIN_MERGE_PLAN_OPS:
+                return None
+            return plan_merge_window(index, keys[:cut], ptrs[:cut],
+                                     indirect_keys, None, False)
+        eidx = off[binv] + rank
+        plan.new_rows = er[eidx]
+        plan.new_slots = es[eidx]
+        plan.new_keys = ak
+        plan.new_ptrs = ufinal[ab]
+        plan.n_new = int(ab.sum())
+    else:
+        plan.new_rows = plan.new_slots = e
+        plan.new_keys = plan.new_ptrs = e
+        plan.n_new = 0
+    upd = found
+    plan.upd_rows = rows[upd]
+    plan.upd_slots = slots[upd]
+    plan.upd_ptrs = ufinal[upd]
+    # one-pass supersession: per-entry superseded ptrs (within-window
+    # duplicate chains included), unchanged re-inserts excluded
+    plan.inv_ptrs = old[(old >= 0) & (old != ptrs)]
+    plan.live_keys = uk
+    return plan

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ...core.clht import CLHT, bucket_of, clht_lookup
+from ...core.clht import CLHT, EMPTY, bucket_of, clht_lookup
 from ...core.log import ValueHeap
 from .clht_probe import clht_probe, kvs_lookup_fused
 
@@ -20,19 +20,37 @@ def _needs_chain_walk(table: CLHT, bucket_ids, found_fast) -> torch.Tensor:
     return ((found_fast == 0) & has_chain).nonzero().flatten()
 
 
-def lookup(table: CLHT, keys: torch.Tensor):
-    """Batched CLHT lookup through the probe kernel. Returns (ptrs int32,
-    found bool) like core.clht.clht_lookup (minus the probe counter)."""
+def _probe_and_walk(table: CLHT, keys: torch.Tensor):
+    """The probe kernel over the primary lines, then the chain walk for
+    the keys that missed a chained line. Returns (keys int32, ptrs int32,
+    found bool, lines walked int32)."""
     keys = keys.to(torch.int32).contiguous()
     bucket_ids = bucket_of(keys, table.num_buckets)
     ptrs, found = clht_probe(table.lines, bucket_ids, keys)
     found = found.to(torch.bool)
+    walked = torch.ones_like(ptrs)
     slow = _needs_chain_walk(table, bucket_ids, found)
     if slow.numel():
-        ptr_slow, found_slow, _ = clht_lookup(table, keys[slow])
-        ptrs[slow] = ptr_slow
-        found[slow] = found_slow
+        ptrs[slow], found[slow], walked[slow] = clht_lookup(table,
+                                                            keys[slow])
+    return keys, ptrs, found, walked
+
+
+def lookup(table: CLHT, keys: torch.Tensor):
+    """Batched CLHT lookup through the probe kernel. Returns (ptrs int32,
+    found bool) like core.clht.clht_lookup (minus the probe counter)."""
+    _, ptrs, found, _ = _probe_and_walk(table, keys)
     return ptrs, found
+
+
+def lookup_walk(table: CLHT, keys: torch.Tensor):
+    """Batched index reads as the DPM pool's ``index_lookup_batch`` makes
+    them. Returns (ptrs, walked), int32: the pointer (-1 where absent, and
+    for every negative key, since the only negative key a table holds is
+    the empty mark, whose pointer is -1) and the lines walked, equal to
+    ``NumpyCLHT.lookup_batch``'s (ptrs, probes) on the same table."""
+    keys, ptrs, found, walked = _probe_and_walk(table, keys)
+    return torch.where(found & (keys >= 0), ptrs, EMPTY), walked
 
 
 def kvs_lookup(table: CLHT, heap: ValueHeap, keys: torch.Tensor):

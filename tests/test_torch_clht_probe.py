@@ -119,3 +119,71 @@ def test_full_lookup_matches_chain_walk():
     assert_eq(f_t, f_j)
     assert_eq(p_t, p_c)
     assert_eq(f_t, f_c)
+
+
+# ------------------------------------------- kernel A's design, in numpy
+def mirror_probe(lines, bids, keys, warps):
+    """csrc/clht_probe.cu's kernel A step by step over whole warps: per
+    pass, each warp loads a group of 32 (key, bucket id), the lane pair
+    (2p, 2p+1) reads the lines of keys p and p + 16 as two 16-byte halves
+    (bucket ids and keys by shuffle), the even lane compares with slots
+    1-2's pointers shuffled from the odd lane, and the results go back to
+    the owning lanes. Returns (ptrs, found) int32."""
+    lines = np.asarray(lines, np.int64)
+    n, total = keys.size, lines.shape[0]
+    ptrs = np.zeros(n, np.int64)
+    found = np.zeros(n, np.int64)
+    lane = np.arange(32)
+    for base in range(0, n, warps * 32):
+        for warp in range(warps):
+            idx = base + warp * 32 + lane
+            live = idx < n
+            key = np.where(live, keys[np.minimum(idx, n - 1)], -1)
+            bid = np.where(live, bids[np.minimum(idx, n - 1)], 0)
+            mine = np.full(32, -1, np.int64)
+            hit_mine = np.zeros(32, np.int64)
+            for r in range(2):
+                src = (lane >> 1) + 16 * r
+                row = np.clip(bid[src], 0, total - 1)
+                h = lines[row[:, None], 4 * (lane & 1)[:, None]
+                          + np.arange(4)]            # (32 lanes, 4)
+                k = key[src]
+                p1, p2 = h[lane ^ 1, 0], h[lane ^ 1, 1]
+                hits = (k[:, None] >= 0) & (h[:, :3] == k[:, None])
+                total_p = (np.where(hits[:, 0], h[:, 3], 0)
+                           + np.where(hits[:, 1], p1, 0)
+                           + np.where(hits[:, 2], p2, 0))
+                total_p = (total_p + 2**31) % 2**32 - 2**31
+                hit = hits.any(1).astype(np.int64)
+                frm = 2 * (lane & 15)
+                take = (lane >> 4) == r
+                mine = np.where(take, np.where(hit[frm] == 1,
+                                               total_p[frm], -1), mine)
+                hit_mine = np.where(take, hit[frm], hit_mine)
+            ptrs[idx[live]] = mine[live]
+            found[idx[live]] = hit_mine[live]
+    return ptrs.astype(np.int32), found.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,warps", [
+    (1, 1), (31, 1), (33, 3), (97, 2), (1000, 5), (4097, 3)])
+def test_kernel_a_mirror_matches_plain(n, warps):
+    """The numpy mirror of kernel A's warp design equals clht_probe_ref on
+    lines no insert makes (a key two or three times in a line, keys equal
+    to the link or the pad, pointers at int32's ends) and on bucket ids
+    out of range, at batch sizes that leave passes and warps partly
+    empty."""
+    g = np.random.default_rng(n)
+    tb = 64
+    lines = g.integers(0, 6, (tb, 8)).astype(np.int32)
+    lines[:, 3:6] = g.choice([0, 1, 2**31 - 1, -2**31, -1, 12345], (tb, 3))
+    lines[g.random(tb) < 0.1, :3] = -1
+    lines[:, 6] = g.choice([-1, 3, 5], tb)
+    lines[:, 7] = g.choice([-1, 4], tb)
+    keys = g.integers(-3, 7, n).astype(np.int32)
+    bids = g.integers(-2, tb + 2, n).astype(np.int32)
+    want = tk.clht_probe_ref(torch.from_numpy(lines), torch.from_numpy(bids),
+                             torch.from_numpy(keys))
+    got = mirror_probe(lines, bids, keys, warps)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())

@@ -8,12 +8,14 @@ conftest (which loads the JAX package):
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import clht as tc  # noqa: E402
+from repro_torch.core.dpm_pool import DPMPool  # noqa: E402
 from repro_torch.core import log as tl  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import clht_probe as tp  # noqa: E402
@@ -63,6 +65,140 @@ def test_probe_and_fused_lookup_match_plain(dev, nb, nkeys, width):
     for got, ref in zip(tp.kvs_lookup(table, heap, real),
                         tp.kvs_lookup_ref(table, heap, real)):
         assert torch.equal(got, ref)
+
+
+def probe_equal(lines, bids, keys):
+    """Kernel A against its plain version, bit for bit, one counted
+    launch."""
+    want = tp.clht_probe_ref(lines.cpu(), bids.cpu(), keys.cpu())
+    n0 = _build.launches["clht_probe"]
+    got = tp.clht_probe(lines, bids, keys)
+    assert _build.launches["clht_probe"] == n0 + (keys.numel() > 0)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 4097, 1 << 20])
+def test_probe_redesign_matches_plain_at_sizes(dev, n):
+    """Kernel A on a filled table with chains, at batch sizes around a
+    warp and the read-back's 2^20 keys (more than one pass of the grid
+    the card holds, and not a multiple of it): present keys, absent keys,
+    negative keys and bucket ids out of range on both sides."""
+    nb = 1 << 12
+    table, _, keys, g = filled(dev, nb, 3 * nb, 1 << 24, n % 997, width=4)
+    pick = torch.from_numpy(g.integers(0, keys.numel(), n)).to(dev)
+    probe = keys[pick]
+    probe[torch.from_numpy(g.random(n) < 0.2).to(dev)] = 77_777_777
+    probe[torch.from_numpy(g.random(n) < 0.05).to(dev)] = -1
+    bids = tc.bucket_of(probe, nb)
+    wild = torch.from_numpy(g.random(n) < 0.05).to(dev)
+    bids[wild] = torch.from_numpy(g.choice(
+        [-5, -1, table.total_buckets, 2**31 - 1], n).astype(np.int32)
+                                  ).to(dev)[wild]
+    probe_equal(table.lines, bids, probe)
+
+
+def test_probe_redesign_adversarial_lines(dev):
+    """Lines that no insert makes: empty and full lines, a key twice and
+    three times in one line (the pointers' 32-bit wrapping sum), keys
+    equal to the empty mark, the chain link or the pad, negative probe
+    keys, and pointers at int32's ends."""
+    g = np.random.default_rng(11)
+    tb = 4096
+    lines = g.integers(0, 6, (tb, 8)).astype(np.int32)
+    lines[:, 3:6] = g.choice([0, 1, 2**31 - 1, -2**31, -1, 12345],
+                             (tb, 3))
+    lines[g.random(tb) < 0.1, :3] = -1                  # empty lines
+    lines[:, 6] = g.choice([-1, 3, 5], tb)               # links 'match'
+    lines[:, 7] = g.choice([-1, 4], tb)                  # pad 'matches'
+    lines = torch.from_numpy(lines).to(dev)
+    for n in (1, 31, 4097, 1 << 16):
+        keys = torch.from_numpy(g.integers(-3, 7, n).astype(np.int32)
+                                ).to(dev)
+        bids = torch.from_numpy(g.integers(-2, tb + 2, n).astype(np.int32)
+                                ).to(dev)
+        probe_equal(lines, bids, keys)
+    twice = torch.tensor([[5, 5, 5, 2**31 - 1, 1, 7, -1, -1],
+                          [4, 9, 4, 10, 20, 30, -1, -1]], dtype=torch.int32,
+                         device=dev)
+    ptrs, found = tp.clht_probe(twice, torch.tensor([0, 1, 1], device=dev,
+                                                    dtype=torch.int32),
+                                torch.tensor([5, 4, 9], device=dev,
+                                             dtype=torch.int32))
+    assert ptrs.tolist() == [-2**31 + 7, 40, 20] and found.tolist() == [1] * 3
+
+
+def test_pool_mirror_on_the_card(dev):
+    """The DPM pool's packed copy of its index on the card, after rounds
+    of writes that grow chains, tombstones (deletes), budgeted and full
+    merges, replicated keys and a recovery: every batched read (kernel A
+    and the chain walk) equals the host index's walk, the copy equals
+    the host index row for row, and a pool on the CPU returns the same."""
+    g = np.random.default_rng(5)
+    pools = [DPMPool(num_buckets=64, segment_capacity=16, device=d)
+             for d in (dev, "cpu")]
+    for p in pools:
+        for kn in ("a", "b"):
+            p.register_kn(kn)
+    space = 400
+    reads = np.concatenate([np.arange(space), [-1, -3, 10**6]])
+    for r in range(12):
+        ops = g.integers(0, space, 96)
+        tomb = g.random(96) < 0.1
+        n0 = _build.launches["clht_probe"]
+        outs = []
+        for p in pools:
+            for kn, sel in (("a", ops % 2 == 0), ("b", ops % 2 == 1)):
+                keys = np.where(tomb, -ops - 1, ops)[sel].tolist()
+                p.log_write_batch(kn, keys, [f"v{r}"] * len(keys),
+                                  [4] * len(keys))
+            p.merge_budget(40)
+            if r == 5:
+                p.merge_all()
+                p.install_indirect(int(ops[0]))
+            if r == 8:
+                p.recover_kn("a")
+            outs.append(p.index_lookup_batch(reads))
+        assert _build.launches["clht_probe"] == n0 + 1
+        host = pools[0].index.lookup_batch(reads)
+        plain = ~np.isin(reads, list(pools[0].indirect))
+        for got, cpu, h in zip(outs[0], outs[1], host):
+            assert np.array_equal(got, cpu)
+            assert np.array_equal(got[plain], h[plain])
+        t, ix = pools[0].index_dev, pools[0].index
+        lines = t.lines.cpu().numpy()
+        assert np.array_equal(lines[:, :3], ix.keys)
+        assert np.array_equal(lines[:, 3:6], ix.ptrs)
+        assert np.array_equal(lines[:, 6], ix.nxt)
+        assert int(t.overflow_head) == ix.overflow_head
+    assert pools[0].index.overflow_head > 64        # chains grew
+    assert pools[0].verify_integrity() == pools[1].verify_integrity()
+
+
+@pytest.mark.parametrize("nb,n,space", [(128, 200, 30), (32, 220, 3),
+                                        (512, 400, 6)])
+def test_merge_segment_planned_on_the_card(dev, nb, n, space):
+    """The planned merge on the card's table (bulk scatters, its tail
+    through kernel D) equals the same merge on the CPU and
+    merge_segment_fast on the card."""
+    g = np.random.default_rng(n)
+    keys = torch.from_numpy(g.integers(0, nb * space, n).astype(np.int32))
+    pre = torch.from_numpy(g.integers(0, nb * space, nb).astype(np.int32))
+    outs = []
+    for d, fn in ((dev, tm.merge_segment_planned), ("cpu",
+                                                    tm.merge_segment_planned),
+                  (dev, tm.merge_segment_fast)):
+        t = tc.clht_init(nb, device=d)
+        tc.clht_insert(t, pre.to(d), pre.to(d) + 9000)
+        seg = tl.segment_init(n + 8, device=d)
+        tl.log_append(seg, keys.to(d),
+                      torch.arange(n, dtype=torch.int32, device=d) + 5000)
+        t, old, ok = fn(t, seg)
+        outs.append([x.cpu() for x in (t.lines, t.overflow_head, old, ok)])
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("nb,entries,space", [(64, 500, 2), (16, 2000, 6)])

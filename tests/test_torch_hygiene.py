@@ -16,6 +16,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import clht as tc  # noqa: E402
 from repro_torch.core import log as tl  # noqa: E402
 from repro_torch import device, state  # noqa: E402
+from repro_torch.core.dpm_pool import DPMPool  # noqa: E402
 from repro_torch.kernels import cache_transition as tct  # noqa: E402
 from repro_torch.kvcache import paged_store  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
@@ -31,7 +32,15 @@ KN_SLICE = ("core/dac.py", "core/cluster.py", "core/transition.py",
             "kernels/cache_transition/cache_transition.py",
             "kernels/cache_transition/ops.py",
             "kernels/cache_transition/ref.py")
+# the modules of the DPM pool slice (the pool, what it imports, and the
+# planned merge on the card's table), which the scan must reach too
+DPM_POOL_SLICE = ("core/dpm_pool.py", "core/faults.py", "core/sanitize.py",
+                  "core/clht.py", "core/log.py", "core/transition.py",
+                  "kernels/clht_probe/ops.py", "kernels/log_merge/ops.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
+# the one environment variable the port reads: the ownership sanitizer's
+# switch, the reference's own (it chooses no device)
+SANITIZE_SWITCH = 'os.environ.get("REPRO_SANITIZE", "0")'
 
 
 def _imported_modules(path: Path):
@@ -54,6 +63,11 @@ def test_port_imports_no_jax_and_no_reference(path):
 
 def test_the_scan_reaches_the_kn_window_slice():
     for name in KN_SLICE:
+        assert PORT / name in PORT_FILES, name
+
+
+def test_the_scan_reaches_the_dpm_pool_slice():
+    for name in DPM_POOL_SLICE:
         assert PORT / name in PORT_FILES, name
 
 
@@ -96,6 +110,8 @@ def test_every_kernel_package_has_ref_and_parity_test():
     lambda: tct.plan_window_transitions(*np.zeros((4, 16), np.int64),
                                         np.zeros(1), 0, 0, cap=4096,
                                         value_bytes=64),
+    lambda: DPMPool(),
+    lambda: DPMPool(num_buckets=8, device="cuda"),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -112,4 +128,7 @@ def test_wrappers_refuse_mixed_devices():
 def test_no_env_switch_in_the_port():
     for path in PORT_FILES:
         text = path.read_text()
+        if path == PORT / "core" / "sanitize.py":
+            assert text.count(SANITIZE_SWITCH) == 1
+            text = text.replace(SANITIZE_SWITCH, "")
         assert "os.environ" not in text and "getenv" not in text, path

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's kernels 7 (ssd_scan), D (clht_insert), C
-(log_merge_sorted) and 4 (cache_transition) against an earlier version of
-them on the same card, in one process, on the same inputs.
+(log_merge_sorted), 4 (cache_transition) and A (clht_probe) against an
+earlier version of them on the same card, in one process, on the same
+inputs.
 
     python3 tools/ab_kernels.py --baseline DIR [--only NAME,...]
 
@@ -40,6 +41,19 @@ against the plain version. Shapes:
                staged tiles; each also over as many neutral rows (no scan
                work); bit for bit against cache_transition_np
 
+  clht_probe   the 2^20 keys of a YCSB read_only batch at zipf 0.99
+               against the same 2^25-key table, bit for bit against
+               clht_probe_ref; both versions on the same keys read
+               against line 0 only (the streamed bytes alone), sorted by
+               bucket (each line once, in order), and on 2^20 uniform
+               keys (a line each), and on a KN prefetch's 300 keys; then
+               the launch-shape sweep: a trial build of the current
+               kernel with its keys per thread a pass and threads a
+               block as arguments (tools/clht_probe_sweep.cu, built here
+               with the package's nvcc flags) at the read batch and at
+               the prefetch, each shape bit for bit against
+               clht_probe_ref
+
 Needs a CUDA card; prints one JSON object per line, the card's name and
 power limit first.
 """
@@ -47,6 +61,7 @@ power limit first.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import importlib.util
 import json
 import subprocess
@@ -62,7 +77,9 @@ sys.path.insert(0, str(ROOT / "tests"))
 
 from repro_torch.core import clht  # noqa: E402
 from repro_torch.data import Workload  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import cache_transition as trans  # noqa: E402
+from repro_torch.kernels import clht_probe as probe  # noqa: E402
 from repro_torch.kernels import log_merge as merge  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from torch_cases import transition_case  # noqa: E402
@@ -75,13 +92,15 @@ SPIN_CYCLES = 2_000_000
 REPS = 30
 KEYS_LOG2 = 25
 LOAD_SLOW = 21_836      # the load's mean slow-path entries per launch
-KERNELS = ("ssd_scan", "clht_insert", "log_merge_sorted", "cache_transition")
+KERNELS = ("ssd_scan", "clht_insert", "log_merge_sorted", "cache_transition",
+           "clht_probe")
+HBM_BYTES_PER_S = 3.35e12
 
 
 def load_baseline(root: Path):
     """The package at root/src/repro_torch, imported as
-    ``baseline_repro_torch``: its ssd_scan, clht, log_merge and
-    cache_transition modules."""
+    ``baseline_repro_torch``: its ssd_scan, clht, log_merge,
+    cache_transition and clht_probe modules."""
     pkg = root / "src" / "repro_torch"
     spec = importlib.util.spec_from_file_location(
         "baseline_repro_torch", pkg / "__init__.py",
@@ -92,7 +111,8 @@ def load_baseline(root: Path):
     return tuple(importlib.import_module(f"baseline_repro_torch.{m}") for m in
                  ("kernels.ssd_scan.ssd_scan", "core.clht",
                   "kernels.log_merge.log_merge",
-                  "kernels.cache_transition.cache_transition"))
+                  "kernels.cache_transition.cache_transition",
+                  "kernels.clht_probe.clht_probe"))
 
 
 def event_ms(fn, reps: int, setup=None) -> float:
@@ -186,8 +206,10 @@ def main() -> int:
         ab_ssd(old[0], dev, args.reps)
     if "cache_transition" in only:
         ab_transition(old[3], dev, args.reps)
-    if "clht_insert" in only or "log_merge_sorted" in only:
+    if {"clht_insert", "log_merge_sorted", "clht_probe"} & set(only):
         table = full_table(dev)
+        if "clht_probe" in only:
+            ab_probe(old[4], table, args.reps)
         kinds, keys = Workload(table.num_buckets, zipf=0.99,
                                mix="write_heavy_update",
                                seed=1).ops_arrays(1 << 20)
@@ -285,6 +307,97 @@ def ab_merge(old_merge, table, wk, reps: int) -> None:
                 lines, *args), reps, fresh),
             "equal_to_plain": equal(merge.log_merge_sorted)}), flush=True)
     merge_k.WALK_MAX = default
+
+
+def sweep_probe_lib() -> ctypes.CDLL:
+    """tools/clht_probe_sweep.cu, kernel A with its launch shape as
+    arguments, built with the package's nvcc flags under build/tools/."""
+    out = ROOT / "build" / "tools"
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "libclht_probe_sweep.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                    f"-I{_build.CSRC}", str(ROOT / "tools" /
+                                            "clht_probe_sweep.cu"),
+                    "-o", str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.clht_probe_sweep_launch.restype = ctypes.c_int
+    lib.clht_probe_sweep_launch.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int64] + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2
+        + [ctypes.c_void_p])
+    return lib
+
+
+def ab_probe(old_probe, table, reps: int) -> None:
+    """Kernel A on a read batch's 2^20 keys against the full table, each
+    version bit for bit against the plain version; both on other line
+    traffic and on a KN prefetch's 300 keys; then the launch-shape
+    sweep on a trial build."""
+    n, dev = table.num_buckets, table.lines.device
+    _, keys = Workload(n, zipf=0.99, mix="read_only",
+                       seed=0).ops_arrays(1 << 20)
+    kd = torch.from_numpy(keys.astype(np.int32)).to(dev)
+    bids = clht.bucket_of(kd, n)
+    lines = int(torch.unique(bids).numel())
+    nbytes = kd.numel() * 16 + lines * 32
+
+    def equal(fn, k=kd, b=bids) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(
+            fn(table.lines, b, k), probe.clht_probe_ref(table.lines, b, k)))
+
+    row = {"kernel": "clht_probe", "keys": kd.numel(),
+           "distinct_lines": lines,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           **turns(lambda: old_probe.clht_probe(table.lines, bids, kd),
+                   lambda: probe.clht_probe(table.lines, bids, kd), reps),
+           "equal_to_plain": {"baseline": equal(old_probe.clht_probe),
+                              "current": equal(probe.clht_probe)}}
+    print(json.dumps(row), flush=True)
+    # where the time goes: the same work with other line traffic
+    order = torch.argsort(bids)
+    uni = torch.from_numpy(np.random.default_rng(1).integers(
+        0, n, 1 << 20).astype(np.int32)).to(dev)
+    few, fb = kd[:300].contiguous(), bids[:300].contiguous()
+    for shape, k, b in (
+            ("line 0 only", kd, torch.zeros_like(bids)),
+            ("sorted by bucket", kd[order].contiguous(),
+             bids[order].contiguous()),
+            ("uniform keys", uni, clht.bucket_of(uni, n)),
+            ("KN prefetch", few, fb)):
+        lines_b = int(torch.unique(b).numel())
+        print(json.dumps({
+            "kernel": "clht_probe", "keys": k.numel(), "shape": shape,
+            "distinct_lines": lines_b, "bound_ms":
+                (k.numel() * 16 + lines_b * 32) / HBM_BYTES_PER_S * 1e3,
+            **turns(lambda k=k, b=b: old_probe.clht_probe(table.lines, b, k),
+                    lambda k=k, b=b: probe.clht_probe(table.lines, b, k),
+                    reps),
+            "equal_to_plain": {"baseline": equal(old_probe.clht_probe, k, b),
+                               "current": equal(probe.clht_probe, k, b)}}),
+            flush=True)
+    lib = sweep_probe_lib()
+    for shape, k, b in (("read batch", kd, bids), ("KN prefetch", few, fb)):
+        for kpp in (1, 2, 4, 8):
+            for block in (64, 128, 256, 512, 1024):
+                def trial(kpp=kpp, block=block, k=k, b=b):
+                    ptrs = torch.empty_like(k)
+                    found = torch.empty_like(k)
+                    err = lib.clht_probe_sweep_launch(
+                        table.lines.data_ptr(), table.lines.shape[0],
+                        b.data_ptr(), k.data_ptr(), k.numel(),
+                        ptrs.data_ptr(), found.data_ptr(), kpp, block,
+                        _build.stream(k))
+                    if err:
+                        raise RuntimeError(f"sweep launch failed: {err}")
+                    return ptrs, found
+                print(json.dumps({
+                    "kernel": "clht_probe", "sweep": shape,
+                    "keys": k.numel(), "keys_per_thread": kpp,
+                    "block": block, "ms": event_ms(trial, reps),
+                    "shipped_ms": event_ms(lambda k=k, b=b: probe.clht_probe(
+                        table.lines, b, k), reps),
+                    "equal_to_plain": equal(lambda *_, t=trial: t(), k,
+                                            b)}), flush=True)
 
 
 def ab_transition(old_trans, dev, reps: int) -> None:
