@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA H100: the DPM data plane,
 one KN's planned DAC windows over it, the DPM pool with its planned merge,
-the paged LLM serving path and the SSM family's prefill and recurrent
-decode.
+the cluster's host engine over that pool, the paged LLM serving path and
+the SSM family's prefill and recurrent decode.
 
 Run from the repository root with no arguments:
 
@@ -55,6 +55,21 @@ the card at 2^21 keys of 1 KB values:
              merge_all, verify_integrity() empty; the same log merged into
              a slice-1 card table by merge_segment_planned (kernel D for
              its chain-growth tail) equal to the pool's index row for row
+
+Then the cluster's host engine over such a pool (core/cluster.py), the
+reference's dataplane cluster at 2^21 keys:
+
+  cluster    DinomoCluster (dinomo, 4 KNs, 1 KB values, segments of 512,
+             each KN's cache 3 % of the dataset) loaded warm, then YCSB
+             write_heavy_update and read_mostly_update at zipf 0.99, 8
+             batches of 2^14 ops each through execute_batch with the DPM
+             merging between batches, a KN added and kn2 failed between
+             batches; each batch's cache-miss reads probed on the card
+             (index_lookup_batch, kernel A, once per KN), each launch held
+             bit for bit to clht_probe_ref; every written key read back;
+             verify_integrity() empty; no data moved; the same
+             configuration at 2^16 keys held batch for batch to its
+             per-op twin (reference_cache=True) on the card
 
 Then it runs qwen1.5-0.5b at its published widths (24 layers, d_model 1024, 16
 heads, vocab 151,936; random bf16 weights from a seeded generator):
@@ -114,13 +129,18 @@ sys.path.insert(0, str(ROOT / "tests"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import clht, log  # noqa: E402
-from repro_torch.core.cluster import (KVSNode, _WritePlan,  # noqa: E402
+from repro_torch.core.cluster import (DINOMO, DinomoCluster,  # noqa: E402
+                                      KVSNode, _WritePlan,
                                       apply_window_plan, warm_load)
 from repro_torch.core.dac import (SHORTCUT_BYTES,  # noqa: E402
                                   VALUE_OVERHEAD_BYTES)
 from repro_torch.core.dpm_pool import DPMPool  # noqa: E402
-from repro_torch.core.transition import (MERGE_PLAN_STATS,  # noqa: E402
-                                         PLAN_STATS, plan_dac_window,
+from repro_torch.core.mnode import PolicyConfig  # noqa: E402
+from repro_torch.core.netmodel import DEFAULT_MODEL  # noqa: E402
+from repro_torch.core.transition import (ENGINE_WALL,  # noqa: E402
+                                         MERGE_PLAN_STATS, PLAN_STATS,
+                                         plan_dac_window,
+                                         reset_engine_wall,
                                          reset_merge_plan_stats,
                                          reset_plan_stats)
 from repro_torch.data import Workload  # noqa: E402
@@ -141,6 +161,7 @@ from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from torch_cases import (MERGE_CASES, TRANSITION_CASES,  # noqa: E402
                          merge_case, transition_case)
+from torch_cluster_cases import cluster_snapshot  # noqa: E402
 
 KEYS_LOG2 = 25              # the paper's 32 GB of 1 KB values
 WIDTH = 256                 # int32 lanes per value row = 1 KB
@@ -163,7 +184,7 @@ KN_MIXES = ("write_heavy_update", "read_mostly_update")
 KN_OPS = 1 << 16            # ops per mix
 KN_BATCH = 1 << 13          # ops whose reads are probed and writes merged
 KN_WINDOW = 512             # ops per planning chunk, as _run_window_at
-KN_SEGCACHE = 4 * 2048      # segcache entries: 4 of the reference's segments
+KN_SEGMENT = 2048           # the reference's segments (a segcache holds 4)
 KN_WRITE_BATCH = 8          # writes per amortized log flush (one RT)
 VALUE_BYTES = WIDTH * 4
 # the DPM pool phase: the port's DPMPool (host lists and index, its
@@ -176,6 +197,20 @@ POOL_LOAD_BATCH = 1 << 16   # keys per batched load write
 POOL_KNS = ("kn1", "kn2", "kn3")     # a key's owner: key % 3
 POOL_ROUNDS = 8
 POOL_ROUND_OPS = 1 << 18    # YCSB ops per round over the three KNs
+# the cluster phase: the reference's own dataplane cluster
+# (benchmarks/bench_dataplane.py:83-88: dinomo, 4 KNs, 1 KB values,
+# segments of 512, the paper's 1 GB cache against its 32 GB dataset) at
+# the DPM pool phase's 2^21 keys, through DinomoCluster.execute_batch
+CLUSTER_KEYS_LOG2 = 21
+CLUSTER_KNS = 4
+CLUSTER_SEGMENT = 512
+CACHE_FRAC = 0.03
+CLUSTER_MIXES = ("write_heavy_update", "read_mostly_update")
+CLUSTER_BATCH = 1 << 14     # ops per execute_batch
+CLUSTER_BATCHES = 8         # timed batches per mix
+CLUSTER_RECONFIG_BATCHES = 2    # batches after each reconfiguration
+CLUSTER_TWIN_KEYS_LOG2 = 16     # the per-op twin's keys
+CLUSTER_TWIN_BATCHES = 2        # the first batches of each mix
 ARCH = "qwen1.5-0.5b"
 PREFILL_B, PREFILL_S, PREFILL_REPS = 4, 2048, 3
 SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 8, 256, 128, 64
@@ -427,8 +462,11 @@ def _last_writes(keys: np.ndarray) -> np.ndarray:
 
 class PoolView:
     """The slice-1 DPM pool as plan_dac_window reads it: one key's live
-    index walk (``index_lookup`` -> (ptr or None, lines walked)) and the
-    values' lengths (``heap_len``; every value is 1 KB)."""
+    index walk (``index_lookup`` -> (ptr or None, lines walked)), the
+    values' lengths (``heap_len``; every value is 1 KB) and the log's
+    segment size (a KN's segcache holds 4 segments)."""
+
+    segment_capacity = KN_SEGMENT
 
     class _Lengths:
         def __getitem__(self, ptr):
@@ -979,7 +1017,8 @@ class Smoke:
         prefetched probe goes stale (dkeys and dbuckets stay empty)."""
         n = st["n"]
         t0 = time.perf_counter()
-        kn = KVSNode("kn1", KN_CACHE, KN_SEGCACHE, initial_keys=n)
+        kn = KVSNode("kn1", DINOMO, KN_CACHE, PoolView(st["table"]),
+                     initial_keys=n)
         cache = kn.cache
         # the serve phase's generator draws on: its key popularity is the
         # dataset's, and its mix is read at every draw
@@ -1356,7 +1395,7 @@ class Smoke:
               "launches": {k: c for k, c in _build.launches.items() if c}})
 
     @staticmethod
-    def _pool_probe_check(calls) -> int:
+    def _pool_probe_check(calls, what: str = "dpm_pool") -> int:
         """Each recorded kernel-A call of a batched read against
         clht_probe_ref on the same lines, bucket ids and keys, bit for
         bit, raw (ptrs, found) before the chain walk writes into them.
@@ -1364,9 +1403,9 @@ class Smoke:
         for args, (ptrs, found) in calls:
             want_p, want_f = probe.clht_probe_ref(*args)
             if not (torch.equal(ptrs, want_p) and torch.equal(found, want_f)):
-                raise AssertionError("dpm_pool: a kernel-A launch of a "
-                                     "batched read disagrees with "
-                                     "clht_probe_ref")
+                raise AssertionError(f"{what}: a kernel-A launch of a "
+                                     f"batched read disagrees with "
+                                     f"clht_probe_ref")
         return len(calls)
 
     @staticmethod
@@ -1408,6 +1447,219 @@ class Smoke:
                                  f"index differ")
         emit({"phase": f"dpm_pool_slice1_{what}", "equal": True,
               "clht_insert_launches": _build.launches["clht_insert"]})
+
+    # ---------------------------------------------------- 7d. the cluster
+    def cluster(self) -> None:
+        """The port's DinomoCluster on the card: the reference's dataplane
+        cluster (dinomo, CLUSTER_KNS KNs, 1 KB values, segments of
+        CLUSTER_SEGMENT, each KN's cache CACHE_FRAC of the dataset) over
+        2^CLUSTER_KEYS_LOG2 keys, loaded warm; CLUSTER_BATCHES batches of
+        CLUSTER_BATCH ops of YCSB write_heavy_update, then of
+        read_mostly_update, at zipf 0.99 through execute_batch, the DPM
+        merging one simulated second's allowance between batches (as
+        TimedSimulation's step); one more write_heavy_update batch under
+        torch.profiler; then a KN added and kn2 failed, each followed by
+        CLUSTER_RECONFIG_BATCHES batches. Each batch's cache-miss reads go
+        through DPMPool.index_lookup_batch (kernel A), once per KN.
+
+        Every kernel-A launch equals clht_probe_ref on its lines, bucket
+        ids and keys (raw ptrs and found, held before the next batch's
+        index sync writes into the lines). No op is refused. Every written
+        key reads back its last acknowledged write (and a sample of the
+        unwritten ones their loaded value), through batch_read;
+        verify_integrity() is empty; dinomo's reconfigurations move no
+        data. A per-op twin (_cluster_twin) holds the batched engine to
+        the fused per-op loop on the card."""
+        n = 1 << CLUSTER_KEYS_LOG2
+        t_phase = time.perf_counter()
+        reset_merge_plan_stats()
+        _build.reset_counts()            # the cluster's launches from here
+        t0 = time.perf_counter()
+        c = self._cluster_at(n, reference_cache=False)
+        emit({"phase": "cluster_load", "keys": n, "kns": CLUSTER_KNS,
+              "seconds": time.perf_counter() - t0,
+              "cache_bytes_per_kn": c.cache_bytes,
+              "shortcuts": sum(kn.cache.num_shortcuts
+                               for kn in c.kns.values()),
+              **MERGE_PLAN_STATS})
+        # run: ops so far, each key's last acknowledged write (the global
+        # index of the op, its value f"w{index}"), kernel-A calls checked
+        run = {"ops": 0, "last": np.full(n, -1, np.int64), "checked": 0}
+        loads = {mix: Workload(n, zipf=ZIPF, mix=mix, seed=SEED + 4)
+                 for mix in CLUSTER_MIXES}
+        for mix in CLUSTER_MIXES:
+            c.reset_stats()
+            reset_plan_stats()
+            reset_engine_wall()
+            sec = sum(self._cluster_batch(c, loads[mix], run)
+                      for _ in range(CLUSTER_BATCHES))
+            agg = c.aggregate_stats()
+            emit({"phase": "cluster_mix", "mix": mix,
+                  "ops": CLUSTER_BATCHES * CLUSTER_BATCH,
+                  "execute_batch_s": sec,
+                  "ops_per_s": CLUSTER_BATCHES * CLUSTER_BATCH / sec,
+                  **{k: agg[k] for k in ("rts_per_op", "hit_ratio",
+                                         "value_hit_ratio",
+                                         "write_stalls")},
+                  "plan_stats": dict(PLAN_STATS),
+                  "engine_wall_s": {k: v for k, v in ENGINE_WALL.items()
+                                    if k.startswith("host")}})
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = self._cluster_batch(c, loads["write_heavy_update"], run)
+        emit({"profile": f"cluster write_heavy_update batch of "
+                         f"{CLUSTER_BATCH} ops",
+              **device_summary(prof, wall)})
+        for event in ("add", "fail"):
+            t0 = time.perf_counter()
+            if event == "add":
+                c.add_kn()
+            else:
+                c.fail_kn("kn2")
+            sec = time.perf_counter() - t0
+            rec = c.reconfig_log[-1]
+            emit({"phase": "cluster_reconfig", "event": rec["event"],
+                  "node": rec["node"], "seconds": sec,
+                  "merged_entries": rec["merged_entries"],
+                  "participants": rec["participants"],
+                  "moved_fraction": rec["moved_fraction"],
+                  "kns": len(c.kns)})
+            for _ in range(CLUSTER_RECONFIG_BATCHES):
+                self._cluster_batch(c, loads["write_heavy_update"], run)
+        if any(r["moved_fraction"] for r in c.reconfig_log):
+            raise AssertionError("cluster: a dinomo reconfiguration moved "
+                                 "data")
+        # read-back: every written key, and unwritten keys for their load
+        last = run["last"]
+        written = np.flatnonzero(last >= 0)
+        unwritten = np.flatnonzero(last < 0)[:1 << 12]
+        keys = np.concatenate([written, unwritten])
+        t0 = time.perf_counter()
+        with recorded(probe_ops, "clht_probe", clone=True) as calls:
+            vals, _ = c.batch_read(keys)
+        run["checked"] += self._pool_probe_check(calls, "cluster")
+        read_s = time.perf_counter() - t0
+        want = [f"w{g}" for g in last[written].tolist()] + \
+            [f"v{k}" for k in unwritten.tolist()]
+        if vals != want:
+            bad = next(i for i, (v, w) in enumerate(zip(vals, want))
+                       if v != w)
+            raise AssertionError(f"cluster: key {keys[bad]} read back "
+                                 f"{vals[bad]!r}, not {want[bad]!r}")
+        problems = c.pool.verify_integrity()
+        if problems:
+            raise AssertionError(f"cluster: verify_integrity: "
+                                 f"{problems[:4]}")
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        if not run["checked"] or counts["clht_probe"] != run["checked"]:
+            raise AssertionError(f"cluster: kernel A launched "
+                                 f"{counts['clht_probe']} times, "
+                                 f"{run['checked']} held to its plain "
+                                 f"version")
+        self.tally("cluster", counts)
+        emit({"phase": "cluster_read_back", "written_keys": int(
+            written.size), "unwritten_keys": int(unwritten.size),
+              "seconds": read_s, "equal": True, "integrity_problems": 0})
+        del c
+        twin = self._cluster_twin()
+        emit({"phase": "cluster", "seconds": time.perf_counter() - t_phase,
+              "ops": run["ops"], "refused": 0,
+              "kernel_a_launches": counts["clht_probe"],
+              "kernel_a_launches_equal_to_plain": run["checked"],
+              "twin": twin,
+              "launches": {k: v for k, v in counts.items() if v}})
+
+    def _cluster_at(self, n: int, reference_cache: bool):
+        """The phase's cluster over ``n`` keys on the card, loaded warm
+        (the values v{key})."""
+        c = DinomoCluster(DINOMO, num_kns=CLUSTER_KNS,
+                          cache_bytes=int(n * VALUE_BYTES * CACHE_FRAC),
+                          value_bytes=VALUE_BYTES, num_buckets=n,
+                          segment_capacity=CLUSTER_SEGMENT,
+                          policy=PolicyConfig(grace_period_s=1e9,
+                                              epoch_s=1e9),
+                          reference_cache=reference_cache, device=self.dev)
+        c.load(((k, f"v{k}") for k in range(n)), warm=True)
+        return c
+
+    def _cluster_batch(self, c, load, run) -> float:
+        """One batch of ``load``'s ops through execute_batch (its
+        kernel-A launches recorded and held to clht_probe_ref), then one
+        simulated second of DPM merging under its allowance; the batch's
+        writes noted in ``run``. Returns the synchronized seconds of
+        execute_batch."""
+        kinds, keys = load.ops_arrays(CLUSTER_BATCH)
+        base = run["ops"]
+        budget = int(DEFAULT_MODEL.merge_capacity())
+        c.pool.merge_allowance = budget
+        with recorded(probe_ops, "clht_probe", clone=True) as calls:
+            res, sec = synced(lambda: c.execute_batch(
+                kinds, keys, values=lambda i: f"w{base + i}"))
+        run["checked"] += self._pool_probe_check(calls, "cluster")
+        c.advance_merge(budget)
+        c.pool.merge_allowance = None
+        refused = sum(kn.stats.refused for kn in c.kns.values())
+        if res.executed != keys.size or refused \
+                or not np.array_equal(res.executed_keys, keys):
+            raise AssertionError(f"cluster: {keys.size - res.executed} ops "
+                                 f"not executed, {refused} refused")
+        wpos = np.flatnonzero(kinds == 1)
+        lw = _last_writes(keys[wpos])
+        run["last"][keys[wpos][lw]] = base + wpos[lw]
+        run["ops"] += keys.size
+        return sec
+
+    def _cluster_twin(self) -> dict:
+        """The phase's configuration at 2^CLUSTER_TWIN_KEYS_LOG2 keys, as
+        two clusters on the card: the batched engine and the fused per-op
+        loop (reference_cache=True: the reference DAC, per-key index
+        walks). The first CLUSTER_TWIN_BATCHES batches of each mix go to
+        both, a KN added to both between the mixes; after each, every BatchResult field and collected value,
+        cluster_snapshot and aggregate_stats() are equal, and the batched
+        one's kernel-A launches equal clht_probe_ref. Outside the main
+        path's launch counts."""
+        n = 1 << CLUSTER_TWIN_KEYS_LOG2
+        checked = batches = 0
+        with uncounted(), recorded(probe_ops, "clht_probe",
+                                   clone=True) as calls:
+            pair = [self._cluster_at(n, rc) for rc in (False, True)]
+            for mix in CLUSTER_MIXES:
+                if mix != CLUSTER_MIXES[0]:
+                    # a KN joins: the participants' caches are cleared,
+                    # so the batched one's reads miss and probe the card
+                    for c in pair:
+                        c.add_kn()
+                loads = [Workload(n, zipf=ZIPF, mix=mix, seed=SEED + 5)
+                         for _ in pair]
+                for _ in range(CLUSTER_TWIN_BATCHES):
+                    got = []
+                    for c, load in zip(pair, loads):
+                        kinds, keys = load.ops_arrays(CLUSTER_BATCH)
+                        budget = int(DEFAULT_MODEL.merge_capacity())
+                        c.pool.merge_allowance = budget
+                        res = c.execute_batch(kinds, keys,
+                                              values=lambda i: f"w{i}",
+                                              collect_values=True)
+                        c.advance_merge(budget)
+                        c.pool.merge_allowance = None
+                        got.append((res.executed, res.writes, res.per_kn,
+                                    res.executed_keys.tolist(), res.values,
+                                    cluster_snapshot(c),
+                                    c.aggregate_stats()))
+                    checked += self._pool_probe_check(calls, "cluster twin")
+                    calls.clear()
+                    if got[0] != got[1]:
+                        raise AssertionError(f"cluster twin: the batched "
+                                             f"engine and the per-op loop "
+                                             f"part in {mix}")
+                    batches += 1
+        if not checked:
+            raise AssertionError("cluster twin: no kernel-A launch")
+        return {"keys": n, "batches": batches, "equal": True,
+                "kernel_a_launches_equal_to_plain": checked,
+                "aggregate": got[0][-1]}
 
     def time_transition(self) -> list[dict]:
         """Kernel 4 on a 512-op window of the KN path that consumed
@@ -2277,6 +2529,8 @@ def main() -> int:
     del st
     torch.cuda.empty_cache()
     smoke.dpm_pool()
+    torch.cuda.empty_cache()
+    smoke.cluster()
     torch.cuda.empty_cache()
     smoke.prefill()
     srv = smoke.serve_paged()

@@ -60,6 +60,14 @@ PLAN_STATS = {"planned_windows": 0, "planned_ops": 0,
 MERGE_PLAN_STATS = {"planned_windows": 0, "planned_entries": 0,
                     "replayed_windows": 0, "replayed_entries": 0}
 
+# the host window engine's wall clock (perf_counter seconds) by stage:
+# planning, the bulk apply and the per-op replay (the cluster adds to
+# them). The reference's jit keys stay at 0: the compiled engine is not
+# ported. Same-run ratios only; absolute values depend on the host.
+ENGINE_WALL = {"host_plan": 0.0, "host_apply": 0.0, "host_replay": 0.0,
+               "jit_prep": 0.0, "jit_dispatch": 0.0, "jit_fold": 0.0,
+               "jit_sync": 0.0}
+
 
 def reset_plan_stats() -> None:
     for k in PLAN_STATS:
@@ -69,6 +77,11 @@ def reset_plan_stats() -> None:
 def reset_merge_plan_stats() -> None:
     for k in MERGE_PLAN_STATS:
         MERGE_PLAN_STATS[k] = 0
+
+
+def reset_engine_wall() -> None:
+    for k in ENGINE_WALL:
+        ENGINE_WALL[k] = 0.0
 
 
 def _last_occurrence(keys: np.ndarray):

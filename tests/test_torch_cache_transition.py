@@ -158,8 +158,10 @@ def test_the_wrapper_refuses_what_int32_cannot_hold():
 # ------------------------------------------------------------- the gather
 class _Pool:
     """A DPM pool as the planner reads it: every key of the index at
-    pointer key + 7, 100-byte values, one probe."""
+    pointer key + 7, 100-byte values, one probe; segments of 16 entries
+    (a KN's segcache holds 4 of them)."""
     heap_len = {}
+    segment_capacity = 16
 
     def index_lookup(self, key):
         return key + 7, 1
@@ -184,9 +186,9 @@ def test_gather_feeds_the_planners_own_pass_b_vectors(seed):
     count / length, its queue the cache's value entries by ascending
     stamp with their gross bytes, and its scalars the cache's."""
     cache, rng = _warm_cache(seed, 1 << 14)
-    kn = tcl.KVSNode("kn1", 1 << 14, 64)
-    kn.cache = cache
     pool = _Pool()
+    kn = tcl.KVSNode("kn1", tcl.DINOMO, 1 << 14, pool)
+    kn.cache = cache
     pool.heap_len = {k + 7: 100 for k in range(400)}
     keys = rng.integers(0, 400, 300).astype(np.int64)
     opk = rng.choice([0, 0, 1, 2], 300).astype(np.uint8)
@@ -217,7 +219,7 @@ def test_gather_queue_covers_the_worst_demand():
     for k in range(58):           # full of 140-byte values
         cache.fill_after_miss(k, k + 7, 100)
     cache2 = copy.deepcopy(cache)
-    kn = tcl.KVSNode("kn1", 1 << 13, 64)
+    kn = tcl.KVSNode("kn1", tcl.DINOMO, 1 << 13, _Pool())
     keys = np.arange(400, 464, dtype=np.int64)              # fresh writes
     win = tct.gather_window(cache, kn, keys, np.ones(64, np.uint8),
                             np.arange(64), {}, set(), set(), _Pool(), 100)

@@ -940,3 +940,60 @@ def test_kernels_c_and_4_do_not_synchronize(dev):
                                    cap=cap)
     for g, w in zip(outs, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+# ------------------------------------------- the cluster's host engine
+from repro_torch.core import cluster as tcl  # noqa: E402
+from torch_cluster_cases import batch_result, cluster_state  # noqa: E402
+
+probe_ops = importlib.import_module("repro_torch.kernels.clht_probe.ops")
+
+
+def test_cluster_on_the_card_equals_its_cpu_twin(dev, monkeypatch):
+    """A dinomo cluster whose pool reads its index on the card and its
+    twin on the CPU, through mixed YCSB batches with merges between them,
+    a KN added and one failed: every BatchResult and the whole state
+    (tests/torch_cluster_cases.py:cluster_state) equal after each batch,
+    and every kernel-A launch of the card's batched reads equal to
+    clht_probe_ref on its lines, bucket ids and keys."""
+    checked = []
+    real = probe_ops.clht_probe
+
+    def checking(*args):
+        # held at the call: the pool's next sync writes into the lines
+        out = real(*args)
+        want = tp.clht_probe_ref(*args)
+        checked.append((args[0].is_cuda, torch.equal(out[0], want[0])
+                        and torch.equal(out[1], want[1])))
+        return out
+
+    monkeypatch.setattr(probe_ops, "clht_probe", checking)
+    kw = dict(num_kns=4, cache_bytes=int(6000 * 1024 * 0.03),
+              value_bytes=1024, num_buckets=1 << 12, segment_capacity=64)
+    card = tcl.DinomoCluster(device=dev, **kw)
+    host = tcl.DinomoCluster(device="cpu", **kw)
+    for c in (card, host):
+        c.load(((k, f"v{k}") for k in range(6000)), warm=True)
+    assert card.pool.device.type == "cuda"
+    n0 = _build.launches["clht_probe"]
+    for step, mix in enumerate(["write_heavy_update", "read_mostly_update"]
+                               * 2):
+        kinds, keys = Workload(6000, zipf=0.99, mix=mix,
+                               seed=step).ops_arrays(3000)
+        got = [batch_result(c.execute_batch(kinds, keys,
+                                            values=lambda i: f"w{i}",
+                                            collect_values=True))
+               for c in (card, host)]
+        assert got[0] == got[1]
+        for c in (card, host):
+            c.advance_merge(1 << 20)
+        if step == 1:
+            for c in (card, host):
+                c.add_kn()
+        if step == 2:
+            for c in (card, host):
+                c.fail_kn("kn2")
+        assert cluster_state(card) == cluster_state(host)
+    on_card = [ok for cuda, ok in checked if cuda]
+    assert on_card and all(ok for _, ok in checked)
+    assert _build.launches["clht_probe"] - n0 == len(on_card)

@@ -16,6 +16,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import clht as tc  # noqa: E402
 from repro_torch.core import log as tl  # noqa: E402
 from repro_torch import device, state  # noqa: E402
+from repro_torch.core import DinomoCluster  # noqa: E402
 from repro_torch.core.dpm_pool import DPMPool  # noqa: E402
 from repro_torch.kernels import cache_transition as tct  # noqa: E402
 from repro_torch.kvcache import paged_store  # noqa: E402
@@ -37,6 +38,10 @@ KN_SLICE = ("core/dac.py", "core/cluster.py", "core/transition.py",
 DPM_POOL_SLICE = ("core/dpm_pool.py", "core/faults.py", "core/sanitize.py",
                   "core/clht.py", "core/log.py", "core/transition.py",
                   "kernels/clht_probe/ops.py", "kernels/log_merge/ops.py")
+# the modules of the cluster slice (the host engine and what it imports
+# beside the pool), which the scan must reach as well
+CLUSTER_SLICE = ("core/cluster.py", "core/ownership.py", "core/mnode.py",
+                 "core/netmodel.py", "core/hashring.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the one environment variable the port reads: the ownership sanitizer's
 # switch, the reference's own (it chooses no device)
@@ -68,6 +73,11 @@ def test_the_scan_reaches_the_kn_window_slice():
 
 def test_the_scan_reaches_the_dpm_pool_slice():
     for name in DPM_POOL_SLICE:
+        assert PORT / name in PORT_FILES, name
+
+
+def test_the_scan_reaches_the_cluster_slice():
+    for name in CLUSTER_SLICE:
         assert PORT / name in PORT_FILES, name
 
 
@@ -112,6 +122,7 @@ def test_every_kernel_package_has_ref_and_parity_test():
                                         value_bytes=64),
     lambda: DPMPool(),
     lambda: DPMPool(num_buckets=8, device="cuda"),
+    lambda: DinomoCluster(num_kns=1, num_buckets=8),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

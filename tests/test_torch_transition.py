@@ -81,7 +81,9 @@ def slot_diff(ref, got) -> list:
 def check_window(cluster, cache, kn, args, ref_plan_fn):
     """Plan one window both ways (and the twin), apply both, compare."""
     port_cache = to_port(cache)
-    port_kn = tcl.KVSNode(kn.name, cache.capacity, kn.segcache_cap)
+    port_kn = tcl.KVSNode(kn.name, tcl.DINOMO, cache.capacity, kn.pool,
+                          segcache_segments=kn.segcache_cap
+                          // kn.pool.segment_capacity)
     port_kn.cache = port_cache
     port_kn.segcache = copy.copy(kn.segcache)
     port_kn.stats = tcl.KNStats(**dataclasses.asdict(kn.stats))

@@ -1,0 +1,105 @@
+"""The state of a DINOMO cluster as plain Python values, for holding two
+clusters equal: the reference's and the port's in the CPU parity tests,
+a batched cluster and its per-op twin in chip_smoke.py's ``cluster``
+phase. numpy only; it imports neither package, and reads the attributes
+both clusters share."""
+
+import dataclasses
+
+import numpy as np
+
+
+def cluster_snapshot(c) -> dict:
+    """Per-KN statistics and segcache sizes, the pool's GC counters, the
+    metadata-server op count and the write sequence (the reference's
+    tests/test_writeplane.py:cluster_snapshot)."""
+    out = {}
+    for n, kn in sorted(c.kns.items()):
+        cs = kn.cache.stats
+        out[n] = (kn.stats.ops, kn.stats.rts, kn.stats.reads,
+                  kn.stats.writes, kn.stats.write_stalls,
+                  kn.stats.refused,
+                  cs.value_hits, cs.shortcut_hits, cs.misses,
+                  cs.promotions, cs.demotions, cs.evictions,
+                  len(kn.segcache))
+    out["gc"] = (c.pool.gc.segments_created,
+                 c.pool.gc.segments_collected,
+                 c.pool.gc.entries_merged)
+    out["ms"] = c.ms_ops
+    out["seq"] = c._seq
+    return out
+
+
+def cache_state(cache) -> tuple:
+    """Every decision-bearing field of a KN cache: a reference ``DAC``'s
+    entries (values in LRU order) and heap, or an ``ArrayDAC``'s live
+    per-key vectors, heaps, clock and counters; then the occupancy, the
+    miss-RT average and the statistics."""
+    common = (cache.capacity, cache.used, cache.avg_miss_rts,
+              dataclasses.astuple(cache.stats))
+    if hasattr(cache, "values"):
+        return ("dac", common,
+                [(k, e.ptr, e.length, e.count)
+                 for k, e in cache.values.items()],
+                sorted((k, e.ptr, e.length, e.count)
+                       for k, e in cache.shortcuts.items()),
+                list(cache._lfu))
+    live = np.flatnonzero(cache.kind)
+    return ("array", common, live.tolist(),
+            np.asarray(cache.kind)[live].tolist(),
+            np.asarray(cache.ptr)[live].tolist(),
+            np.asarray(cache.length)[live].tolist(),
+            np.asarray(cache.count)[live].tolist(),
+            np.asarray(cache.stamp)[live].tolist(),
+            list(cache._lru), list(cache._lfu), cache._clock,
+            cache._nvals, cache._nshort, cache._zero_shortcuts,
+            list(cache._cnt_hist))
+
+
+def pool_index(pool) -> tuple:
+    """The pool's host index row for row, and its indirection table."""
+    ix = pool.index
+    return (np.asarray(ix.keys).tolist(), np.asarray(ix.ptrs).tolist(),
+            np.asarray(ix.nxt).tolist(), ix.overflow_head, ix.size,
+            ix.version, dict(pool.indirect))
+
+
+def cluster_state(c) -> dict:
+    """Everything two clusters on one op stream must agree on: the
+    snapshot and aggregate statistics, each KN's soft state and cache,
+    ownership (ring, replication, fences, the route's random state), the
+    reconfiguration log, the write counters and the pool (index, heap,
+    logs, merge backlog, policy metadata)."""
+    pool = c.pool
+    return {
+        "snapshot": cluster_snapshot(c),
+        "aggregate": c.aggregate_stats(),
+        "kns": {n: (kn.alive, kn.available, kn.fence_token,
+                    kn._pending_flush, list(kn.segcache.items()),
+                    cache_state(kn.cache))
+                for n, kn in sorted(c.kns.items())},
+        "ring": (list(c.ownership.ring._points),
+                 list(c.ownership.ring._owners)),
+        "replicated": dict(c.ownership.replicated),
+        "fence": dict(c.ownership.fence),
+        "ownership_version": c.ownership.version,
+        "rng": c.rng.getstate(),
+        "reconfig_log": c.reconfig_log,
+        "versions": dict(c.versions),
+        "ms_ops": c.ms_ops,
+        "index": pool_index(pool),
+        "heap": (list(pool.heap_val), list(pool.heap_len)),
+        "logs": {n: [(s.entries, s.sealed, s.valid, s.merged_upto)
+                     for s in segs]
+                 for n, segs in sorted(pool.segments.items())},
+        "backlog": [(s.kn, s.merged_upto, len(s.entries))
+                    for s, _ in pool.merge_backlog],
+        "pool_fence": dict(pool.fence),
+        "policy_metadata": pool.policy_metadata,
+    }
+
+
+def batch_result(res) -> tuple:
+    """Every field of a BatchResult."""
+    return (res.executed, res.writes, res.per_kn,
+            np.asarray(res.executed_keys).tolist(), res.values)
