@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA H100: the DPM data plane,
 one KN's planned DAC windows over it, the DPM pool with its planned merge,
-the cluster's host engine over that pool, the paged LLM serving path and
-the SSM family's prefill and recurrent decode.
+the cluster over that pool by its host and compiled batch engines, the
+paged LLM serving path and the SSM family's prefill and recurrent decode.
 
 Run from the repository root with no arguments:
 
@@ -56,20 +56,32 @@ the card at 2^21 keys of 1 KB values:
              a slice-1 card table by merge_segment_planned (kernel D for
              its chain-growth tail) equal to the pool's index row for row
 
-Then the cluster's host engine over such a pool (core/cluster.py), the
-reference's dataplane cluster at 2^21 keys:
+Then the cluster over such a pool (core/cluster.py), the reference's
+dataplane cluster at 2^21 keys, by both batch engines:
 
   cluster    DinomoCluster (dinomo, 4 KNs, 1 KB values, segments of 512,
-             each KN's cache 3 % of the dataset) loaded warm, then YCSB
-             write_heavy_update and read_mostly_update at zipf 0.99, 8
-             batches of 2^14 ops each through execute_batch with the DPM
-             merging between batches, a KN added and kn2 failed between
-             batches; each batch's cache-miss reads probed on the card
-             (index_lookup_batch, kernel A, once per KN), each launch held
-             bit for bit to clht_probe_ref; every written key read back;
-             verify_integrity() empty; no data moved; the same
-             configuration at 2^16 keys held batch for batch to its
-             per-op twin (reference_cache=True) on the card
+             each KN's cache 3 % of the dataset) loaded warm and copied;
+             the host leg runs execute_batch with the host engine, the
+             jit leg with engine="jit" (each eligible KN window one
+             launch of kernel E over the KN's state resident on the card,
+             core/jit_engine.py). Both take YCSB write_heavy_update and
+             read_mostly_update at zipf 0.99, 8 batches of 2^14 ops each,
+             with the DPM merging between batches, a KN added and kn2
+             failed between batches; every BatchResult equal between the
+             legs and, after each mix and reconfiguration, their
+             aggregate_stats() and snapshots; each batch's cache-miss
+             reads probed on the card (index_lookup_batch, kernel A, once
+             per KN), each launch held bit for bit to clht_probe_ref; the
+             first kernel-E launch of each KN in each mix held bit for
+             bit to fused_window_ref; one jit write-heavy batch profiled;
+             every written key read back on both; verify_integrity()
+             empty; no data moved; the same configuration at 2^16 keys
+             held batch for batch to its per-op twin
+             (reference_cache=True) by both engines on the card, every
+             kernel-E launch there held to fused_window_ref
+
+and times kernel E on the largest window held (a KN window over 2^21
+slots), beside the host engine's time for that window.
 
 Then it runs qwen1.5-0.5b at its published widths (24 layers, d_model 1024, 16
 heads, vocab 151,936; random bf16 weights from a seeded generator):
@@ -112,7 +124,9 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -145,6 +159,7 @@ from repro_torch.core.transition import (ENGINE_WALL,  # noqa: E402
                                          reset_plan_stats)
 from repro_torch.data import Workload  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import batch_executor  # noqa: E402
 from repro_torch.kernels import cache_transition as transition  # noqa: E402
 from repro_torch.kernels import clht_probe as probe  # noqa: E402
 from repro_torch.kernels.clht_probe import ops as probe_ops  # noqa: E402
@@ -1391,6 +1406,7 @@ class Smoke:
               "merged_entries_per_s": n_merged / merge_s,
               "written_keys_read_back": int(written.size),
               "kernel_a_launches_equal_to_plain": n_checked,
+              "host_walked_keys": pool.host_walked_keys,
               "integrity_problems": 0, **MERGE_PLAN_STATS,
               "launches": {k: c for k, c in _build.launches.items() if c}})
 
@@ -1453,23 +1469,31 @@ class Smoke:
         """The port's DinomoCluster on the card: the reference's dataplane
         cluster (dinomo, CLUSTER_KNS KNs, 1 KB values, segments of
         CLUSTER_SEGMENT, each KN's cache CACHE_FRAC of the dataset) over
-        2^CLUSTER_KEYS_LOG2 keys, loaded warm; CLUSTER_BATCHES batches of
-        CLUSTER_BATCH ops of YCSB write_heavy_update, then of
-        read_mostly_update, at zipf 0.99 through execute_batch, the DPM
-        merging one simulated second's allowance between batches (as
-        TimedSimulation's step); one more write_heavy_update batch under
-        torch.profiler; then a KN added and kn2 failed, each followed by
-        CLUSTER_RECONFIG_BATCHES batches. Each batch's cache-miss reads go
-        through DPMPool.index_lookup_batch (kernel A), once per KN.
+        2^CLUSTER_KEYS_LOG2 keys, loaded warm, then copied: the host leg
+        runs execute_batch with the host engine, the jit leg (the copy)
+        with engine="jit" (each eligible KN window one kernel-E launch
+        over the KN's state resident on the card). Both take the same
+        streams: CLUSTER_BATCHES batches of CLUSTER_BATCH ops of YCSB
+        write_heavy_update, then of read_mostly_update, at zipf 0.99, the
+        DPM merging one simulated second's allowance between batches (as
+        TimedSimulation's step); one more write_heavy_update batch each,
+        the jit one under torch.profiler; then a KN added and kn2 failed,
+        each followed by CLUSTER_RECONFIG_BATCHES batches. Each batch's
+        cache-miss reads go through DPMPool.index_lookup_batch (kernel A),
+        once per KN.
 
+        Every BatchResult field equal between the legs, and after each mix
+        and reconfiguration their aggregate_stats() and cluster_snapshot.
         Every kernel-A launch equals clht_probe_ref on its lines, bucket
         ids and keys (raw ptrs and found, held before the next batch's
-        index sync writes into the lines). No op is refused. Every written
-        key reads back its last acknowledged write (and a sample of the
-        unwritten ones their loaded value), through batch_read;
-        verify_integrity() is empty; dinomo's reconfigurations move no
-        data. A per-op twin (_cluster_twin) holds the batched engine to
-        the fused per-op loop on the card."""
+        index sync writes into the lines); the first kernel-E launch of
+        each KN in each mix equals fused_window_ref on host copies of its
+        inputs. No op is refused. Every written key reads back its last
+        acknowledged write (and a sample of the unwritten ones their
+        loaded value), through batch_read on both legs; verify_integrity()
+        is empty; dinomo's reconfigurations move no data. A twin at
+        2^CLUSTER_TWIN_KEYS_LOG2 keys (_cluster_twin) holds the batched
+        and jit engines to the fused per-op loop on the card."""
         n = 1 << CLUSTER_KEYS_LOG2
         t_phase = time.perf_counter()
         reset_merge_plan_stats()
@@ -1482,52 +1506,79 @@ class Smoke:
               "shortcuts": sum(kn.cache.num_shortcuts
                                for kn in c.kns.values()),
               **MERGE_PLAN_STATS})
+        t0 = time.perf_counter()
+        cj = copy.deepcopy(c)            # the jit leg, as loaded
+        self._cluster_equal(c, cj, "the copy")
+        emit({"phase": "cluster_copy", "seconds": time.perf_counter() - t0})
+        legs = {"host": c, "jit": cj}
         # run: ops so far, each key's last acknowledged write (the global
-        # index of the op, its value f"w{index}"), kernel-A calls checked
-        run = {"ops": 0, "last": np.full(n, -1, np.int64), "checked": 0}
+        # index of the op, its value f"w{index}"), kernel-A calls checked,
+        # kernel-E launches held to the plain version
+        run = {"ops": 0, "last": np.full(n, -1, np.int64), "checked": 0,
+               "e_checked": 0, "window_case": None}
         loads = {mix: Workload(n, zipf=ZIPF, mix=mix, seed=SEED + 4)
                  for mix in CLUSTER_MIXES}
         for mix in CLUSTER_MIXES:
-            c.reset_stats()
-            reset_plan_stats()
-            reset_engine_wall()
-            sec = sum(self._cluster_batch(c, loads[mix], run)
-                      for _ in range(CLUSTER_BATCHES))
-            agg = c.aggregate_stats()
-            emit({"phase": "cluster_mix", "mix": mix,
-                  "ops": CLUSTER_BATCHES * CLUSTER_BATCH,
-                  "execute_batch_s": sec,
-                  "ops_per_s": CLUSTER_BATCHES * CLUSTER_BATCH / sec,
-                  **{k: agg[k] for k in ("rts_per_op", "hit_ratio",
-                                         "value_hit_ratio",
-                                         "write_stalls")},
-                  "plan_stats": dict(PLAN_STATS),
-                  "engine_wall_s": {k: v for k, v in ENGINE_WALL.items()
-                                    if k.startswith("host")}})
+            for cl in legs.values():
+                cl.reset_stats()
+            tally = {leg: {"sec": 0.0, "wall": self._zero_wall(),
+                           "plan": dict.fromkeys(PLAN_STATS, 0)}
+                     for leg in legs}
+            jit_counts = dict(cj._jit.counts) if cj._jit else None
+            e0 = _build.launches["fused_window"]
+            first = set()                # KNs whose first launch was held
+            for b in range(CLUSTER_BATCHES):
+                self._cluster_pair_batch(
+                    legs, loads[mix], run, tally, first=first,
+                    time_window=mix == CLUSTER_MIXES[0] and b == 0)
+            self._cluster_equal(c, cj, mix)
+            counts = {k: v - (jit_counts or {}).get(k, 0)
+                      for k, v in cj._jit.counts.items()}
+            for leg, cl in legs.items():
+                agg = cl.aggregate_stats()
+                sec = tally[leg]["sec"]
+                emit({"phase": "cluster_mix", "leg": leg, "mix": mix,
+                      "ops": CLUSTER_BATCHES * CLUSTER_BATCH,
+                      "execute_batch_s": sec,
+                      "ops_per_s": CLUSTER_BATCHES * CLUSTER_BATCH / sec,
+                      **{k: agg[k] for k in ("rts_per_op", "hit_ratio",
+                                             "value_hit_ratio",
+                                             "write_stalls")},
+                      "plan_stats": tally[leg]["plan"],
+                      "engine_wall_s": {
+                          k: v for k, v in tally[leg]["wall"].items()
+                          if v or k.startswith(leg)},
+                      **({"jit": counts, "kernel_e_launches":
+                          _build.launches["fused_window"] - e0,
+                          "kernel_e_first_launches_equal_to_plain":
+                          len(first)} if leg == "jit" else {})})
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall = self._cluster_batch(c, loads["write_heavy_update"], run)
-        emit({"profile": f"cluster write_heavy_update batch of "
-                         f"{CLUSTER_BATCH} ops",
-              **device_summary(prof, wall)})
+        self._cluster_pair_batch(legs, loads["write_heavy_update"], run,
+                                 None, profile_jit=(profile,
+                                                    ProfilerActivity))
         for event in ("add", "fail"):
-            t0 = time.perf_counter()
-            if event == "add":
-                c.add_kn()
-            else:
-                c.fail_kn("kn2")
-            sec = time.perf_counter() - t0
-            rec = c.reconfig_log[-1]
-            emit({"phase": "cluster_reconfig", "event": rec["event"],
-                  "node": rec["node"], "seconds": sec,
-                  "merged_entries": rec["merged_entries"],
-                  "participants": rec["participants"],
-                  "moved_fraction": rec["moved_fraction"],
-                  "kns": len(c.kns)})
+            for leg, cl in legs.items():
+                t0 = time.perf_counter()
+                if event == "add":
+                    cl.add_kn()
+                else:
+                    cl.fail_kn("kn2")
+                sec = time.perf_counter() - t0
+                rec = cl.reconfig_log[-1]
+                emit({"phase": "cluster_reconfig", "leg": leg,
+                      "event": rec["event"], "node": rec["node"],
+                      "seconds": sec,
+                      "merged_entries": rec["merged_entries"],
+                      "participants": rec["participants"],
+                      "moved_fraction": rec["moved_fraction"],
+                      "kns": len(cl.kns)})
+            self._cluster_equal(c, cj, event)
             for _ in range(CLUSTER_RECONFIG_BATCHES):
-                self._cluster_batch(c, loads["write_heavy_update"], run)
-        if any(r["moved_fraction"] for r in c.reconfig_log):
+                self._cluster_pair_batch(legs, loads["write_heavy_update"],
+                                         run, None)
+            self._cluster_equal(c, cj, f"the batches after {event}")
+        if any(r["moved_fraction"] for cl in legs.values()
+               for r in cl.reconfig_log):
             raise AssertionError("cluster: a dinomo reconfiguration moved "
                                  "data")
         # read-back: every written key, and unwritten keys for their load
@@ -1535,22 +1586,25 @@ class Smoke:
         written = np.flatnonzero(last >= 0)
         unwritten = np.flatnonzero(last < 0)[:1 << 12]
         keys = np.concatenate([written, unwritten])
-        t0 = time.perf_counter()
-        with recorded(probe_ops, "clht_probe", clone=True) as calls:
-            vals, _ = c.batch_read(keys)
-        run["checked"] += self._pool_probe_check(calls, "cluster")
-        read_s = time.perf_counter() - t0
         want = [f"w{g}" for g in last[written].tolist()] + \
             [f"v{k}" for k in unwritten.tolist()]
-        if vals != want:
-            bad = next(i for i, (v, w) in enumerate(zip(vals, want))
-                       if v != w)
-            raise AssertionError(f"cluster: key {keys[bad]} read back "
-                                 f"{vals[bad]!r}, not {want[bad]!r}")
-        problems = c.pool.verify_integrity()
-        if problems:
-            raise AssertionError(f"cluster: verify_integrity: "
-                                 f"{problems[:4]}")
+        read_s = {}
+        for leg, cl in legs.items():
+            t0 = time.perf_counter()
+            with recorded(probe_ops, "clht_probe", clone=True) as calls:
+                vals, _ = cl.batch_read(keys)
+            run["checked"] += self._pool_probe_check(calls, "cluster")
+            read_s[leg] = time.perf_counter() - t0
+            if vals != want:
+                bad = next(i for i, (v, w) in enumerate(zip(vals, want))
+                           if v != w)
+                raise AssertionError(f"cluster ({leg}): key {keys[bad]} "
+                                     f"read back {vals[bad]!r}, not "
+                                     f"{want[bad]!r}")
+            problems = cl.pool.verify_integrity()
+            if problems:
+                raise AssertionError(f"cluster ({leg}): verify_integrity: "
+                                     f"{problems[:4]}")
         torch.cuda.synchronize()
         counts = dict(_build.launches)
         if not run["checked"] or counts["clht_probe"] != run["checked"]:
@@ -1558,16 +1612,24 @@ class Smoke:
                                  f"{counts['clht_probe']} times, "
                                  f"{run['checked']} held to its plain "
                                  f"version")
+        if not counts["fused_window"]:
+            raise AssertionError("cluster: kernel E never launched")
         self.tally("cluster", counts)
+        host_walked = {leg: cl.pool.host_walked_keys
+                       for leg, cl in legs.items()}
         emit({"phase": "cluster_read_back", "written_keys": int(
             written.size), "unwritten_keys": int(unwritten.size),
-              "seconds": read_s, "equal": True, "integrity_problems": 0})
-        del c
+              "seconds": read_s, "equal": True, "integrity_problems": 0,
+              "host_walked_keys": host_walked})
+        self.window_case = run["window_case"]
+        del c, cj, legs
         twin = self._cluster_twin()
         emit({"phase": "cluster", "seconds": time.perf_counter() - t_phase,
               "ops": run["ops"], "refused": 0,
               "kernel_a_launches": counts["clht_probe"],
               "kernel_a_launches_equal_to_plain": run["checked"],
+              "kernel_e_launches": counts["fused_window"],
+              "kernel_e_launches_equal_to_plain": run["e_checked"],
               "twin": twin,
               "launches": {k: v for k, v in counts.items() if v}})
 
@@ -1584,64 +1646,207 @@ class Smoke:
         c.load(((k, f"v{k}") for k in range(n)), warm=True)
         return c
 
-    def _cluster_batch(self, c, load, run) -> float:
-        """One batch of ``load``'s ops through execute_batch (its
-        kernel-A launches recorded and held to clht_probe_ref), then one
-        simulated second of DPM merging under its allowance; the batch's
-        writes noted in ``run``. Returns the synchronized seconds of
-        execute_batch."""
+    @staticmethod
+    def _zero_wall() -> dict:
+        return dict.fromkeys(ENGINE_WALL, 0.0)
+
+    @staticmethod
+    def _cluster_equal(a, b, when: str) -> None:
+        """The legs' aggregate_stats() and cluster_snapshot equal."""
+        if a.aggregate_stats() != b.aggregate_stats() or \
+                cluster_snapshot(a) != cluster_snapshot(b):
+            raise AssertionError(f"cluster: the host and jit legs part "
+                                 f"after {when}")
+
+    def _cluster_pair_batch(self, legs, load, run, tally, first=None,
+                            time_window=False, profile_jit=None) -> None:
+        """One batch of ``load``'s ops through execute_batch
+        on each leg (the jit leg with engine="jit"; its kernel-A launches
+        recorded and held to clht_probe_ref), every BatchResult field
+        equal, then one simulated second of DPM merging under its
+        allowance on each; the batch's writes noted in ``run``. ``tally``
+        gathers each leg's synchronized seconds, ENGINE_WALL and
+        PLAN_STATS. The first kernel-E launch of each KN not in ``first``
+        is held to fused_window_ref (``_held_windows``). ``time_window``
+        times the host engine on each KN's window (the time_fused_window
+        row's comparison); ``profile_jit`` profiles the jit leg's batch
+        and emits its device summary."""
         kinds, keys = load.ops_arrays(CLUSTER_BATCH)
         base = run["ops"]
         budget = int(DEFAULT_MODEL.merge_capacity())
-        c.pool.merge_allowance = budget
-        with recorded(probe_ops, "clht_probe", clone=True) as calls:
-            res, sec = synced(lambda: c.execute_batch(
-                kinds, keys, values=lambda i: f"w{base + i}"))
-        run["checked"] += self._pool_probe_check(calls, "cluster")
-        c.advance_merge(budget)
-        c.pool.merge_allowance = None
-        refused = sum(kn.stats.refused for kn in c.kns.values())
-        if res.executed != keys.size or refused \
-                or not np.array_equal(res.executed_keys, keys):
-            raise AssertionError(f"cluster: {keys.size - res.executed} ops "
-                                 f"not executed, {refused} refused")
+        got = []
+        for leg, c in legs.items():
+            c.pool.merge_allowance = budget
+            wall0 = dict(ENGINE_WALL)
+            reset_plan_stats()
+            with contextlib.ExitStack() as stack:
+                calls = stack.enter_context(
+                    recorded(probe_ops, "clht_probe", clone=True))
+                if leg == "jit" and first is not None:
+                    stack.enter_context(self._held_windows(
+                        c, run, first, keep=time_window))
+                if leg == "host" and time_window:
+                    stack.enter_context(self._host_windows(c, run))
+                prof = None
+                if leg == "jit" and profile_jit:
+                    profile, act = profile_jit
+                    prof = stack.enter_context(profile(
+                        activities=[act.CPU, act.CUDA]))
+                res, sec = synced(lambda: c.execute_batch(
+                    kinds, keys, values=lambda i: f"w{base + i}",
+                    engine=leg))
+            if prof is not None:
+                emit({"profile": f"cluster jit write_heavy_update batch "
+                                 f"of {CLUSTER_BATCH} ops",
+                      **device_summary(prof, sec)})
+            run["checked"] += self._pool_probe_check(calls, "cluster")
+            c.advance_merge(budget)
+            c.pool.merge_allowance = None
+            refused = sum(kn.stats.refused for kn in c.kns.values())
+            if res.executed != keys.size or refused \
+                    or not np.array_equal(res.executed_keys, keys):
+                raise AssertionError(f"cluster ({leg}): "
+                                     f"{keys.size - res.executed} ops not "
+                                     f"executed, {refused} refused")
+            got.append((res.executed, res.writes, res.per_kn,
+                        res.executed_keys.tolist(), res.values))
+            if tally is not None:
+                t = tally[leg]
+                t["sec"] += sec
+                for k, v in ENGINE_WALL.items():
+                    t["wall"][k] += v - wall0[k]
+                for k, v in PLAN_STATS.items():
+                    t["plan"][k] += v
+        if got[0] != got[1]:
+            raise AssertionError("cluster: the host and jit legs' "
+                                 "BatchResults part")
         wpos = np.flatnonzero(kinds == 1)
         lw = _last_writes(keys[wpos])
         run["last"][keys[wpos][lw]] = base + wpos[lw]
         run["ops"] += keys.size
-        return sec
+
+    @contextlib.contextmanager
+    def _held_windows(self, c, run, first, keep=False):
+        """Hold kernel-E launches of ``c``'s jit engine to
+        fused_window_ref on host copies of their inputs: n_exec, the cut,
+        the executed events and out_ptr, all eight state arrays. Only the
+        first launch of each KN not in ``first`` (``first=None``: every
+        launch); the plain version's argmin victims are O(slots) an
+        eviction. With ``keep``, the held launch whose window the host leg
+        ran as one window of the same ops (``_host_windows``), the
+        largest such, is kept in ``run["window_case"]`` for
+        time_fused_window."""
+        real = batch_executor.fused_window
+
+        def held(state, *args, **kw):
+            eng = c._jit
+            name = next(nm for nm, r in eng.resident.items()
+                        if r.state[0] is state[0])
+            if first is not None and name in first:
+                return real(state, *args, **kw)
+            host = [tuple(t.cpu().numpy().copy() for t in state),
+                    [a.cpu().numpy() for a in args[:6]], *args[6:9],
+                    args[9].cpu().numpy()]
+            trees = kw.get("trees")
+            trees0 = tuple(t.clone() for t in trees) \
+                if trees and keep else None
+            out = real(state, *args, **kw)
+            t0 = time.perf_counter()
+            want = batch_executor.fused_window_ref(
+                host[0], *host[1], *host[2:])
+            plain_s = time.perf_counter() - t0
+            ne = int(out[0])
+            same = (ne, int(out[4])) == (want[0], want[4]) and \
+                np.array_equal(out[2][:ne].cpu().numpy(), want[2][:ne]) \
+                and np.array_equal(out[3][:ne].cpu().numpy(),
+                                   want[3][:ne]) and \
+                all(np.array_equal(a.cpu().numpy(), b)
+                    for a, b in zip(out[1], want[1]))
+            if not same:
+                raise AssertionError(f"cluster: kernel E on {name}'s "
+                                     f"window parts from fused_window_ref")
+            run["e_checked"] += 1
+            if first is not None:
+                first.add(name)
+            hw = run.get("host_window", {}).get(name)
+            case = run["window_case"]
+            if keep and hw is not None and hw[0] == host[2] and \
+                    (case is None or host[2] > case["n"]):
+                run["window_case"] = {
+                    "kn": name, "state": host[0], "window": host[1],
+                    "n": host[2], "cap": host[3], "wb": host[4],
+                    "vmax": host[5], "trees": trees0, "n_exec": ne,
+                    "plain_s": plain_s, "host": hw}
+            return out
+
+        batch_executor.fused_window = held
+        try:
+            yield
+        finally:
+            batch_executor.fused_window = real
+
+    @contextlib.contextmanager
+    def _host_windows(self, c, run):
+        """Time the host engine's windows of ``c`` (its planner and
+        apply) by KN: the first per KN into ``run["host_window"]``, as
+        (ops, seconds)."""
+        run["host_window"] = {}
+        real = c._run_window_at
+
+        def timed(w, hi, *args):
+            i0 = w.idx
+            t0 = time.perf_counter()
+            real(w, hi, *args)
+            run["host_window"].setdefault(
+                w.kn.name, (w.idx - i0, time.perf_counter() - t0))
+
+        c._run_window_at = timed
+        try:
+            yield
+        finally:
+            del c._run_window_at
 
     def _cluster_twin(self) -> dict:
         """The phase's configuration at 2^CLUSTER_TWIN_KEYS_LOG2 keys, as
-        two clusters on the card: the batched engine and the fused per-op
-        loop (reference_cache=True: the reference DAC, per-key index
-        walks). The first CLUSTER_TWIN_BATCHES batches of each mix go to
-        both, a KN added to both between the mixes; after each, every BatchResult field and collected value,
-        cluster_snapshot and aggregate_stats() are equal, and the batched
-        one's kernel-A launches equal clht_probe_ref. Outside the main
-        path's launch counts."""
+        three clusters on the card: the batched host engine, the jit
+        engine and the fused per-op loop (reference_cache=True: the
+        reference DAC, per-key index walks). The first
+        CLUSTER_TWIN_BATCHES batches of each mix go to all three, a KN
+        added to each between the mixes; after each, every BatchResult
+        field and collected value, cluster_snapshot and aggregate_stats()
+        are equal, the batched ones' kernel-A launches equal
+        clht_probe_ref, and every kernel-E launch equals fused_window_ref
+        on host copies of its inputs. Outside the main path's launch
+        counts."""
         n = 1 << CLUSTER_TWIN_KEYS_LOG2
         checked = batches = 0
+        run = {"e_checked": 0, "window_case": None}
         with uncounted(), recorded(probe_ops, "clht_probe",
                                    clone=True) as calls:
-            pair = [self._cluster_at(n, rc) for rc in (False, True)]
+            trio = [(self._cluster_at(n, rc), e)
+                    for rc, e in ((False, "host"), (False, "jit"),
+                                  (True, "host"))]
             for mix in CLUSTER_MIXES:
                 if mix != CLUSTER_MIXES[0]:
                     # a KN joins: the participants' caches are cleared,
-                    # so the batched one's reads miss and probe the card
-                    for c in pair:
+                    # so the batched ones' reads miss and probe the card
+                    for c, _ in trio:
                         c.add_kn()
                 loads = [Workload(n, zipf=ZIPF, mix=mix, seed=SEED + 5)
-                         for _ in pair]
+                         for _ in trio]
                 for _ in range(CLUSTER_TWIN_BATCHES):
                     got = []
-                    for c, load in zip(pair, loads):
+                    for (c, engine), load in zip(trio, loads):
                         kinds, keys = load.ops_arrays(CLUSTER_BATCH)
                         budget = int(DEFAULT_MODEL.merge_capacity())
                         c.pool.merge_allowance = budget
-                        res = c.execute_batch(kinds, keys,
-                                              values=lambda i: f"w{i}",
-                                              collect_values=True)
+                        with (self._held_windows(c, run, None)
+                              if engine == "jit"
+                              else contextlib.nullcontext()):
+                            res = c.execute_batch(kinds, keys,
+                                                  values=lambda i: f"w{i}",
+                                                  collect_values=True,
+                                                  engine=engine)
                         c.advance_merge(budget)
                         c.pool.merge_allowance = None
                         got.append((res.executed, res.writes, res.per_kn,
@@ -1650,15 +1855,18 @@ class Smoke:
                                     c.aggregate_stats()))
                     checked += self._pool_probe_check(calls, "cluster twin")
                     calls.clear()
-                    if got[0] != got[1]:
-                        raise AssertionError(f"cluster twin: the batched "
-                                             f"engine and the per-op loop "
-                                             f"part in {mix}")
+                    if not got[0] == got[1] == got[2]:
+                        raise AssertionError(f"cluster twin: the batched, "
+                                             f"jit and per-op engines part "
+                                             f"in {mix}")
                     batches += 1
-        if not checked:
-            raise AssertionError("cluster twin: no kernel-A launch")
+        if not checked or not run["e_checked"]:
+            raise AssertionError("cluster twin: no kernel-A or kernel-E "
+                                 "launch")
         return {"keys": n, "batches": batches, "equal": True,
                 "kernel_a_launches_equal_to_plain": checked,
+                "kernel_e_launches_equal_to_plain": run["e_checked"],
+                "jit": trio[1][0]._jit.counts,
                 "aggregate": got[0][-1]}
 
     def time_transition(self) -> list[dict]:
@@ -1715,6 +1923,102 @@ class Smoke:
               "inputs": f"a {n}-op window of the KN path that consumed "
                         f"{nvic} victims, the launch alone",
               "before": BEFORE_SLICE7})
+        return [row]
+
+    def time_fused_window(self) -> list[dict]:
+        """Kernel E on the largest KN window held to its plain version in
+        the cluster phase's write-heavy mix (one dispatch over 2^21 slots),
+        on fresh copies of its state and trees each run: the launch alone
+        (resident trees, as the jit engine runs it) and with the tree
+        build first (what a dispatch after an upload costs). Plain ms is
+        fused_window_ref on the host (its argmin victims scan the slots);
+        beside it the host engine's time for that KN's window of the same
+        batch (plan_dac_window and the apply, or the replay: what the
+        dispatch replaces). No PyTorch call runs the DAC state machine,
+        so library_ms is null.
+
+        Bound: the bytes the function must move -- the window's six
+        int32 inputs, per distinct key its ops touch the entry's six
+        fields read and written, per victim its length and count read and
+        kind written, the histogram and registers in and out, the
+        n_exec/cut header and the event and out_ptr tapes written -- at
+        the memory rate (the build adds kind, count and stamp read and
+        both trees written). The loop is a chain of dependent reads: it
+        is latency-bound."""
+        case = self.window_case
+        if case is None:
+            raise AssertionError("time_fused_window: no write-heavy window "
+                                 "was held in the cluster phase")
+        dev = self.dev
+        st0 = tuple(torch.from_numpy(a).to(dev) for a in case["state"])
+        win = [torch.from_numpy(a).to(dev) for a in case["window"]]
+        vmax = torch.from_numpy(case["vmax"]).to(dev)
+        trees0 = case["trees"]
+        n, cap, wb = case["n"], case["cap"], case["wb"]
+        s = st0[0].shape[0]
+        fw = importlib.import_module("repro_torch.kernels.batch_executor"
+                                     ".ops")
+
+        def fresh():
+            return (tuple(t.clone() for t in st0),
+                    tuple(t.clone() for t in trees0),
+                    torch.empty(fw.HEADER + 2 * n, dtype=torch.int32,
+                                device=dev))
+
+        def launch_only(st, tr, packed):
+            fw.launch(st, tr, win, n, cap, wb, vmax, packed)
+            return packed, st
+
+        def with_build(st, tr, packed):
+            fw.launch(st, batch_executor.build_trees(st), win, n, cap, wb,
+                      vmax, packed)
+            return packed, st
+
+        with uncounted():
+            ms, (packed, st) = event_ms(launch_only, REPS, fresh)
+            build_ms, got_b = event_ms(with_build, REPS, fresh)
+        t0 = time.perf_counter()
+        want = batch_executor.fused_window_ref(
+            tuple(a.copy() for a in case["state"]), *case["window"], n, cap,
+            wb, case["vmax"])
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        ne = want[0]
+        head = np.array([ne, want[4], *want[1][7]], np.int64)
+        err = 0
+        for pk, stt in ((packed, st), got_b):
+            h = pk.cpu().numpy().astype(np.int64)
+            pairs = [(h[:fw.HEADER], head),
+                     (h[fw.HEADER:fw.HEADER + ne], want[2][:ne]),
+                     (h[fw.HEADER + n:fw.HEADER + n + ne], want[3][:ne])]
+            pairs += [(a.cpu().numpy(), b) for a, b in zip(stt, want[1])]
+            err = max([err] + [int(np.abs(a.astype(np.int64)
+                                          - b.astype(np.int64)).max())
+                               for a, b in pairs if a.size])
+        touched = np.unique(case["window"][1][:ne]).size
+        regs0, regs1 = case["state"][7], want[1][7]
+        victims = int(regs1[6] - regs0[6] + regs1[7] - regs0[7])
+        nbytes = (6 * n * 4 + touched * 6 * 4 * 2 + victims * 12
+                  + 2 * (65 + 8) * 4 + fw.HEADER * 4 + 2 * n * 4)
+        build_bytes = 3 * s * 4 + 2 * (2 * s) * 8
+        host = case["host"]
+        row = {"name": "fused_window", "route": "cuda",
+               "source": "src/repro_torch/csrc/fused_window.cu",
+               "replaces": "src/repro/kernels/batch_executor/ops.py:419",
+               "launches": None, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes", "library_ms": None}
+        emit({"timing": "fused_window", "ms": ms, "plain_ms": plain_ms,
+              "library_ms": None, "bound_ms": row["bound_ms"],
+              "max_abs_err": err, "kn": case["kn"], "slots": s,
+              "ops": n, "executed": ne, "cut": int(want[4]),
+              "distinct_keys": touched, "victims": victims,
+              "with_tree_build_ms": build_ms,
+              "with_tree_build_bound_ms": (nbytes + build_bytes)
+              / HBM_BYTES_PER_S * 1e3,
+              "held_check_plain_s": case["plain_s"],
+              "host_engine_window": None if host is None else
+              {"ops": host[0], "ms": host[1] * 1e3}})
         return [row]
 
     # --------------------------------------------------- 8. check 5 and 6
@@ -2531,6 +2835,8 @@ def main() -> int:
     smoke.dpm_pool()
     torch.cuda.empty_cache()
     smoke.cluster()
+    kernels += smoke.time_fused_window()
+    del smoke.window_case
     torch.cuda.empty_cache()
     smoke.prefill()
     srv = smoke.serve_paged()

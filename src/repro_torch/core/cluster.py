@@ -8,15 +8,17 @@ Every request runs against the real structures (DAC caches, the CLHT
 index, log segments, the indirection table) and the exact number of
 network round trips is counted per operation, decision for decision as
 the reference does. Like the reference it is a host program over numpy
-and Python structures; the one part on the device is the DPM pool's
+and Python structures, with two parts on the device: the DPM pool's
 batched index reads (``DPMPool.index_lookup_batch``: kernel A over a
 packed copy of the index), which ``execute_batch`` makes once per KN a
-batch for that KN's predicted cache misses.
+batch for that KN's predicted cache misses, and, with
+``execute_batch(engine="jit")``, each eligible KN window of the DAC
+state machine (``core.jit_engine``: kernel E over the KN's cache state,
+resident on the device for the batch).
 
 ``dinomo-s`` (static split cache) and ``clover`` (shared everything,
 version chains) need caches and planners that are not ported yet
-(ROADMAP Queue 2 item 2b): building a cluster of either raises, as does
-the compiled batch engine (``engine="jit"``, Queue 2 item 3).
+(ROADMAP Queue 2 item 2b): building a cluster of either raises.
 """
 
 from __future__ import annotations
@@ -43,9 +45,6 @@ from .transition import ENGINE_WALL, PLAN_STATS, plan_dac_window
 NOT_PORTED_2B = ("ROADMAP Queue 2 item 2b: the {what} is not ported yet "
                  "(the port's cluster runs the DAC variants, dinomo and "
                  "dinomo-n)")
-NOT_PORTED_3 = ("ROADMAP Queue 2 item 3: the compiled batch engine "
-                "(engine='jit', core/jit_engine.py) is not ported yet; "
-                "use engine='host'")
 
 
 @dataclass(frozen=True)
@@ -214,9 +213,9 @@ class DinomoCluster:
                  num_buckets: int = 1 << 18, segment_capacity: int = 2048,
                  vnodes: int = 64, seed: int = 0,
                  reference_cache: bool = False, device=None):
-        """``device`` is the DPM pool's (its batched index reads run
-        there): ``None`` is the card, ``"cpu"`` runs the plain versions
-        and must be asked for."""
+        """``device`` is the DPM pool's and the jit engine's (the batched
+        index reads and the compiled windows run there): ``None`` is the
+        card, ``"cpu"`` runs the plain versions and must be asked for."""
         self.variant = variant
         # reference_cache selects the unoptimized per-op DAC oracle
         # (the batched plane then runs the fused per-op fallback)
@@ -227,12 +226,16 @@ class DinomoCluster:
         self.pool = DPMPool(num_buckets=num_buckets,
                             segment_capacity=segment_capacity,
                             device=device)
+        self.device = self.pool.device
         self.ownership = OwnershipMap(vnodes=vnodes)
         self.kns: dict[str, KVSNode] = {}
         self.mnode = PolicyEngine(policy or PolicyConfig())
         self.rng = random.Random(seed)
         self._kn_counter = 0
         self._seq = 0
+        # batch engine selection ("host" | "jit"), set per execute_batch
+        self._engine = "host"
+        self._jit = None        # lazy JitEngine (jit_engine.py)
         # per-key write counters; the metadata-server op count stays 0
         # (Clover's, not ported)
         self.versions: dict[int, int] = {}
@@ -513,13 +516,17 @@ class DinomoCluster:
             none); write entries carry them into the durable log so the
             open-loop request plane's retries deduplicate exactly-once
             (DPMPool.req_index)
-        engine: None/"host" -> the host window engine; "jit" (the
-            compiled batch executor) is not ported and raises
+        engine: None/"host" -> the host window engine; "jit" -> the
+            compiled batch executor (core.jit_engine): eligible
+            ArrayDAC windows run as single kernel-E launches over
+            device-resident cache state, truncation residuals and
+            everything else replay through the host engine, so the
+            result is decision-for-decision identical
+            (tests/test_torch_jit_engine.py)
         """
         if engine not in (None, "host", "jit"):
             raise ValueError(f"unknown engine {engine!r}")
-        if engine == "jit":
-            raise NotImplementedError(NOT_PORTED_3)
+        self._engine = engine or "host"
         keys = np.ascontiguousarray(np.asarray(keys, dtype=np.int64))
         kinds = np.asarray(kinds, dtype=np.uint8)
         if req_ids is not None:
@@ -663,6 +670,10 @@ class DinomoCluster:
                 self._advance_windows(windows, p - 1, keys, kinds, plan,
                                       probe_map, dkeys, dbuckets,
                                       out_values)
+                if self._jit is not None:
+                    # rep ops touch caches through the scalar paths:
+                    # scatter device-resident state back first
+                    self._jit.sync_all()
                 self._exec_rep_op(p, kinds, keys, kn_ids, names, plan,
                                   dkeys, out_values)
                 si += 1
@@ -670,6 +681,8 @@ class DinomoCluster:
             self._advance_windows(windows, n - 1, keys, kinds, plan,
                                   probe_map, dkeys, dbuckets, out_values)
         finally:
+            if self._jit is not None:
+                self._jit.end_batch()
             pool.untrack_merge_dirty()
 
         # ----- finalize -----------------------------------------------------
@@ -892,6 +905,15 @@ class DinomoCluster:
             return
         w.idx = i1
         full = pos[i0:i1]
+        if self._engine == "jit" and w.is_dac:
+            eng = self._jit
+            if eng is None:
+                from .jit_engine import JitEngine
+                eng = self._jit = JitEngine(self)
+            if eng.run_window(w, full, keys, kinds, plan, probe_map,
+                              dkeys, dbuckets, out_values):
+                return
+            # ineligible window (int32 guards / too small): host engine
         kn, cache = w.kn, w.cache
         is_dac = w.is_dac
         planner = plan_dac_window if is_dac else None

@@ -43,13 +43,12 @@ from .transition import (MERGE_PLAN_STATS, MIN_MERGE_PLAN_OPS,
 _I32_MAX = (1 << 31) - 1
 
 
-def _check_int32(what: str, a: np.ndarray, lo: int = -1) -> None:
+def _check_int32(what: str, a: np.ndarray) -> None:
     """The card's index holds int32: every key or pointer in it is -1
-    (empty) or in [0, 2^31), and a key read from it lies in int32's
-    range (``lo`` -2^31). Anything else raises; nothing falls back to
+    (empty) or in [0, 2^31). Anything else raises; nothing falls back to
     the host walk."""
-    if a.size and (int(a.min()) < lo or int(a.max()) > _I32_MAX):
-        raise ValueError(f"{what}: values outside [{lo}, 2^31) cannot go "
+    if a.size and (int(a.min()) < -1 or int(a.max()) > _I32_MAX):
+        raise ValueError(f"{what}: values outside [-1, 2^31) cannot go "
                          f"to the card's int32 index")
 
 
@@ -113,6 +112,9 @@ class DPMPool:
         # batched read (core.clht.CLHT; see sync_index)
         self.device = resolve_device(device)
         self.index_dev: CLHT | None = None
+        # batched-read keys outside int32, which the card's index can
+        # neither hold nor match: walked on the host index instead
+        self.host_walked_keys = 0
         # value heap: ptr -> payload / length / owning segment
         self.heap_val: list = []
         self.heap_len: list[int] = []
@@ -993,15 +995,25 @@ class DPMPool:
         ptr == -1 where absent; element-wise identical to the scalar and
         to ``NumpyCLHT.lookup_batch``. The walk runs on ``index_dev``
         (kernel A over the primary lines, then the chain walk for the
-        keys that missed a chained line); a key outside the int32 range
-        raises."""
+        keys that missed a chained line). A key outside int32, which the
+        card's index can neither hold nor match, is walked on the host
+        index (``NumpyCLHT.lookup_batch``) and counted in
+        ``host_walked_keys``."""
         keys = np.asarray(keys, dtype=np.int64)
         table = self.sync_index()
-        _check_int32("index_lookup_batch keys", keys, -_I32_MAX - 1)
-        kd = torch.from_numpy(keys.astype(np.int32)).to(self.device)
-        ptrs, walked = lookup_walk(table, kd)
-        ptrs = ptrs.cpu().numpy().astype(np.int64)
-        probes = walked.cpu().numpy().astype(np.int64)
+        wide = (keys < -_I32_MAX - 1) | (keys > _I32_MAX)
+        ptrs = np.empty(keys.shape, np.int64)
+        probes = np.empty(keys.shape, np.int64)
+        if wide.any():
+            ptrs[wide], probes[wide] = self.index.lookup_batch(keys[wide])
+            self.host_walked_keys += int(wide.sum())
+        narrow = ~wide
+        if narrow.any():
+            kd = torch.from_numpy(keys[narrow].astype(np.int32)).to(
+                self.device)
+            p, walked = lookup_walk(table, kd)
+            ptrs[narrow] = p.cpu().numpy()
+            probes[narrow] = walked.cpu().numpy()
         if self.indirect:
             ind = np.isin(keys, self._indirect_keys_array())
             if ind.any():

@@ -60,13 +60,15 @@ PLAN_STATS = {"planned_windows": 0, "planned_ops": 0,
 MERGE_PLAN_STATS = {"planned_windows": 0, "planned_entries": 0,
                     "replayed_windows": 0, "replayed_entries": 0}
 
-# the host window engine's wall clock (perf_counter seconds) by stage:
-# planning, the bulk apply and the per-op replay (the cluster adds to
-# them). The reference's jit keys stay at 0: the compiled engine is not
-# ported. Same-run ratios only; absolute values depend on the host.
+# the batch engines' wall clock (perf_counter seconds) by stage: the host
+# window engine's planning, bulk apply and per-op replay (the cluster adds
+# to them), and the compiled engine's (core/jit_engine.py) window prep,
+# kernel-E dispatch with its copy back, fold, scatter-back and (a key the
+# reference does not have) upload. Same-run ratios only; absolute values
+# depend on the host.
 ENGINE_WALL = {"host_plan": 0.0, "host_apply": 0.0, "host_replay": 0.0,
                "jit_prep": 0.0, "jit_dispatch": 0.0, "jit_fold": 0.0,
-               "jit_sync": 0.0}
+               "jit_sync": 0.0, "jit_upload": 0.0}
 
 
 def reset_plan_stats() -> None:

@@ -34,10 +34,12 @@
 // B. kvs_lookup_fused replaces the Pallas kernel
 //    src/repro/kernels/clht_probe/clht_probe.py:kvs_lookup_fused
 //    (_kvs_lookup_kernel): the same probe plus the gather of the value row
-//    from the heap in the same kernel, zero rows where absent. One warp
-//    per key: every lane reads the (broadcast) line, then the lanes copy
-//    the row as 16-byte vectors, neighbouring lanes on neighbouring
-//    addresses. Bound: bytes, per key the probe's bytes plus the value row
+//    from the heap in the same kernel, zero rows where absent. The pointer
+//    is A's: the wrapping sum of the matching slots' pointers, as the
+//    plain version computes it (a line holding a key twice, which no
+//    insert makes, gathers the row at that sum). One warp per key: every
+//    lane reads the (broadcast) line, then the lanes copy the row as
+//    16-byte vectors, neighbouring lanes on neighbouring addresses. Bound: bytes, per key the probe's bytes plus the value row
 //    read once per distinct row found and written once (1 KB each at the
 //    main path's width of 256 int32).
 #include <atomic>
@@ -147,11 +149,19 @@ __global__ void kvs_lookup_kernel(const int32_t* __restrict__ lines,
   if (i >= n) return;
   int32_t v[LINE];
   dinomo::load_line(lines, dinomo::clamp_row(bucket_ids[i], total), v);
-  const int s = dinomo::probe_line(v, keys[i]);
-  const int32_t ptr = s >= 0 ? dinomo::slot_ptr(v, s) : dinomo::EMPTY;
+  const int32_t key = keys[i];
+  bool hit = false;
+  uint32_t sum = 0;
+#pragma unroll
+  for (int s = 0; s < dinomo::SLOTS; ++s)
+    if (key >= 0 && v[s] == key) {
+      hit = true;
+      sum += static_cast<uint32_t>(v[dinomo::SLOTS + s]);
+    }
+  const int32_t ptr = hit ? static_cast<int32_t>(sum) : dinomo::EMPTY;
   if (lane == 0) {
     ptrs[i] = ptr;
-    found[i] = s >= 0;
+    found[i] = hit;
   }
   // rows of absent keys (and of a stored negative pointer, as in the
   // Pallas kernel) are zero; a pointer past the heap reads its last row,

@@ -6,4 +6,5 @@
 #   decode_attention  paged decode attention partials (kernel 6)
 #   ssd_scan          Mamba2 chunked SSD scan (kernel 7)
 #   cache_transition  the DAC window planner's space machine (kernel 4)
+#   batch_executor    one KN window of the DAC state machine (kernel E)
 # The sequential insert (kernel D) sits behind core.clht.clht_insert.

@@ -1,0 +1,34 @@
+"""Kernel E, the fused batch executor: one KN window of the DAC state
+machine as one launch (``csrc/fused_window.cu``), and its plain version.
+
+``fused_window`` (ops.py) is the wrapper ``core.jit_engine`` dispatches;
+``fused_window_ref`` (ref.py) is the port's copy of the reference's numpy
+oracle, defining the per-op contract bit for bit. ``build_promote_table``
+discretizes the float Eq. 1 decision into an integer threshold table so
+the kernel stays float-free; ``init_state`` packs host DAC arrays into the
+state tuple.
+"""
+
+from .ops import (CUT_BAD_KEY, HEADER, WindowOut, build_trees,
+                  fused_window)
+from .ref import (CNT_HIST_MAX, CUT_EMA, CUT_NONE, CUT_PREFETCH,
+                  CUT_SEGCACHE, CUT_SPILL, CUT_TABLE, EV_MISS_ABSENT,
+                  EV_MISS_FILL, EV_PROMOTE, EV_SHORTCUT_HIT,
+                  EV_VALUE_HIT, EV_WRITE, NUM_REGS, OP_READ, OP_WRITE,
+                  PM_ABSENT, PM_INVALID, R_CLOCK, R_DEMOTIONS,
+                  R_EMA_DIRTY, R_EVICTIONS, R_NSHORT, R_NVALS, R_USED,
+                  R_ZSHORT, SHORTCUT_BYTES, TABLE_N,
+                  VALUE_OVERHEAD_BYTES, build_promote_table,
+                  fused_window_ref, init_state)
+
+__all__ = [
+    "fused_window", "fused_window_ref", "build_promote_table",
+    "build_trees", "init_state", "CUT_BAD_KEY", "HEADER", "WindowOut",
+    "CNT_HIST_MAX",
+    "CUT_EMA", "CUT_NONE", "CUT_PREFETCH", "CUT_SEGCACHE", "CUT_SPILL",
+    "CUT_TABLE", "EV_MISS_ABSENT", "EV_MISS_FILL", "EV_PROMOTE",
+    "EV_SHORTCUT_HIT", "EV_VALUE_HIT", "EV_WRITE", "NUM_REGS", "OP_READ",
+    "OP_WRITE", "PM_ABSENT", "PM_INVALID", "R_CLOCK", "R_DEMOTIONS",
+    "R_EMA_DIRTY", "R_EVICTIONS", "R_NSHORT", "R_NVALS", "R_USED",
+    "R_ZSHORT", "SHORTCUT_BYTES", "TABLE_N", "VALUE_OVERHEAD_BYTES",
+]

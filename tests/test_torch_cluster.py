@@ -241,16 +241,29 @@ def test_make_cache_raises_naming_item_2b(policy):
         tcl.make_cache("lru", 1 << 16)
 
 
-def test_jit_engine_raises_naming_item_3():
-    c = tcl.DinomoCluster(num_kns=2, num_buckets=64, segment_capacity=16,
-                          device="cpu")
-    c.load((k, f"v{k}") for k in range(50))
+def test_unknown_engine_raises_and_jit_runs_on_the_cpu():
+    """engine="gpu" raises before anything runs; engine="jit" runs on a
+    CPU cluster (kernel E's plain version) and leaves what the host
+    engine leaves, the caches' lazy-heap records aside."""
+    pair = [tcl.DinomoCluster(num_kns=2, num_buckets=64,
+                              segment_capacity=16, device="cpu")
+            for _ in range(2)]
+    for c in pair:
+        c.load((k, f"v{k}") for k in range(300))
     kinds, keys = np.zeros(8, np.uint8), np.arange(8)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        c.execute_batch(kinds, keys, engine="jit")
     with pytest.raises(ValueError, match="unknown engine"):
-        c.execute_batch(kinds, keys, engine="gpu")
-    assert c.aggregate_stats()["ops"] == 0      # nothing ran
+        pair[0].execute_batch(kinds, keys, engine="gpu")
+    assert pair[0].aggregate_stats()["ops"] == 0      # nothing ran
+    kinds = (np.arange(400) % 3 == 0).astype(np.uint8)
+    keys = (np.arange(400) * 7) % 300
+    got = [batch_result(c.execute_batch(kinds, keys, engine=e,
+                                        values=lambda i: f"w{i}",
+                                        collect_values=True))
+           for c, e in zip(pair, ("jit", "host"))]
+    assert got[0] == got[1]
+    assert cluster_state(pair[0], heaps=False) == \
+        cluster_state(pair[1], heaps=False)
+    assert pair[0]._jit.counts["dispatches"] > 0
 
 
 def test_static_replay_raises_naming_item_2b():

@@ -129,6 +129,43 @@ def test_probe_redesign_adversarial_lines(dev):
     assert ptrs.tolist() == [-2**31 + 7, 40, 20] and found.tolist() == [1] * 3
 
 
+def test_fused_lookup_adversarial_lines(dev):
+    """Kernel B on the lines of kernel A's adversarial test: a key twice
+    or three times in one line gives the wrapping sum of the matching
+    slots' pointers (and the row at it, zeros where it is negative), as
+    kernel A and both plain versions do."""
+    g = np.random.default_rng(12)
+    tb = 4096
+    lines = g.integers(0, 6, (tb, 8)).astype(np.int32)
+    lines[:, 3:6] = g.choice([0, 1, 2, 5, 2**31 - 1, -2**31, -1], (tb, 3))
+    lines[g.random(tb) < 0.1, :3] = -1
+    lines[:, 6] = g.choice([-1, 3, 5], tb)
+    lines = torch.from_numpy(lines).to(dev)
+    heap = torch.from_numpy(g.integers(0, 2**31 - 1, (16, 8))
+                            .astype(np.int32)).to(dev)
+    for n in (1, 31, 4097):
+        keys = torch.from_numpy(g.integers(-3, 7, n).astype(np.int32)
+                                ).to(dev)
+        bids = torch.from_numpy(g.integers(-2, tb + 2, n).astype(np.int32)
+                                ).to(dev)
+        n0 = _build.launches["kvs_lookup_fused"]
+        got = tp.kvs_lookup_fused(lines, heap, bids, keys)
+        assert _build.launches["kvs_lookup_fused"] == n0 + 1
+        want = tp.kvs_lookup_fused_ref(lines.cpu(), heap.cpu(), bids.cpu(),
+                                       keys.cpu())
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y)
+    twice = torch.tensor([[5, 5, 5, 2**31 - 1, 1, 7, -1, -1],
+                          [4, 9, 4, 10, 2, 3, -1, -1]], dtype=torch.int32,
+                         device=dev)
+    vals, ptrs, found = tp.kvs_lookup_fused(
+        twice, heap, torch.tensor([0, 1, 1], device=dev, dtype=torch.int32),
+        torch.tensor([5, 4, 9], device=dev, dtype=torch.int32))
+    assert ptrs.tolist() == [-2**31 + 7, 13, 2] and found.tolist() == [1] * 3
+    assert torch.equal(vals[0], torch.zeros_like(vals[0]))
+    assert torch.equal(vals[1], heap[13]) and torch.equal(vals[2], heap[2])
+
+
 def test_pool_mirror_on_the_card(dev):
     """The DPM pool's packed copy of its index on the card, after rounds
     of writes that grow chains, tombstones (deletes), budgeted and full
@@ -997,3 +1034,92 @@ def test_cluster_on_the_card_equals_its_cpu_twin(dev, monkeypatch):
     on_card = [ok for cuda, ok in checked if cuda]
     assert on_card and all(ok for _, ok in checked)
     assert _build.launches["clht_probe"] - n0 == len(on_card)
+
+
+# ------------------------------------------ kernel E, the batch executor
+from repro_torch.kernels import batch_executor as tbe  # noqa: E402
+
+
+def window_equal(dev, state, dstate, win, cap, wb, amr, trees=None):
+    """One kernel-E launch on ``dstate`` (updated in place) against
+    fused_window_ref on host copies of the same inputs: n_exec, the cut,
+    the events and out_ptr (whole tapes) and all eight state arrays equal.
+    Returns the plain version's state."""
+    vmax = tbe.build_promote_table(amr)
+    ref = tbe.fused_window_ref(tuple(a.copy() for a in state), *win, cap,
+                               wb, vmax)
+    n0 = _build.launches["fused_window"]
+    out = tbe.fused_window(dstate, *(torch.from_numpy(a).to(dev)
+                                     for a in win[:6]), win[6], cap, wb,
+                           torch.from_numpy(vmax).to(dev), trees=trees)
+    assert _build.launches["fused_window"] == n0 + 1
+    assert (int(out[0]), int(out[4])) == (ref[0], ref[4])
+    assert np.array_equal(out[2].cpu().numpy(), ref[2])
+    assert np.array_equal(out[3].cpu().numpy(), ref[3])
+    assert np.array_equal(out.packed[2:tbe.HEADER].cpu().numpy(), ref[1][7])
+    for a, b in zip(ref[1], out[1]):
+        assert np.array_equal(a, b.cpu().numpy())
+    return ref[1]
+
+
+@pytest.mark.parametrize("nslots,w,windows,hot,seed",
+                         [(32, 64, 3, None, s) for s in range(8)]
+                         + [(1024, 512, 3, None, s) for s in range(2)]
+                         + [(1 << 21, 300, 2, 64, 0)])
+def test_fused_window_chains_match_plain(dev, nslots, w, windows, hot, seed):
+    """Chained random windows (tests/test_kernels.py:_be_run_chain's, and
+    one over 2^21 slots whose keys come from 64 of them): the state and
+    its trees stay on the card across the windows, each launch held to
+    the plain version on host copies of its inputs."""
+    state, wins, cap, wb, amr = cases.window_chain(seed, nslots, w, windows,
+                                                   hot)
+    dstate = tuple(torch.from_numpy(a.copy()).to(dev) for a in state)
+    trees = tbe.build_trees(dstate)
+    for win in wins:
+        state = window_equal(dev, state, dstate, win, cap, wb, amr, trees)
+
+
+@pytest.mark.parametrize("nslots", [64, 1 << 21])
+@pytest.mark.parametrize("name", cases.WINDOW_CUTS)
+def test_fused_window_cut_reasons(dev, name, nslots):
+    """Each cut reason (and an Eq. 1 promote and refusal on the table)
+    at the op where the plain version stops."""
+    state, win, cap, wb, amr = cases.window_cut_case(name, nslots)
+    dstate = tuple(torch.from_numpy(a.copy()).to(dev) for a in state)
+    window_equal(dev, state, dstate, win, cap, wb, amr)
+
+
+def test_jit_cluster_on_the_card_equals_the_host_engine(dev):
+    """engine="jit" on the card (kernel E over each KN's resident state)
+    against the host engine on the card, through mixed YCSB batches, a KN
+    added and one failed: every BatchResult and the whole state but the
+    caches' lazy-heap records equal after each batch, and kernel E
+    launched."""
+    kw = dict(num_kns=4, cache_bytes=int(4096 * 1024 * 0.03),
+              value_bytes=1024, num_buckets=1 << 12, segment_capacity=64)
+    jit, host = (tcl.DinomoCluster(device=dev, **kw) for _ in range(2))
+    for c in (jit, host):
+        c.load(((k, f"v{k}") for k in range(4096)), warm=True)
+    n0 = _build.launches["fused_window"]
+    for step, mix in enumerate(["write_heavy_update", "read_mostly_update"]
+                               * 2):
+        kinds, keys = Workload(4096, zipf=0.99, mix=mix,
+                               seed=step).ops_arrays(3000)
+        got = [batch_result(c.execute_batch(kinds, keys,
+                                            values=lambda i: f"w{i}",
+                                            collect_values=True,
+                                            engine=e))
+               for c, e in ((jit, "jit"), (host, "host"))]
+        assert got[0] == got[1]
+        for c in (jit, host):
+            c.advance_merge(1 << 20)
+        if step == 1:
+            for c in (jit, host):
+                c.add_kn()
+        if step == 2:
+            for c in (jit, host):
+                c.fail_kn("kn2")
+        assert cluster_state(jit, heaps=False) == \
+            cluster_state(host, heaps=False)
+    assert _build.launches["fused_window"] - n0 == \
+        jit._jit.counts["dispatches"] > 0

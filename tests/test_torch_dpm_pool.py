@@ -955,6 +955,26 @@ class TestTornTailSemantics:
 
 
 # ------------------------------------------------- the card copy's guard
+def test_query_keys_outside_int32_read_the_host_index():
+    """Batched reads of keys 2^40 and -2^40 (and int32's neighbours)
+    beside int32 keys, on a chained index: every return equals the
+    reference's host walk, the wide keys walk the port's host index
+    (counted), and the int32 ones go to the card copy as before."""
+    tw = Twin(num_buckets=16, segment_capacity=8)
+    tw.call("register_kn", "kn1")
+    for k in range(60):
+        tw.call("log_write", "kn1", k * 5, f"v{k}", 4, check=False)
+    tw.call("merge_all")
+    keys = np.array([3, 2**40, 10, -2**40, 295, 2**31, -2**31 - 1, 100,
+                     2**31 - 1, -2**31, 0])
+    tw.check_reads(keys)
+    assert tw.port.host_walked_keys == 4
+    tw.check_reads(np.array([2**40, -2**40]))       # no int32 key at all
+    assert tw.port.host_walked_keys == 6
+    tw.check_reads(np.arange(0, 300, 7))
+    assert tw.port.host_walked_keys == 6
+
+
 def test_int32_guard_raises_and_does_not_fall_back():
     """A key or pointer outside int32 (other than the empty mark) raises
     at the upload to the card copy, and keeps raising (its row stays
@@ -981,7 +1001,8 @@ def test_int32_guard_raises_and_does_not_fall_back():
         fresh.index_lookup_batch(np.arange(4))
     assert fresh.index_dev is None
     fresh.index.insert(5, 9)
-    with pytest.raises(ValueError, match="int32"):  # a read key past int32
-        fresh.index_lookup_batch(np.array([5, 2**31]))
+    # a read key past int32 is no index key: the host index walks it
+    ptrs, probes = fresh.index_lookup_batch(np.array([5, 2**31]))
+    assert ptrs.tolist() == [9, -1] and fresh.host_walked_keys == 1
     ptrs, probes = fresh.index_lookup_batch(np.array([5, -2**31]))
     assert ptrs.tolist() == [9, -1]

@@ -42,6 +42,11 @@ DPM_POOL_SLICE = ("core/dpm_pool.py", "core/faults.py", "core/sanitize.py",
 # beside the pool), which the scan must reach as well
 CLUSTER_SLICE = ("core/cluster.py", "core/ownership.py", "core/mnode.py",
                  "core/netmodel.py", "core/hashring.py")
+# the modules of the compiled batch engine's slice (the engine and
+# kernel E's package), which the scan must reach too
+JIT_SLICE = ("core/jit_engine.py", "kernels/batch_executor/__init__.py",
+             "kernels/batch_executor/ops.py",
+             "kernels/batch_executor/ref.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the one environment variable the port reads: the ownership sanitizer's
 # switch, the reference's own (it chooses no device)
@@ -81,10 +86,16 @@ def test_the_scan_reaches_the_cluster_slice():
         assert PORT / name in PORT_FILES, name
 
 
+def test_the_scan_reaches_the_jit_slice():
+    for name in JIT_SLICE:
+        assert PORT / name in PORT_FILES, name
+
+
 def test_every_kernel_package_has_ref_and_parity_test():
     kernels = sorted(p for p in (PORT / "kernels").iterdir()
                      if p.is_dir() and not p.name.startswith("_"))
-    assert [k.name for k in kernels] == ["cache_transition", "clht_probe",
+    assert [k.name for k in kernels] == ["batch_executor",
+                                         "cache_transition", "clht_probe",
                                          "decode_attention",
                                          "flash_attention", "log_merge",
                                          "ssd_scan"]
@@ -97,6 +108,7 @@ def test_every_kernel_package_has_ref_and_parity_test():
     sources = sorted(p.name for p in (PORT / "csrc").glob("*.cu"))
     assert sources == ["cache_transition.cu", "clht_insert.cu",
                        "clht_probe.cu", "flash_attention.cu",
+                       "fused_window.cu",
                        "log_merge.cu", "paged_decode_attention.cu",
                        "ssd_scan.cu"]
 

@@ -1,7 +1,7 @@
-"""Adversarial inputs for the port's kernels C (log_merge_sorted) and 4
-(cache_transition), shared by the CPU parity tests, the card tests,
-chip_smoke.py and tools/ab_kernels.py. numpy only; every case is made
-from a seed."""
+"""Adversarial inputs for the port's kernels C (log_merge_sorted), 4
+(cache_transition) and E (fused_window), shared by the CPU parity tests,
+the card tests, chip_smoke.py and tools/ab_kernels.py. numpy only; every
+case is made from a seed."""
 
 import numpy as np
 
@@ -193,3 +193,97 @@ def transition_case(name: str, seed: int = 0):
 TRANSITION_CASES = ("victims_nonpositive", "zero_victims", "empty_queue",
                     "dry_mid", "many_small", "floor_mix", "wide_values",
                     "long_make_space", "window_8192")
+
+
+# ------------------------------------------------------------- kernel E
+# the batch executor's constants (kernels/batch_executor/ref.py)
+HIST = 65
+PM_INVALID, PM_ABSENT = -2, -1
+
+
+def window_state(nslots: int, kind=(), count=(), length=(), used=0,
+                 zshort=0, nvals=0, nshort=0, ema_dirty=0, clock=1):
+    """A fused_window state tuple of ``nslots`` slots: entries given as
+    {key: value} dicts per field, the histogram of the shortcuts' counts
+    and the registers derived from them."""
+    arrs = [np.zeros(nslots, np.int32) for _ in range(6)]
+    for j, d in enumerate((kind, count, {}, length)):
+        for k, v in dict(d).items():
+            arrs[j][k] = v
+    arrs[2][:] = np.where(arrs[0] == 2, np.arange(nslots), 0)
+    hist = np.zeros(HIST, np.int32)
+    for c in arrs[1][arrs[0] == 1].tolist():
+        hist[min(c, HIST - 1)] += 1
+    regs = np.array([used, clock + nslots, zshort, nvals, nshort, ema_dirty,
+                     0, 0], np.int32)
+    return (*arrs, hist, regs)
+
+
+def window_chain(seed: int, nslots: int, w: int, windows: int, hot=None):
+    """tests/test_kernels.py:_be_run_chain's random windows: a cache of
+    40-2000 bytes over ``nslots`` slots (keys drawn from ``hot`` slots
+    spread over them, if given), reads and writes, prefetches invalid,
+    absent or found, a few segcache-backed reads. Returns (state, [(ops,
+    keys, wptr, pm_ptr, pm_len, seg0, n), ...], cap, write_bytes, amr)."""
+    rng = np.random.default_rng(seed)
+    cap = int(rng.integers(40, 2000))
+    wb = int(rng.integers(8, 200))
+    amr = float(rng.choice([0.5, 1.0, 3.7, 10.0, 0.125]))
+    pool = (np.arange(nslots) if hot is None else
+            rng.choice(nslots, hot, replace=False)).astype(np.int32)
+    state = window_state(nslots, clock=-nslots)
+    out = []
+    for _ in range(windows):
+        ops = rng.integers(0, 2, w).astype(np.int32)
+        n = int(rng.integers(1, w + 1))
+        keys = rng.choice(pool, w).astype(np.int32)
+        wptr = rng.integers(0, 10000, w).astype(np.int32)
+        pm_ptr = rng.choice(
+            np.array([PM_INVALID, PM_ABSENT, 5, 77, 1234], np.int32), w,
+            p=[0.08, 0.2, 0.24, 0.24, 0.24]).astype(np.int32)
+        pm_len = rng.integers(1, 300, w).astype(np.int32)
+        seg0 = (rng.random(w) < 0.05).astype(np.int32)
+        out.append((ops, keys, wptr, pm_ptr, pm_len, seg0, n))
+    return state, out, cap, wb, amr
+
+
+def window_cut_case(name: str, nslots: int = 64, prefix: int = 5):
+    """A window that runs ``prefix`` proven-absent misses, then stops at
+    an op for cut reason ``name`` (or, for "promote" and "no_promote",
+    decides Eq. 1 on the table and runs on). Returns (state, (ops, keys,
+    wptr, pm_ptr, pm_len, seg0, n), cap, write_bytes, amr).
+
+    The cache holds 40 shortcuts (keys 1-40, count 63; 64 for "spill")
+    and the candidate, key 0, a shortcut of length 200; it is full, so
+    the candidate's promotion needs 7 evictions (victim sum 441)."""
+    c0 = {"table": 5000, "promote": 30, "no_promote": 2}.get(name, 3)
+    vc = 64 if name == "spill" else 63
+    kind = {k: 1 for k in range(41)}
+    count = {0: c0, **{k: vc for k in range(1, 41)}}
+    length = {k: 200 for k in range(41)}
+    cap = 41 * 32
+    state = window_state(nslots, kind, count, length, used=cap, nshort=41,
+                         ema_dirty=int(name == "ema"))
+    w = prefix + 3
+    ops = np.zeros(w, np.int32)
+    keys = np.full(w, nslots - 1, np.int32)
+    keys[:prefix] = np.arange(50, 50 + prefix) % nslots
+    keys[prefix] = 0
+    pm_ptr = np.full(w, PM_ABSENT, np.int32)
+    pm_len = np.full(w, 100, np.int32)
+    seg0 = np.zeros(w, np.int32)
+    if name == "segcache":
+        keys[prefix] = nslots - 2
+        seg0[prefix] = 1
+    elif name == "prefetch":
+        keys[prefix] = nslots - 2
+        pm_ptr[prefix] = PM_INVALID
+    # amr 10: row c of the table is floor(c / 10), so 441 promotes from
+    # count 4410 and the table's last row (409) never suffices
+    amr = 10.0 if name in ("table", "no_promote") else 0.05
+    return (state, (ops, keys, np.zeros(w, np.int32), pm_ptr, pm_len, seg0,
+                    w), cap, 64, amr)
+
+
+WINDOW_CUTS = ("segcache", "prefetch", "spill", "ema", "table", "promote",
+               "no_promote")

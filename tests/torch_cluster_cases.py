@@ -30,11 +30,14 @@ def cluster_snapshot(c) -> dict:
     return out
 
 
-def cache_state(cache) -> tuple:
+def cache_state(cache, heaps: bool = True) -> tuple:
     """Every decision-bearing field of a KN cache: a reference ``DAC``'s
     entries (values in LRU order) and heap, or an ``ArrayDAC``'s live
     per-key vectors, heaps, clock and counters; then the occupancy, the
-    miss-RT average and the statistics."""
+    miss-RT average and the statistics. ``heaps=False`` leaves out the
+    lazy heaps' records, which the compiled engine re-seeds at its
+    scatter-back (same pops, other records) and the host engine does
+    not."""
     common = (cache.capacity, cache.used, cache.avg_miss_rts,
               dataclasses.astuple(cache.stats))
     if hasattr(cache, "values"):
@@ -51,7 +54,8 @@ def cache_state(cache) -> tuple:
             np.asarray(cache.length)[live].tolist(),
             np.asarray(cache.count)[live].tolist(),
             np.asarray(cache.stamp)[live].tolist(),
-            list(cache._lru), list(cache._lfu), cache._clock,
+            (list(cache._lru), list(cache._lfu)) if heaps else None,
+            cache._clock,
             cache._nvals, cache._nshort, cache._zero_shortcuts,
             list(cache._cnt_hist))
 
@@ -64,9 +68,10 @@ def pool_index(pool) -> tuple:
             ix.version, dict(pool.indirect))
 
 
-def cluster_state(c) -> dict:
+def cluster_state(c, heaps: bool = True) -> dict:
     """Everything two clusters on one op stream must agree on: the
-    snapshot and aggregate statistics, each KN's soft state and cache,
+    snapshot and aggregate statistics, each KN's soft state and cache
+    (``heaps``: with its lazy heaps' records, see cache_state),
     ownership (ring, replication, fences, the route's random state), the
     reconfiguration log, the write counters and the pool (index, heap,
     logs, merge backlog, policy metadata)."""
@@ -76,7 +81,7 @@ def cluster_state(c) -> dict:
         "aggregate": c.aggregate_stats(),
         "kns": {n: (kn.alive, kn.available, kn.fence_token,
                     kn._pending_flush, list(kn.segcache.items()),
-                    cache_state(kn.cache))
+                    cache_state(kn.cache, heaps))
                 for n, kn in sorted(c.kns.items())},
         "ring": (list(c.ownership.ring._points),
                  list(c.ownership.ring._owners)),
