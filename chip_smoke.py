@@ -62,9 +62,10 @@ dataplane cluster at 2^21 keys, by both batch engines:
   cluster    DinomoCluster (dinomo, 4 KNs, 1 KB values, segments of 512,
              each KN's cache 3 % of the dataset) loaded warm and copied;
              the host leg runs execute_batch with the host engine, the
-             jit leg with engine="jit" (each eligible KN window one
-             launch of kernel E over the KN's state resident on the card,
-             core/jit_engine.py). Both take YCSB write_heavy_update and
+             jit leg with engine="jit" (every KN's eligible window of an
+             advance step in one launch of kernel E over the KNs' states,
+             kept on the card across batches, only the changed slots
+             moved; core/jit_engine.py). Both take YCSB write_heavy_update and
              read_mostly_update at zipf 0.99, 8 batches of 2^14 ops each,
              with the DPM merging between batches, a KN added and kn2
              failed between batches; every BatchResult equal between the
@@ -73,7 +74,10 @@ dataplane cluster at 2^21 keys, by both batch engines:
              reads probed on the card (index_lookup_batch, kernel A, once
              per KN), each launch held bit for bit to clht_probe_ref; the
              first kernel-E launch of each KN in each mix held bit for
-             bit to fused_window_ref; one jit write-heavy batch profiled;
+             bit to fused_window_ref (each KN's job of a launch on its
+             own); per mix the jit leg's upload and scatter-back seconds
+             and bytes beside both legs' ops/s; one jit write-heavy batch
+             profiled;
              every written key read back on both; verify_integrity()
              empty; no data moved; the same configuration at 2^16 keys
              held batch for batch to its per-op twin
@@ -81,7 +85,10 @@ dataplane cluster at 2^21 keys, by both batch engines:
              kernel-E launch there held to fused_window_ref
 
 and times kernel E on the largest window held (a KN window over 2^21
-slots), beside the host engine's time for that window.
+slots), beside the host engine's time for that window, on a window that
+consumes victims from both trees and on the four KNs' first windows in
+one launch; then the gather, scatter and guard kernels that move a
+resident state's changed slots.
 
 Then it runs qwen1.5-0.5b at its published widths (24 layers, d_model 1024, 16
 heads, vocab 151,936; random bf16 weights from a seeded generator):
@@ -175,7 +182,7 @@ from repro_torch.launch.serve import PagedServer  # noqa: E402
 from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from torch_cases import (MERGE_CASES, TRANSITION_CASES,  # noqa: E402
-                         merge_case, transition_case)
+                         merge_case, transition_case, window_victims_case)
 from torch_cluster_cases import cluster_snapshot  # noqa: E402
 
 KEYS_LOG2 = 25              # the paper's 32 GB of 1 KB values
@@ -264,6 +271,19 @@ BEFORE_SLICE7_MS = {"log_merge_sorted": 3.098, "cache_transition": 0.0792}
 # shape on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
 BEFORE_SLICE8 = "commit ae9bb1d, NVIDIA H100 80GB HBM3, 700.00 W"
 BEFORE_SLICE8_MS = {"clht_probe": 0.0291}
+# kernel E in the design it replaces (commit 996280b: one KN a launch on one
+# warp, each op's entry read and its tree paths repaired as it ran), on the
+# cluster phase's kn2 first write-heavy window (3,073 ops over 2^21 slots,
+# the same seeded window time_fused_window times), measured by this script
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
+BEFORE_SLICE10 = "commit 996280b, NVIDIA H100 80GB HBM3, 700.00 W"
+BEFORE_SLICE10_MS = {"fused_window": 3.61, "fused_window_ops": 3073}
+# the victim-consuming window time_fused_window times: ops over the
+# cluster's 2^21 slots, from a cache of as many values (then 2^19
+# shortcuts; tests/torch_cases.py:window_victims_case), so that its
+# make-spaces demote every value and then evict shortcuts
+VICTIM_WINDOW_OPS = 2048
+VICTIM_WINDOW_VALUES = 32
 # stated tolerances (atol = rtol), see tests/test_torch_cuda.py
 TOL = {torch.float32: {"flash_attention": 3e-5,
                        "paged_decode_attention": 2e-5, "ssd_scan": 3e-4},
@@ -1534,6 +1554,41 @@ class Smoke:
             self._cluster_equal(c, cj, mix)
             counts = {k: v - (jit_counts or {}).get(k, 0)
                       for k, v in cj._jit.counts.items()}
+            jw = tally["jit"]["wall"]
+            up_s, sync_s = jw["jit_upload"], jw["jit_sync"]
+            full_s = jw["jit_full_upload"]
+            emit({"phase": "cluster_jit_transfers", "mix": mix,
+                  "jit_ops_per_s": CLUSTER_BATCHES * CLUSTER_BATCH
+                  / tally["jit"]["sec"],
+                  "host_ops_per_s": CLUSTER_BATCHES * CLUSTER_BATCH
+                  / tally["host"]["sec"],
+                  "jit_wall_s": tally["jit"]["sec"],
+                  "upload_s": up_s, "sync_s": sync_s,
+                  "upload_and_sync_share_of_wall":
+                  (up_s + sync_s) / tally["jit"]["sec"],
+                  "full_upload_s": full_s,
+                  "share_without_first_use_uploads":
+                  (up_s - full_s + sync_s) / (tally["jit"]["sec"] - full_s),
+                  "uploads": counts["uploads"],
+                  "full_uploads": counts["full_uploads"],
+                  "syncs": counts["syncs"],
+                  "bytes_per_upload": counts["upload_bytes"]
+                  / max(counts["uploads"], 1),
+                  "delta_uploads_with_slots": counts["upload_deltas"],
+                  "slots_per_delta_upload": counts["upload_slots"]
+                  / max(counts["upload_deltas"], 1),
+                  "bytes_per_sync": counts["sync_bytes"]
+                  / max(counts["syncs"], 1),
+                  "slots_per_sync": counts["sync_slots"]
+                  / max(counts["syncs"], 1),
+                  "launches": counts["launches"],
+                  "dispatches": counts["dispatches"]})
+            if mix == CLUSTER_MIXES[0]:
+                # the moved-slot kernels' timed inputs: this mix's mean
+                run["gather_n"] = counts["sync_slots"] // max(
+                    counts["syncs"], 1)
+                run["scatter_n"] = counts["upload_slots"] // max(
+                    counts["upload_deltas"], 1)
             for leg, cl in legs.items():
                 agg = cl.aggregate_stats()
                 sec = tally[leg]["sec"]
@@ -1545,6 +1600,8 @@ class Smoke:
                                              "value_hit_ratio",
                                              "write_stalls")},
                       "plan_stats": tally[leg]["plan"],
+                      "held_check_s_excluded":
+                      tally[leg].get("held_check_s", 0.0),
                       "engine_wall_s": {
                           k: v for k, v in tally[leg]["wall"].items()
                           if v or k.startswith(leg)},
@@ -1622,6 +1679,8 @@ class Smoke:
               "seconds": read_s, "equal": True, "integrity_problems": 0,
               "host_walked_keys": host_walked})
         self.window_case = run["window_case"]
+        self.held_jobs = run.get("held_jobs", {})
+        self.moved_n = (run.get("gather_n", 0), run.get("scatter_n", 0))
         del c, cj, legs
         twin = self._cluster_twin()
         emit({"phase": "cluster", "seconds": time.perf_counter() - t_phase,
@@ -1673,6 +1732,7 @@ class Smoke:
         and emits its device summary."""
         kinds, keys = load.ops_arrays(CLUSTER_BATCH)
         base = run["ops"]
+        held0 = run.get("held_s", 0.0)
         budget = int(DEFAULT_MODEL.merge_capacity())
         got = []
         for leg, c in legs.items():
@@ -1695,6 +1755,11 @@ class Smoke:
                 res, sec = synced(lambda: c.execute_batch(
                     kinds, keys, values=lambda i: f"w{base + i}",
                     engine=leg))
+            # the kernel-E launches held to their plain version: the
+            # checks' seconds leave the leg's time and its dispatch wall
+            held = run.get("held_s", 0.0) - held0
+            sec -= held
+            ENGINE_WALL["jit_dispatch"] -= held
             if prof is not None:
                 emit({"profile": f"cluster jit write_heavy_update batch "
                                  f"of {CLUSTER_BATCH} ops",
@@ -1713,6 +1778,7 @@ class Smoke:
             if tally is not None:
                 t = tally[leg]
                 t["sec"] += sec
+                t["held_check_s"] = t.get("held_check_s", 0.0) + held
                 for k, v in ENGINE_WALL.items():
                     t["wall"][k] += v - wall0[k]
                 for k, v in PLAN_STATS.items():
@@ -1728,62 +1794,80 @@ class Smoke:
     @contextlib.contextmanager
     def _held_windows(self, c, run, first, keep=False):
         """Hold kernel-E launches of ``c``'s jit engine to
-        fused_window_ref on host copies of their inputs: n_exec, the cut,
-        the executed events and out_ptr, all eight state arrays. Only the
-        first launch of each KN not in ``first`` (``first=None``: every
-        launch); the plain version's argmin victims are O(slots) an
-        eviction. With ``keep``, the held launch whose window the host leg
-        ran as one window of the same ops (``_host_windows``), the
-        largest such, is kept in ``run["window_case"]`` for
-        time_fused_window."""
-        real = batch_executor.fused_window
+        fused_window_ref, job by job (a launch runs one window of each KN
+        with a dispatch ready), on host copies of each job's inputs:
+        n_exec, the cut, the executed events and out_ptr, all eight state
+        arrays. Only the first job of each KN not in ``first``
+        (``first=None``: every job); the plain version's argmin victims
+        are O(slots) an eviction. With ``keep``, each KN's first held job
+        is kept in ``run["held_jobs"]`` (time_fused_window's four-KN
+        launch), and the held job whose window the host leg ran as one
+        window of the same ops (``_host_windows``), the largest such, in
+        ``run["window_case"]``."""
+        real = batch_executor.fused_windows
 
-        def held(state, *args, **kw):
+        def held(jobs):
             eng = c._jit
-            name = next(nm for nm, r in eng.resident.items()
-                        if r.state[0] is state[0])
-            if first is not None and name in first:
-                return real(state, *args, **kw)
-            host = [tuple(t.cpu().numpy().copy() for t in state),
-                    [a.cpu().numpy() for a in args[:6]], *args[6:9],
-                    args[9].cpu().numpy()]
-            trees = kw.get("trees")
-            trees0 = tuple(t.clone() for t in trees) \
-                if trees and keep else None
-            out = real(state, *args, **kw)
-            t0 = time.perf_counter()
-            want = batch_executor.fused_window_ref(
-                host[0], *host[1], *host[2:])
-            plain_s = time.perf_counter() - t0
-            ne = int(out[0])
-            same = (ne, int(out[4])) == (want[0], want[4]) and \
-                np.array_equal(out[2][:ne].cpu().numpy(), want[2][:ne]) \
-                and np.array_equal(out[3][:ne].cpu().numpy(),
-                                   want[3][:ne]) and \
-                all(np.array_equal(a.cpu().numpy(), b)
-                    for a, b in zip(out[1], want[1]))
-            if not same:
-                raise AssertionError(f"cluster: kernel E on {name}'s "
-                                     f"window parts from fused_window_ref")
-            run["e_checked"] += 1
-            if first is not None:
-                first.add(name)
-            hw = run.get("host_window", {}).get(name)
-            case = run["window_case"]
-            if keep and hw is not None and hw[0] == host[2] and \
-                    (case is None or host[2] > case["n"]):
-                run["window_case"] = {
-                    "kn": name, "state": host[0], "window": host[1],
-                    "n": host[2], "cap": host[3], "wb": host[4],
-                    "vmax": host[5], "trees": trees0, "n_exec": ne,
-                    "plain_s": plain_s, "host": hw}
-            return out
+            jobs = [batch_executor.WindowJob(*j) for j in jobs]
+            names = [next(nm for nm, r in eng.resident.items()
+                          if r.state[0] is j.state[0]) for j in jobs]
+            t_check = time.perf_counter()
+            host = {}
+            for i, (j, name) in enumerate(zip(jobs, names)):
+                if first is not None and name in first:
+                    continue
+                host[i] = {
+                    "kn": name,
+                    "state": tuple(t.cpu().numpy().copy() for t in j.state),
+                    "window": [t.cpu().numpy().copy() for t in j.window],
+                    "n": int(j.n), "cap": int(j.cap), "wb": int(j.write_bytes),
+                    "vmax": j.vmax.cpu().numpy(),
+                    "trees": tuple(t.clone() for t in j.trees)
+                    if keep and j.trees is not None else None}
+            checking = time.perf_counter() - t_check
+            outs = real(jobs)
+            t_check = time.perf_counter()
+            for i, case in host.items():
+                t0 = time.perf_counter()
+                want = batch_executor.fused_window_ref(
+                    case["state"], *case["window"], case["n"], case["cap"],
+                    case["wb"], case["vmax"])
+                case["plain_s"] = time.perf_counter() - t0
+                out = outs[i]
+                ne = int(out[0])
+                same = (ne, int(out[4])) == (want[0], want[4]) and \
+                    np.array_equal(out[2][:ne].cpu().numpy(), want[2][:ne]) \
+                    and np.array_equal(out[3][:ne].cpu().numpy(),
+                                       want[3][:ne]) and \
+                    all(np.array_equal(a.cpu().numpy(), b)
+                        for a, b in zip(out[1], want[1]))
+                if not same:
+                    raise AssertionError(f"cluster: kernel E on "
+                                         f"{case['kn']}'s window parts from "
+                                         f"fused_window_ref")
+                run["e_checked"] += 1
+                if first is not None:
+                    first.add(case["kn"])
+                if not keep:
+                    continue
+                case["n_exec"] = ne
+                run.setdefault("held_jobs", {}).setdefault(case["kn"], case)
+                hw = run.get("host_window", {}).get(case["kn"])
+                best = run["window_case"]
+                if hw is not None and hw[0] == case["n"] and \
+                        (best is None or case["n"] > best["n"]):
+                    run["window_case"] = dict(case, host=hw)
+            # the checks' host copies and plain runs are no part of the
+            # path: _cluster_pair_batch takes them out of the leg's time
+            run["held_s"] = run.get("held_s", 0.0) + checking + \
+                time.perf_counter() - t_check
+            return outs
 
-        batch_executor.fused_window = held
+        batch_executor.fused_windows = held
         try:
             yield
         finally:
-            batch_executor.fused_window = real
+            batch_executor.fused_windows = real
 
     @contextlib.contextmanager
     def _host_windows(self, c, run):
@@ -1926,100 +2010,327 @@ class Smoke:
         return [row]
 
     def time_fused_window(self) -> list[dict]:
-        """Kernel E on the largest KN window held to its plain version in
-        the cluster phase's write-heavy mix (one dispatch over 2^21 slots),
-        on fresh copies of its state and trees each run: the launch alone
-        (resident trees, as the jit engine runs it) and with the tree
-        build first (what a dispatch after an upload costs). Plain ms is
+        """Kernel E and the three kernels that move a resident state's
+        changed slots, at the cluster phase's shapes (2^21 slots).
+
+        Kernel E's row: the largest KN window held to its plain version in
+        the write-heavy mix (one job over 2^21 slots: kn2's first window,
+        the one BEFORE_SLICE10 timed), the launch alone on fresh copies of
+        its state, trees and an empty dirty record each run (as the jit
+        engine runs it), and with the tree build first. Plain ms is
         fused_window_ref on the host (its argmin victims scan the slots);
         beside it the host engine's time for that KN's window of the same
-        batch (plan_dac_window and the apply, or the replay: what the
-        dispatch replaces). No PyTorch call runs the DAC state machine,
+        batch. Then a window that consumes victims from both trees
+        (tests/torch_cases.py:window_victims_case at 2^21 slots), and the
+        four KNs' first held windows in one launch against the four
+        launched one by one. No PyTorch call runs the DAC state machine,
         so library_ms is null.
 
         Bound: the bytes the function must move -- the window's six
         int32 inputs, per distinct key its ops touch the entry's six
         fields read and written, per victim its length and count read and
-        kind written, the histogram and registers in and out, the
-        n_exec/cut header and the event and out_ptr tapes written -- at
-        the memory rate (the build adds kind, count and stamp read and
-        both trees written). The loop is a chain of dependent reads: it
-        is latency-bound."""
+        kind written, the histogram and registers in and out, the header
+        and the event and out_ptr tapes written -- at the memory rate (the
+        build adds kind, count and stamp read and both trees written). The
+        loop is a chain of dependent steps: it is latency-bound."""
         case = self.window_case
         if case is None:
             raise AssertionError("time_fused_window: no write-heavy window "
                                  "was held in the cluster phase")
         dev = self.dev
-        st0 = tuple(torch.from_numpy(a).to(dev) for a in case["state"])
-        win = [torch.from_numpy(a).to(dev) for a in case["window"]]
-        vmax = torch.from_numpy(case["vmax"]).to(dev)
-        trees0 = case["trees"]
-        n, cap, wb = case["n"], case["cap"], case["wb"]
-        s = st0[0].shape[0]
         fw = importlib.import_module("repro_torch.kernels.batch_executor"
                                      ".ops")
 
-        def fresh():
-            return (tuple(t.clone() for t in st0),
-                    tuple(t.clone() for t in trees0),
-                    torch.empty(fw.HEADER + 2 * n, dtype=torch.int32,
-                                device=dev))
+        def on_card(c):
+            return {"state": tuple(torch.from_numpy(a).to(dev)
+                                   for a in c["state"]),
+                    "window": tuple(torch.from_numpy(a).to(dev)
+                                    for a in c["window"]),
+                    "vmax": torch.from_numpy(c["vmax"]).to(dev),
+                    "trees": c["trees"] if c["trees"] is not None else
+                    batch_executor.build_trees(tuple(
+                        torch.from_numpy(a).to(dev) for a in c["state"]))}
 
-        def launch_only(st, tr, packed):
-            fw.launch(st, tr, win, n, cap, wb, vmax, packed)
-            return packed, st
+        def jobs_of(cases_, build=False):
+            """Fresh card copies of the cases' states, trees and dirty
+            records as jobs, with their launch descriptor (the trees are
+            built at the launch with ``build``)."""
+            jobs = []
+            for c, d in cases_:
+                st = tuple(t.clone() for t in d["state"])
+                tr = None if build else tuple(t.clone() for t in d["trees"])
+                jobs.append(batch_executor.WindowJob(
+                    st, d["window"], c["n"], c["cap"], c["wb"], d["vmax"],
+                    tr, batch_executor.new_dirty(st[0].shape[0], dev)))
+            if build:
+                return None, None, 0, jobs
+            return (*fw.prepare(jobs), jobs)
 
-        def with_build(st, tr, packed):
-            fw.launch(st, batch_executor.build_trees(st), win, n, cap, wb,
-                      vmax, packed)
-            return packed, st
+        def launch_only(desc, out, ops, jobs):
+            if desc is None:         # the tree build, then the launch
+                jobs = [j._replace(trees=batch_executor.build_trees(j.state))
+                        for j in jobs]
+                desc, out, ops = fw.prepare(jobs)
+            fw.launch(desc, ops)
+            return out, jobs
 
-        with uncounted():
-            ms, (packed, st) = event_ms(launch_only, REPS, fresh)
-            build_ms, got_b = event_ms(with_build, REPS, fresh)
-        t0 = time.perf_counter()
-        want = batch_executor.fused_window_ref(
-            tuple(a.copy() for a in case["state"]), *case["window"], n, cap,
-            wb, case["vmax"])
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        ne = want[0]
-        head = np.array([ne, want[4], *want[1][7]], np.int64)
-        err = 0
-        for pk, stt in ((packed, st), got_b):
-            h = pk.cpu().numpy().astype(np.int64)
+        def held(c, out, job):
+            """max |kernel - plain| over the header, tapes and state, and
+            the plain version's seconds."""
+            t0 = time.perf_counter()
+            want = batch_executor.fused_window_ref(
+                tuple(a.copy() for a in c["state"]), *c["window"], c["n"],
+                c["cap"], c["wb"], c["vmax"])
+            plain_s = time.perf_counter() - t0
+            ne, n = want[0], c["n"]
+            head = np.array([ne, want[4], *want[1][7]], np.int64)
+            h = out.packed.cpu().numpy().astype(np.int64)
             pairs = [(h[:fw.HEADER], head),
                      (h[fw.HEADER:fw.HEADER + ne], want[2][:ne]),
                      (h[fw.HEADER + n:fw.HEADER + n + ne], want[3][:ne])]
-            pairs += [(a.cpu().numpy(), b) for a, b in zip(stt, want[1])]
-            err = max([err] + [int(np.abs(a.astype(np.int64)
-                                          - b.astype(np.int64)).max())
-                               for a, b in pairs if a.size])
-        touched = np.unique(case["window"][1][:ne]).size
-        regs0, regs1 = case["state"][7], want[1][7]
-        victims = int(regs1[6] - regs0[6] + regs1[7] - regs0[7])
-        nbytes = (6 * n * 4 + touched * 6 * 4 * 2 + victims * 12
-                  + 2 * (65 + 8) * 4 + fw.HEADER * 4 + 2 * n * 4)
-        build_bytes = 3 * s * 4 + 2 * (2 * s) * 8
-        host = case["host"]
-        row = {"name": "fused_window", "route": "cuda",
+            pairs += [(a.cpu().numpy(), b) for a, b in zip(job.state,
+                                                           want[1])]
+            err = max(int(np.abs(a.astype(np.int64)
+                                 - b.astype(np.int64)).max())
+                      for a, b in pairs if a.size)
+            return err, plain_s, want
+
+        def window_bytes(c, want):
+            ne = want[0]
+            touched = np.unique(c["window"][1][:ne]).size
+            regs0, regs1 = c["state"][7], want[1][7]
+            victims = int(regs1[6] - regs0[6] + regs1[7] - regs0[7])
+            return (6 * c["n"] * 4 + touched * 6 * 4 * 2 + victims * 12
+                    + 2 * (65 + 8) * 4 + (fw.HEADER + 1) * 4
+                    + 2 * c["n"] * 4), touched, victims
+
+        with uncounted():
+            one = [(case, on_card(case))]
+            ms, (outs, jobs) = event_ms(launch_only, REPS,
+                                        lambda: jobs_of(one))
+            build_ms, (outs_b, jobs_b) = event_ms(
+                launch_only, REPS, lambda: jobs_of(one, build=True))
+            err, plain_s, want = held(case, outs[0], jobs[0])
+            err = max(err, held(case, outs_b[0], jobs_b[0])[0])
+            nbytes, touched, victims = window_bytes(case, want)
+            s = case["state"][0].shape[0]
+            build_bytes = 3 * s * 4 + 2 * (2 * s) * 8
+            host = case["host"]
+            row = {"name": "fused_window", "route": "cuda",
+                   "source": "src/repro_torch/csrc/fused_window.cu",
+                   "replaces": "src/repro/kernels/batch_executor/ops.py:419",
+                   "launches": None, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_s * 1e3,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "library_ms": None}
+            emit({"timing": "fused_window", "ms": ms,
+                  "plain_ms": row["plain_ms"], "library_ms": None,
+                  "bound_ms": row["bound_ms"], "max_abs_err": err,
+                  "kn": case["kn"], "slots": s, "ops": case["n"],
+                  "executed": want[0], "cut": int(want[4]),
+                  "us_per_op": ms * 1e3 / max(want[0], 1),
+                  "distinct_keys": touched, "victims": victims,
+                  "with_tree_build_ms": build_ms,
+                  "with_tree_build_bound_ms": (nbytes + build_bytes)
+                  / HBM_BYTES_PER_S * 1e3,
+                  "held_check_plain_s": case["plain_s"],
+                  "host_engine_window": None if host is None else
+                  {"ops": host[0], "ms": host[1] * 1e3}})
+            emit({"redesigned": "fused_window", "ms": ms,
+                  "before_ms": BEFORE_SLICE10_MS["fused_window"],
+                  "ops": case["n"],
+                  "before_ops": BEFORE_SLICE10_MS["fused_window_ops"],
+                  "inputs": f"{case['kn']}'s first write-heavy window of "
+                            f"{case['n']} ops over {s} slots, the launch "
+                            f"alone",
+                  "before": BEFORE_SLICE10})
+
+            # a window that consumes victims from both trees
+            vcase = dict(zip(("state", "wins", "cap", "wb", "amr"),
+                             window_victims_case(SEED, s, VICTIM_WINDOW_OPS,
+                                                 1, VICTIM_WINDOW_VALUES)))
+            win = vcase["wins"][0]
+            vc = {"state": vcase["state"], "window": list(win[:6]),
+                  "n": win[6], "cap": vcase["cap"], "wb": vcase["wb"],
+                  "vmax": batch_executor.build_promote_table(vcase["amr"]),
+                  "trees": None}
+            vone = [(vc, on_card(vc))]
+            vms, (vouts, vjobs) = event_ms(launch_only, REPS,
+                                           lambda: jobs_of(vone))
+            verr, vplain_s, vwant = held(vc, vouts[0], vjobs[0])
+            vbytes, vtouched, vvictims = window_bytes(vc, vwant)
+            if verr or not (vwant[1][7][6] > vc["state"][7][6]
+                            and vwant[1][7][7] > vc["state"][7][7]):
+                raise AssertionError(f"time_fused_window: the victim window "
+                                     f"parts from its plain version (err "
+                                     f"{verr}) or did not demote and "
+                                     f"evict")
+            emit({"timing": "fused_window_victims", "ms": vms,
+                  "plain_ms": vplain_s * 1e3,
+                  "bound_ms": vbytes / HBM_BYTES_PER_S * 1e3,
+                  "max_abs_err": verr, "slots": s, "ops": vc["n"],
+                  "executed": vwant[0], "cut": int(vwant[4]),
+                  "us_per_op": vms * 1e3 / max(vwant[0], 1),
+                  "distinct_keys": vtouched, "victims": vvictims,
+                  "demotions": int(vwant[1][7][6] - vc["state"][7][6]),
+                  "evictions": int(vwant[1][7][7] - vc["state"][7][7])})
+
+            # the four KNs' first held windows: one launch, and one by one
+            four = [(c, on_card(c)) for c in self.held_jobs.values()]
+            fms, (fouts, fjobs) = event_ms(launch_only, REPS,
+                                           lambda: jobs_of(four))
+            ferr = 0
+            fops = 0
+            fbytes = 0
+            for (c, _), out, job in zip(four, fouts, fjobs):
+                e, _, w = held(c, out, job)
+                ferr = max(ferr, e)
+                fops += w[0]
+                fbytes += window_bytes(c, w)[0]
+            sep = sum(event_ms(launch_only, REPS,
+                               lambda c=c: jobs_of([c]))[0] for c in four)
+            if ferr:
+                raise AssertionError("time_fused_window: the four-KN launch "
+                                     "parts from its plain version")
+            emit({"timing": "fused_window_four_kns", "ms": fms,
+                  "one_by_one_ms": sep, "kns": [c["kn"] for c, _ in four],
+                  "ops": [c["n"] for c, _ in four], "executed": fops,
+                  "us_per_op": fms * 1e3 / max(fops, 1),
+                  "bound_ms": fbytes / HBM_BYTES_PER_S * 1e3,
+                  "max_abs_err": ferr})
+            rows = [row] + self.time_moved_slots(case, on_card(case)["state"])
+        return rows
+
+    def time_moved_slots(self, case, state) -> list[dict]:
+        """The jit engine's three transfer kernels at the cluster phase's
+        shapes (2^21 slots): fused_window_gather on as many dirty slots as
+        a write-heavy sync moved on average, fused_window_scatter on as
+        many as a delta upload sent (fields from the state, the trees
+        repaired, or rebuilt past 2048 slots), fused_window_guards over
+        the slots. Each against its plain version on host copies (gather
+        as sets: the record's order is the launch's); plain ms is that
+        version's host time. No one PyTorch call computes any of the
+        three (each also clears or repairs what the engine keeps), so
+        library_ms is null.
+
+        Bounds, bytes: gather reads the count, n list entries and the n
+        slots' five fields and writes the 73 + 6 n outputs, n wrote
+        flags and n bitmap words; scatter reads 73 + 6 n inputs, writes
+        n slots' five fields, their leaves and every distinct tree node
+        on their paths; guards reads four arrays over the slots and
+        writes three maxima."""
+        dev = self.dev
+        s = state[0].shape[0]
+        rng = np.random.default_rng(SEED + 21)
+        gather_n, scatter_n = self.moved_n
+        gather_n = max(int(gather_n), 1)
+        scatter_n = max(int(scatter_n), 1)
+        words = (s + 31) // 32
+        rows = []
+
+        # gather: a dirty record of gather_n slots
+        keys = rng.choice(s, gather_n, replace=False).astype(np.int32)
+        rec = np.zeros(1 + words + s, np.int32)
+        rec[0] = gather_n
+        bits = rec[1:1 + words].view(np.uint32)
+        np.bitwise_or.at(bits, keys >> 5, (np.uint32(1) << (keys & 31))
+                         .astype(np.uint32))
+        rec[1 + words:1 + words + gather_n] = keys
+        drec = torch.from_numpy(rec).to(dev)
+
+        def g_setup():
+            return tuple(t.clone() for t in state), drec.clone()
+
+        ms, got = event_ms(lambda st, d: batch_executor.gather_dirty(
+            st, d, gather_n), REPS, g_setup)
+        cpu = tuple(torch.from_numpy(a.copy()) for a in case["state"])
+        t0 = time.perf_counter()
+        want = batch_executor.gather_dirty(cpu, torch.from_numpy(rec.copy()),
+                                           gather_n).numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = got.cpu().numpy()
+        meta = batch_executor.META
+        go = np.argsort(got[meta:meta + gather_n])
+        wo = np.argsort(want[meta:meta + gather_n])
+        err = int(np.abs(got[:meta].astype(np.int64) - want[:meta]).max())
+        for f in range(1 + batch_executor.FIELDS):
+            blk = slice(meta + f * gather_n, meta + (f + 1) * gather_n)
+            err = max(err, int(np.abs(got[blk][go].astype(np.int64)
+                                      - want[blk][wo]).max()))
+        nbytes = 4 + gather_n * 4 * (1 + 5) + (meta + 6 * gather_n) * 4 \
+            + gather_n * 4 * 2
+        rows.append(self._moved_row("fused_window_gather", ms, plain_ms,
+                                    nbytes, err, {"slots": s,
+                                                  "moved": gather_n}))
+
+        # scatter: scatter_n slots' fields (the state's own, perturbed)
+        keys = np.sort(rng.choice(s, scatter_n, replace=False)).astype(
+            np.int32)
+        fields = [case["state"][j][keys].astype(np.int64) for j in range(5)]
+        fields[0] = rng.integers(0, 3, scatter_n)
+        fields[1] = fields[1] + rng.integers(0, 3, scatter_n)
+        srec = np.concatenate([case["state"][6], case["state"][7], keys,
+                               *fields]).astype(np.int32)
+        dsrec = torch.from_numpy(srec).to(dev)
+        trees0 = batch_executor.build_trees(state)
+
+        def s_setup():
+            return (tuple(t.clone() for t in state),
+                    tuple(t.clone() for t in trees0))
+
+        def scatter(st, tr):
+            batch_executor.scatter_slots(st, tr, dsrec)
+            return st, tr
+
+        ms, (st, tr) = event_ms(scatter, REPS, s_setup)
+        cpu = tuple(torch.from_numpy(a.copy()) for a in case["state"])
+        t0 = time.perf_counter()
+        batch_executor.scatter_slots(cpu, None, torch.from_numpy(srec))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(int((a.cpu().long() - b.long()).abs().max())
+                  for a, b in zip(st, cpu))
+        fresh = batch_executor.build_trees(st)
+        if not all(torch.equal(a[1:], b[1:]) for a, b in zip(tr, fresh)):
+            raise AssertionError("fused_window_scatter: the repaired trees "
+                                 "differ from a fresh build")
+        h = s.bit_length() - 1
+        nodes = sum(np.unique((s + keys.astype(np.int64)) >> j).size
+                    for j in range(h + 1))
+        nbytes = (meta + 6 * scatter_n) * 4 + 5 * scatter_n * 4 \
+            + 2 * nodes * 8
+        rows.append(self._moved_row("fused_window_scatter", ms, plain_ms,
+                                    nbytes, err, {"slots": s,
+                                                  "moved": scatter_n,
+                                                  "tree_nodes": 2 * nodes}))
+
+        # guards: the three maxima over the slots
+        ms, got = event_ms(lambda: batch_executor.guard_maxima(state, s),
+                           REPS)
+        cpu = tuple(torch.from_numpy(a.copy()) for a in case["state"])
+        t0 = time.perf_counter()
+        want = batch_executor.guard_maxima(cpu, s).numpy()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int(np.abs(got.cpu().numpy().astype(np.int64) - want).max())
+        rows.append(self._moved_row("fused_window_guards", ms, plain_ms,
+                                    4 * s * 4 + 12, err, {"slots": s}))
+        return rows
+
+    @staticmethod
+    def _moved_row(name, ms, plain_ms, nbytes, err, extra) -> dict:
+        row = {"name": name, "route": "cuda",
                "source": "src/repro_torch/csrc/fused_window.cu",
                "replaces": "src/repro/kernels/batch_executor/ops.py:419",
                "launches": None, "max_abs_err": err, "ms": ms,
                "plain_ms": plain_ms,
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
                "bound_by": "bytes", "library_ms": None}
-        emit({"timing": "fused_window", "ms": ms, "plain_ms": plain_ms,
+        if err:
+            raise AssertionError(f"{name}: kernel and plain version part "
+                                 f"by {err}")
+        emit({"timing": name, "ms": ms, "plain_ms": plain_ms,
               "library_ms": None, "bound_ms": row["bound_ms"],
-              "max_abs_err": err, "kn": case["kn"], "slots": s,
-              "ops": n, "executed": ne, "cut": int(want[4]),
-              "distinct_keys": touched, "victims": victims,
-              "with_tree_build_ms": build_ms,
-              "with_tree_build_bound_ms": (nbytes + build_bytes)
-              / HBM_BYTES_PER_S * 1e3,
-              "held_check_plain_s": case["plain_s"],
-              "host_engine_window": None if host is None else
-              {"ops": host[0], "ms": host[1] * 1e3}})
-        return [row]
+              "max_abs_err": err, **extra})
+        return row
 
     # --------------------------------------------------- 8. check 5 and 6
     def check_attention(self) -> None:
@@ -2836,7 +3147,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     smoke.cluster()
     kernels += smoke.time_fused_window()
-    del smoke.window_case
+    del smoke.window_case, smoke.held_jobs
     torch.cuda.empty_cache()
     smoke.prefill()
     srv = smoke.serve_paged()

@@ -269,6 +269,7 @@ class DinomoCluster:
         ev = self.ownership.remove_kn(name)
         self._reconfigure(ev)
         self.pool.drop_kn(name)
+        self._drop_resident(name)
         del self.kns[name]
         return ev
 
@@ -277,11 +278,18 @@ class DinomoCluster:
         log segments survive in DPM and are merged by a peer."""
         kn = self.kns[name]
         kn.alive = False
+        self._drop_resident(name)
         kn.clear_soft_state()          # DRAM lost
         ev = self.ownership.remove_kn(name, failed=True)
         self._reconfigure(ev, failed=name)
         del self.kns[name]
         return ev
+
+    def _drop_resident(self, name: str) -> None:
+        """Free the jit engine's device copy of a KN's cache (a KN that
+        leaves, fails or hands off ownership)."""
+        if self._jit is not None:
+            self._jit.drop(name)
 
     def _reconfigure(self, ev: ReconfigEvent, failed: str | None = None):
         """Paper Sec. 3.5 seven-step protocol. Returns a cost record with
@@ -318,6 +326,7 @@ class DinomoCluster:
             # AsymNVM-style: physical data reorganization is required.
             moved_fraction = 1.0 / max(len(self.kns), 1)
         for p in participants:
+            self._drop_resident(p)
             if self.kns[p].alive:
                 self.kns[p].clear_soft_state()            # ownership moved
                 self.kns[p].available = True              # step 5
@@ -875,11 +884,47 @@ class DinomoCluster:
     # ----- window processing -----------------------------------------------
     def _advance_windows(self, windows, hi, keys, kinds, plan, probe_map,
                          dkeys, dbuckets, out_values) -> None:
+        if self._engine == "jit":
+            self._advance_jit(windows, hi, keys, kinds, plan, probe_map,
+                              dkeys, dbuckets, out_values)
+            return
         for w in windows:
             pos = w.pos
             if w.idx < pos.size and pos[w.idx] <= hi:
                 self._run_window(w, hi, keys, kinds, plan, probe_map,
                                  dkeys, dbuckets, out_values)
+
+    def _advance_jit(self, windows, hi, keys, kinds, plan, probe_map,
+                     dkeys, dbuckets, out_values) -> None:
+        """The jit engine's advance: every ArrayDAC KN's window up to
+        ``hi`` runs as a generator of device dispatches
+        (``JitEngine.run_window``), and ``JitEngine.advance`` gathers one
+        dispatch of each into one kernel-E launch until all are done;
+        folds, cuts and host replays run per KN in KN order between the
+        launches. Exact because no KN's window reads what another's
+        writes inside one advance: caches, segment caches and stats are
+        per KN; the write plan, the probe map and the pool's index and
+        dirty sets change only outside the windows (replicated-key ops
+        and stall merges run between advances)."""
+        eng = self._jit
+        if eng is None:
+            from .jit_engine import JitEngine
+            eng = self._jit = JitEngine(self)
+        args = (keys, kinds, plan, probe_map, dkeys, dbuckets, out_values)
+        steps = []
+        for w in windows:
+            pos = w.pos
+            if not (w.idx < pos.size and pos[w.idx] <= hi):
+                continue
+            if not w.is_dac:
+                self._run_window(w, hi, *args)
+                continue
+            i0 = w.idx
+            i1 = int(np.searchsorted(pos, hi, side="right"))
+            w.idx = i1
+            full = pos[i0:i1]
+            steps.append((w, eng.run_window(w, full, *args), full))
+        eng.advance(steps, lambda w, full: self._host_window(w, full, *args))
 
     def _run_window(self, w, hi, keys, kinds, plan, probe_map, dkeys,
                     dbuckets, out_values) -> None:
@@ -904,16 +949,14 @@ class DinomoCluster:
         if i1 <= i0:
             return
         w.idx = i1
-        full = pos[i0:i1]
-        if self._engine == "jit" and w.is_dac:
-            eng = self._jit
-            if eng is None:
-                from .jit_engine import JitEngine
-                eng = self._jit = JitEngine(self)
-            if eng.run_window(w, full, keys, kinds, plan, probe_map,
-                              dkeys, dbuckets, out_values):
-                return
-            # ineligible window (int32 guards / too small): host engine
+        self._host_window(w, pos[i0:i1], keys, kinds, plan, probe_map,
+                          dkeys, dbuckets, out_values)
+
+    def _host_window(self, w, full, keys, kinds, plan, probe_map, dkeys,
+                     dbuckets, out_values) -> None:
+        """The host engine on one KN's ops ``full`` (global positions),
+        in order (also the jit engine's fallback for a window it
+        declines: the int32 guards, a short window)."""
         kn, cache = w.kn, w.cache
         is_dac = w.is_dac
         planner = plan_dac_window if is_dac else None
@@ -1034,6 +1077,8 @@ class DinomoCluster:
         stp = cache.stamp
         ptr_l = cache.ptr
         clock = cache._clock
+        if cache._dirty is not None:
+            cache._dirty.extend(run_keys)
         collect = out_values is not None
         hits = 0
         for i in range(len(run_keys)):
@@ -1111,6 +1156,11 @@ class DinomoCluster:
         lfu = cache._lfu
         hist = cache._cnt_hist
         hmax = CNT_HIST_MAX
+        # the jit engine's record of written slots: the run's keys, and
+        # each victim of the inline make-space below
+        rec = cache._dirty
+        if rec is not None:
+            rec.extend(run_keys)
         nops = 0
         rts = 0.0
         shits = promos = demos = evics = 0
@@ -1204,6 +1254,8 @@ class DinomoCluster:
                         break
                     if v is None:
                         break
+                    if rec is not None:
+                        rec.add(v)
                     used -= lenl[v] + 40
                     nvals -= 1
                     kind_a[v] = 0
@@ -1234,6 +1286,8 @@ class DinomoCluster:
                         break
                     if v is None:
                         break
+                    if rec is not None:
+                        rec.add(v)
                     cv = cnt[v]
                     kind_a[v] = 0
                     used -= 32
@@ -1357,6 +1411,9 @@ class DinomoCluster:
         lfu = cache._lfu
         hist = cache._cnt_hist
         hmax = CNT_HIST_MAX
+        rec = cache._dirty          # the jit engine's record, as _sc_run
+        if rec is not None:
+            rec.extend(run_keys)
         demos = evics = 0
         rts = 0.0
         for p_, k in zip(run_pos, run_keys):
@@ -1414,6 +1471,8 @@ class DinomoCluster:
                     break
                 if v is None:
                     break
+                if rec is not None:
+                    rec.add(v)
                 used -= lenl[v] + 40
                 nvals -= 1
                 kind_a[v] = 0
@@ -1444,6 +1503,8 @@ class DinomoCluster:
                     break
                 if v is None:
                     break
+                if rec is not None:
+                    rec.add(v)
                 cv = cnt[v]
                 kind_a[v] = 0
                 used -= 32
@@ -1743,6 +1804,9 @@ def warm_load(cache, value_keys, value_ptrs, shortcut_keys, shortcut_ptrs,
     cache._ensure(int(max(value_keys.max(initial=0),
                           shortcut_keys.max(initial=0))))
     stamps = cache._clock + np.arange(nv, dtype=np.int64)
+    if cache._dirty is not None:
+        cache._dirty.extend(value_keys)
+        cache._dirty.extend(shortcut_keys)
     for keys, ptrs, kind, cnt in (
             (value_keys, value_ptrs, cache.KIND_VALUE, 1),
             (shortcut_keys, shortcut_ptrs, cache.KIND_SHORTCUT, 0)):

@@ -22,7 +22,9 @@ as shortcuts.
 KN's cache of the batched data plane, which ``core.transition`` plans a
 window at a time. Like the reference it lives on the host (in DINOMO the
 KN's cache is its DRAM); the device work of that path is the
-cache_transition kernel, the planner's twin.
+cache_transition kernel, the planner's twin. While ``core.jit_engine``
+keeps a copy of it on the device, its ``_dirty`` ``SlotRecord`` notes
+every slot host code writes, so the next upload moves only those.
 """
 
 from __future__ import annotations
@@ -42,6 +44,37 @@ VALUE_OVERHEAD_BYTES = 40
 # O(n log H) LFU-heap peek per shortcut hit. Counts at or above the
 # bound fall back to the exact peek (rare: such victims are hot).
 CNT_HIST_MAX = 64
+
+
+class SlotRecord:
+    """The slots host code wrote into an ``ArrayDAC`` since the jit
+    engine's last upload of it (single keys and key arrays; repeats are
+    allowed). ``take`` returns them sorted and unique and starts anew."""
+
+    __slots__ = ("keys", "arrays")
+
+    def __init__(self):
+        self.keys: list = []
+        self.arrays: list = []
+
+    def add(self, key) -> None:
+        self.keys.append(key)
+
+    def extend(self, keys) -> None:
+        self.arrays.append(np.asarray(keys, np.int64))
+
+    def take(self) -> np.ndarray:
+        parts = self.arrays
+        if self.keys:
+            parts = parts + [np.asarray(self.keys, np.int64)]
+        self.keys, self.arrays = [], []
+        if not parts:
+            return np.empty(0, np.int64)
+        return np.unique(np.concatenate(parts))
+
+    def __deepcopy__(self, memo):
+        # a copied cache has no device copy: it records nothing
+        return None
 
 
 @dataclass
@@ -343,6 +376,9 @@ class ArrayDAC:
         self._zero_shortcuts = 0   # live shortcuts with count == 0
         # live-shortcut access-count histogram (see CNT_HIST_MAX)
         self._cnt_hist = [0] * (CNT_HIST_MAX + 1)
+        # the slots written since the jit engine's last upload, while it
+        # keeps a device copy of this cache (else None: nothing recorded)
+        self._dirty: SlotRecord | None = None
 
     # ----- sizes -----------------------------------------------------------
     value_bytes = staticmethod(DAC.value_bytes)
@@ -352,6 +388,7 @@ class ArrayDAC:
         if key < n:
             return
         m = max(2 * n, key + 1)
+        self._dirty = None          # the device copy's size is gone
         self.kind = np.concatenate(
             [self.kind, np.zeros(m - n, np.int8)])
         self.ptr = np.concatenate([self.ptr, np.full(m - n, -1, np.int64)])
@@ -366,6 +403,8 @@ class ArrayDAC:
     def lookup(self, key: int):
         self._ensure(key)
         kd = self.kind[key]
+        if kd and self._dirty is not None:
+            self._dirty.add(key)
         if kd == self.KIND_VALUE:
             c = self.count[key] + 1
             self.count[key] = c
@@ -418,6 +457,8 @@ class ArrayDAC:
     def demote_to_shortcut(self, key: int) -> None:
         self._ensure(key)
         if self.kind[key] == self.KIND_VALUE:
+            if self._dirty is not None:
+                self._dirty.add(key)
             p, ln, cnt = self.ptr[key], self.length[key], self.count[key]
             self.kind[key] = self.KIND_NONE
             self.used -= self.value_bytes(ln)
@@ -436,10 +477,13 @@ class ArrayDAC:
                 self.update_pointer(key, ptr, length)
                 return
             self.used += delta
+        if self._dirty is not None:
+            self._dirty.add(key)
         self.ptr[key] = ptr
         self.length[key] = length
 
     def clear(self) -> None:
+        self._dirty = None          # every slot changes: upload anew
         self.kind[:] = 0
         self.count[:] = 0
         self.stamp[:] = 0
@@ -468,6 +512,8 @@ class ArrayDAC:
         last position in the run -- exactly what per-op lookups do."""
         n = keys.shape[0]
         c0 = self._clock
+        if self._dirty is not None:
+            self._dirty.extend(keys)
         if n > 24:
             u, ridx, mult = np.unique(keys[::-1], return_index=True,
                                       return_counts=True)
@@ -488,6 +534,12 @@ class ArrayDAC:
         disjoint from the window's op keys, and LRU records arrive
         clock-ascending so they extend the lazy heap in place."""
         kind = self.kind
+        rec = self._dirty
+        if rec is not None:
+            rec.extend(plan.victims)
+            rec.extend(plan.kk_keys)
+            rec.extend(plan.fill_keys)
+            rec.extend(plan.stp_keys)
         if plan.victims:
             vk = np.asarray(plan.victims, np.int64)
             ri = np.asarray(plan.victim_reinsert, bool)
@@ -569,6 +621,8 @@ class ArrayDAC:
         kd = self.kind[key]
         if kd == self.KIND_NONE:
             return None
+        if self._dirty is not None:
+            self._dirty.add(key)
         out = (self.ptr[key], self.length[key], self.count[key])
         if kd == self.KIND_VALUE:
             self.used -= self.value_bytes(out[1])
@@ -591,6 +645,8 @@ class ArrayDAC:
         if self.used + need > self.capacity:
             self._insert_shortcut(key, ptr, length, count)
             return
+        if self._dirty is not None:
+            self._dirty.add(key)
         self.kind[key] = self.KIND_VALUE
         self.ptr[key] = ptr
         self.length[key] = length
@@ -607,6 +663,8 @@ class ArrayDAC:
         self._make_space(SHORTCUT_BYTES)
         if self.used + SHORTCUT_BYTES > self.capacity:
             return  # cache smaller than one entry: degenerate, skip
+        if self._dirty is not None:
+            self._dirty.add(key)
         self.kind[key] = self.KIND_SHORTCUT
         self.ptr[key] = ptr
         self.length[key] = length
@@ -654,6 +712,8 @@ class ArrayDAC:
             k = self._pop_lru()
             if k is None:
                 break
+            if self._dirty is not None:
+                self._dirty.add(k)
             ln = self.length[k]
             self.used -= self.value_bytes(ln)
             self._nvals -= 1
@@ -673,6 +733,8 @@ class ArrayDAC:
             k = self._pop_lfu()
             if k is None:
                 break
+            if self._dirty is not None:
+                self._dirty.add(k)
             c = self.count[k]
             self.kind[k] = self.KIND_NONE
             self.used -= SHORTCUT_BYTES
@@ -749,6 +811,8 @@ class ArrayDAC:
 
     def _promote(self, key: int) -> None:
         p, ln, cnt = self.ptr[key], self.length[key], self.count[key]
+        if self._dirty is not None:
+            self._dirty.add(key)
         self.kind[key] = self.KIND_NONE
         self.used -= SHORTCUT_BYTES
         self._nshort -= 1

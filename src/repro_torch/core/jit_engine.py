@@ -2,36 +2,51 @@
 
 The port's copy of the reference's engine (``repro.core.jit_engine``).
 Each KN window of the batched data plane runs through kernel E
-(``kernels.batch_executor.fused_window``) instead of the host planner:
+(``kernels.batch_executor.fused_windows``) instead of the host planner:
 the window's DAC transitions -- value/shortcut hits, Eq. 1 promotions
 with the full make-space loop, prefetch-resolved misses, staged write
-fills -- execute as one launch over the KN's per-key state on the
-cluster's device, and the host only folds the outcome (stats, RT sums,
-the miss-EMA refold in op order, segment-cache puts, collected read
-values) from the returned per-op event records. With ``device="cpu"``
-the state is CPU tensors and the wrapper runs its plain version.
+fills -- execute on the card over the KN's per-key state, and the host
+only folds the outcome (stats, RT sums, the miss-EMA refold in op order,
+segment-cache puts, collected read values) from the returned per-op
+event records. Every KN's dispatch of one step of an advance goes into
+one launch (``advance``; ``run_window`` is a generator of a window's
+dispatches). With ``device="cpu"`` the state is CPU tensors and the
+wrappers run their plain versions.
 
 Residency model
 ---------------
-A KN's cache state (kind/count/stamp/length/ptr plus a wrote-this-batch
-flag, the histogram and the registers: one int32 buffer on the device)
-is uploaded once per batch on first use, with the two victim min-trees
-the kernel keeps (built on the card at the upload), and stays resident
-across that KN's windows; each launch updates state and trees in place.
-It is scattered back to the host cache arrays whenever the host must
-touch the cache:
+A KN's cache state (kind/count/stamp/length/ptr plus a wrote flag, the
+histogram and the registers: one int32 buffer on the device), the two
+victim min-trees the kernel keeps and a dirty record (the slots the
+kernel wrote) stay on the device from the KN's first dispatch on, across
+batches, with an int32 host shadow of the five fields as the device last
+saw them. The reference uploads the state once per batch on first use
+and scatters it back whenever the host must touch the cache:
 
   * a truncation cut (the residual replays through the host engine),
   * a host-run span (deletes, short segments, degenerate progress),
   * a replicated-key op or batch end (``sync_all``).
 
-Scatter-back rewrites the dense arrays and re-seeds the cache's *lazy*
-LRU/LFU heaps with one record per entry whose kind changed on device;
-entries whose kind survived keep their existing records, which the
-lazy pop discipline self-heals (stale stamp/count records refresh on
-pop). The engine is decision-for-decision identical to the host
-engine (tests/test_torch_jit_engine.py holds it to the reference's jit
-engine and to the port's host engine).
+This engine does the same at the same points -- each "upload" and each
+"scatter-back" happens where the reference's does, so the host engine
+takes exactly the windows the reference's would -- but moves only what
+changed. An upload sends the slots the host wrote since the last one
+(``ArrayDAC._dirty``, a ``SlotRecord`` the cache keeps while a residency
+exists, filtered against the shadow) and scatters them on the card; a
+scatter-back gathers the slots the kernel wrote (its dirty record) and
+writes them into the cache arrays and the shadow. A full upload happens
+on first use and after the record was dropped: ``ArrayDAC.clear`` (a
+reconfiguration), a growth of the per-key vectors, or ``drop`` (a KN
+removed, failed or handing off ownership).
+
+Scatter-back re-seeds the cache's *lazy* LRU/LFU heaps with one record
+per entry whose kind changed on device since the upload (the shadow
+holds the kind as uploaded), in key order, as the reference does;
+entries whose kind survived keep their existing records, which the lazy
+pop discipline self-heals (stale stamp/count records refresh on pop).
+The engine is decision-for-decision identical to the host engine
+(tests/test_torch_jit_engine.py holds it to the reference's jit engine
+and to the port's host engine).
 
 Truncation -> replay contract
 -----------------------------
@@ -47,23 +62,28 @@ the rest of the window to the host engine.
 
 Everything on the device is int32; the upload guards check the actual
 ranges (clock, counts, heap pointers, capacity) and leave the window to
-the host engine when any could overflow, as the reference's do. The
-Eq. 1 float comparison is discretized host-side into an integer
-threshold table (kept on the device per miss-RT EMA value), so no float
-arithmetic runs on the device.
+the host engine when any could overflow, as the reference's do: the
+three maxima over live entries come from one reduction on the device
+(``guard_maxima``) after the upload. The Eq. 1 float comparison is
+discretized host-side into an integer threshold table (kept on the
+device per miss-RT EMA value), so no float arithmetic runs on the
+device.
 
-Transfers: an upload is one host-to-device copy of the packed state; a
-dispatch copies the window's ``n`` live entries of its six op arrays in
-(one copy, no padding) and brings n_exec, the cut, the registers and the
-``n`` entries' events and out_ptr back in one copy (after a cut the
-entries past n_exec come too, unread: a copy sized by n_exec would wait
-on a second synchronisation); a scatter-back is one copy of the packed
-state.
+Transfers, through pinned staging buffers: an upload is one copy in of
+the changed slots (index and five fields each) with the histogram and
+registers, and the guards' three maxima back; a launch copies every
+job's ``n`` live entries of its six op arrays in (one copy) and brings
+each job's n_exec, cut, registers, dirty count and ``n`` entries' events
+and out_ptr back in one copy; a scatter-back is one copy of the dirty
+slots with the histogram and registers. A full upload is one pageable
+copy of the packed state.
 """
 
 from __future__ import annotations
 
+import copy
 import heapq
+import itertools
 import time
 
 import numpy as np
@@ -71,6 +91,7 @@ import torch
 
 from ..kernels import batch_executor as be
 from . import sanitize
+from .dac import SlotRecord
 from .transition import ENGINE_WALL
 
 _I31 = 2 ** 31 - 1
@@ -91,36 +112,99 @@ _NHIST = be.CNT_HIST_MAX + 1
 _CUT_NAMES = {be.CUT_SEGCACHE: "segcache", be.CUT_PREFETCH: "prefetch",
               be.CUT_SPILL: "spill", be.CUT_EMA: "ema",
               be.CUT_TABLE: "table"}
+_FIELDS = ("kind", "count", "stamp", "length", "ptr")
 
 
 def new_counts() -> dict:
-    """The engine's event counts: dispatches (kernel-E calls), uploads
-    (state moved to the device), syncs (scatter-backs), host replays and
-    cuts by reason."""
-    return {"dispatches": 0, "uploads": 0, "syncs": 0, "host_replays": 0,
-            "dispatched_ops": 0,
+    """The engine's event counts: dispatches (KN windows run on the
+    device), launches (kernel-E launches, each one or more dispatches),
+    uploads (state moved to the device; full ones, and the others that
+    sent a slot, also counted apart) and syncs (scatter-backs), the slots
+    the delta uploads and the syncs moved and the bytes of all, host
+    replays and cuts by reason."""
+    return {"dispatches": 0, "launches": 0, "uploads": 0,
+            "full_uploads": 0, "syncs": 0, "host_replays": 0,
+            "dispatched_ops": 0, "upload_deltas": 0, "upload_slots": 0,
+            "upload_bytes": 0,
+            "sync_slots": 0, "sync_bytes": 0,
             **{f"cut_{v}": 0 for v in _CUT_NAMES.values()}}
 
 
 class _Resident:
-    """One KN's device-resident cache state within a batch."""
+    """One KN's device-resident cache state. ``live`` is the reference's
+    residency (uploaded, not yet scattered back); the buffers outlive it."""
 
-    __slots__ = ("cache", "kn_name", "buf", "state", "trees", "nslots",
-                 "kind0", "demo0", "evic0")
+    __slots__ = ("cache", "kn_name", "record", "buf", "state", "trees",
+                 "dirty", "shadow", "nslots", "pad", "live", "dcount",
+                 "demo0", "evic0")
+
+
+class _Job:
+    """One prepared dispatch: the window rows and what the fold needs."""
+
+    __slots__ = ("res", "win", "n", "cap", "vmax", "spos", "ck")
 
 
 class JitEngine:
     """Per-cluster engine; created lazily on the first jit batch."""
 
-    def __init__(self, cluster):
+    def __init__(self, cluster, device=None):
         self.cluster = cluster
-        self.device = cluster.device
+        self.device = cluster.device if device is None else device
         self.resident: dict[str, _Resident] = {}
         self._vmax: dict[float, torch.Tensor] = {}   # amr -> device table
         self._pm_token = None                        # probe_map identity
         self._pm_ptr = self._pm_len = None
         self._pm_probes = self._pm_bucket = None
+        self._staging: dict[str, torch.Tensor] = {}
         self.counts = new_counts()
+
+    def __deepcopy__(self, memo):
+        """A copied cluster's engine holds no residency (its caches'
+        records are not copied either: ``SlotRecord.__deepcopy__``)."""
+        # the cluster may be a copy in the making (no attributes yet)
+        new = JitEngine(copy.deepcopy(self.cluster, memo), self.device)
+        new.counts = dict(self.counts)
+        return new
+
+    # ----- staging -------------------------------------------------------
+    def _stage(self, role: str, n: int, host: bool) -> torch.Tensor:
+        """An int32 staging buffer of at least ``n`` entries, kept per
+        role: pinned host memory for the card's copies, or on the
+        device."""
+        key = ("h:" if host else "d:") + role
+        t = self._staging.get(key)
+        if t is None or t.numel() < n:
+            size = max(n, 2 * (0 if t is None else t.numel()), 1024)
+            if not host:
+                t = torch.empty(size, dtype=torch.int32, device=self.device)
+            elif self.device.type == "cuda":
+                t = torch.empty(size, dtype=torch.int32, pin_memory=True)
+            else:
+                t = torch.empty(size, dtype=torch.int32)
+            self._staging[key] = t
+        return t[:n]
+
+    def _to_device(self, role: str, a: np.ndarray) -> torch.Tensor:
+        """``a`` (int32) on the device through the role's pinned buffer."""
+        h = self._stage(role, a.size, True)
+        h.numpy()[:] = a
+        if self.device.type != "cuda":
+            return h
+        d = self._stage(role, a.size, False)
+        d.copy_(h, non_blocking=True)
+        return d
+
+    def _to_host(self, role: str, t: torch.Tensor) -> np.ndarray:
+        """The device tensor ``t`` (int32) in the role's pinned buffer,
+        after the copy has landed (a view: read it before the role's
+        next copy)."""
+        if t.device.type != "cuda":
+            return t.numpy()
+        h = self._stage(role, t.numel(), True)
+        h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return h.numpy()
 
     # ----- per-batch context ---------------------------------------------
     def _ensure_pm(self, probe_map, nbatch, pool) -> None:
@@ -153,9 +237,21 @@ class JitEngine:
         self._pm_probes = self._pm_bucket = None
 
     # ----- residency -----------------------------------------------------
-    def _upload(self, kn, cache, plan):
-        """Pack the cache into device state; None if the int32 ranges
-        (or a non-positive capacity) rule the device program out."""
+    def _live(self, name: str) -> bool:
+        res = self.resident.get(name)
+        return res is not None and res.live
+
+    def drop(self, name: str) -> None:
+        """Forget a KN's device copy (its next upload is a full one)."""
+        res = self.resident.pop(name, None)
+        if res is not None and res.cache._dirty is res.record:
+            res.cache._dirty = None
+
+    def _upload(self, kn, cache):
+        """Bring the device copy up to the cache (the changed slots, or
+        all of them on first use) and make it live; None if the int32
+        ranges (or a non-positive capacity) rule the device program out,
+        as the reference's guards do."""
         t0 = time.perf_counter()
         nslots = cache.kind.shape[0]
         if not (0 < cache.capacity < _GUARD):
@@ -164,13 +260,61 @@ class JitEngine:
             return None
         if len(self.cluster.pool.heap_val) >= _I31:
             return None        # covers every staged/prefetched pointer
-        live = cache.kind != 0
-        if live.any():
-            if int(cache.count[live].max()) >= _GUARD:
+        res = self.resident.get(kn.name)
+        if res is not None and (res.cache is not cache or res.nslots != nslots
+                                or cache._dirty is not res.record):
+            self.drop(kn.name)
+            res = None
+        if res is not None and self._delta(res) is None:
+            self.drop(kn.name)
+            res = None
+        if res is None:
+            t1 = time.perf_counter()
+            res = self._full(kn, cache)
+            ENGINE_WALL["jit_full_upload"] += time.perf_counter() - t1
+            if res is None:
+                ENGINE_WALL["jit_upload"] += time.perf_counter() - t0
                 return None
-            if int(cache.ptr[live].max()) >= _I31:
-                return None
-            if int(cache.length[live].max()) >= _GUARD:
+            self.resident[kn.name] = res
+        # the live-entry guards, reduced on the device: the reference's
+        # masked maxima over the cache arrays, which the copy now equals
+        cmax, pmax, lmax = self._to_host(
+            "guards", be.guard_maxima(res.state, nslots)).tolist()
+        ENGINE_WALL["jit_upload"] += time.perf_counter() - t0
+        if cmax >= _GUARD or pmax >= _I31 or lmax >= _GUARD:
+            return None
+        res.live = True
+        res.demo0 = res.evic0 = 0
+        self.counts["uploads"] += 1
+        return res
+
+    @staticmethod
+    def _regs(cache) -> np.ndarray:
+        regs = np.zeros(be.NUM_REGS, np.int32)
+        regs[be.R_USED] = cache.used
+        regs[be.R_CLOCK] = cache._clock
+        regs[be.R_ZSHORT] = cache._zero_shortcuts
+        regs[be.R_NVALS] = cache._nvals
+        regs[be.R_NSHORT] = cache._nshort
+        return regs
+
+    def _full(self, kn, cache):
+        """A new residency holding the whole cache; None if a live entry
+        is out of the guards' range where int32 could not even hold it
+        (a value that does not fit int32 makes the reference's packing
+        wrap; its guards then refuse a live one). The packing runs as
+        torch CPU copies (threaded), and the packed host buffer stays as
+        the shadow."""
+        nslots = cache.kind.shape[0]
+        arrs = [torch.from_numpy(np.asarray(getattr(cache, f)))
+                for f in _FIELDS]
+        lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+        if nslots and any(int(m) < lo or int(x) > hi for m, x in
+                          (torch.aminmax(a) for a in arrs[1:])):
+            live = cache.kind != 0
+            if live.any() and (int(cache.count[live].max()) >= _GUARD
+                               or int(cache.ptr[live].max()) >= _I31
+                               or int(cache.length[live].max()) >= _GUARD):
                 return None
         # the victim trees want a power-of-two leaf count; pad with
         # absent entries (never addressed: keys are < nslots)
@@ -179,52 +323,90 @@ class JitEngine:
             pad <<= 1
         # one buffer: kind, count, stamp, length, ptr, wrote (pad each),
         # the histogram, the registers (int32, as init_state packs them)
-        buf = np.zeros(6 * pad + _NHIST + be.NUM_REGS, np.int32)
-        for j, a in enumerate((cache.kind, cache.count, cache.stamp,
-                               cache.length, cache.ptr)):
-            buf[j * pad:j * pad + nslots] = a
-        buf[6 * pad:6 * pad + _NHIST] = cache._cnt_hist
-        regs = buf[6 * pad + _NHIST:]
-        regs[be.R_USED] = cache.used
-        regs[be.R_CLOCK] = cache._clock
-        regs[be.R_ZSHORT] = cache._zero_shortcuts
-        regs[be.R_NVALS] = cache._nvals
-        regs[be.R_NSHORT] = cache._nshort
+        # pageable: pinning 50 MB costs about as much as the copy it
+        # speeds up, and far more at the process's first pinned buffer
+        buf = torch.empty(6 * pad + _NHIST + be.NUM_REGS, dtype=torch.int32)
+        rows = buf[:6 * pad].view(6, pad)
+        for j, a in enumerate(arrs):
+            rows[j, :nslots].copy_(a)          # int64 -> int32, as numpy
+        rows[:5, nslots:] = 0
+        rows[5] = 0                            # wrote
+        buf[6 * pad:6 * pad + _NHIST] = torch.tensor(cache._cnt_hist,
+                                                     dtype=torch.int32)
+        buf[6 * pad + _NHIST:] = torch.from_numpy(self._regs(cache))
         res = _Resident()
         res.cache = cache
         res.kn_name = kn.name
-        res.kind0 = buf[:pad].copy()              # host int32 shadow
-        res.buf = torch.from_numpy(buf).to(self.device)
+        res.record = cache._dirty = SlotRecord()
+        res.shadow = rows.numpy()[:5, :nslots]
+        res.buf = buf.to(self.device, copy=True)
         res.state = _split(res.buf, pad)
         res.trees = be.build_trees(res.state)
+        res.dirty = be.new_dirty(pad, self.device)
         res.nslots = nslots
-        res.demo0 = 0
-        res.evic0 = 0
-        self.counts["uploads"] += 1
-        ENGINE_WALL["jit_upload"] += time.perf_counter() - t0
+        res.pad = pad
+        res.live = False
+        res.dcount = 0
+        self.counts["full_uploads"] += 1
+        self.counts["upload_bytes"] += buf.numel() * 4
         return res
 
+    def _delta(self, res):
+        """Send the slots the host wrote since the last upload or
+        scatter-back (the record's slots whose fields differ from the
+        shadow) with the histogram and registers, and scatter them into
+        the device copy. Returns the slots sent (ascending); None if one
+        of their values does not fit int32 (the caller then uploads the
+        whole cache, as the reference packs it)."""
+        cache = res.cache
+        keys = res.record.take()
+        vals = np.stack([getattr(cache, f)[keys] for f in _FIELDS]) \
+            .astype(np.int64)
+        moved = (vals != res.shadow[:, keys]).any(axis=0)
+        keys, vals = keys[moved], vals[:, moved]
+        if vals.size and (vals.min() < np.iinfo(np.int32).min
+                          or vals.max() > np.iinfo(np.int32).max):
+            return None
+        m = keys.size
+        rec = np.empty(be.META + (1 + be.FIELDS) * m, np.int32)
+        rec[:_NHIST] = cache._cnt_hist
+        rec[_NHIST:be.META] = self._regs(cache)
+        rec[be.META:be.META + m] = keys
+        rec[be.META + m:] = vals.reshape(-1)
+        res.shadow[:, keys] = vals
+        be.scatter_slots(res.state, res.trees, self._to_device("delta", rec))
+        self.counts["upload_deltas"] += m > 0
+        self.counts["upload_slots"] += m
+        self.counts["upload_bytes"] += rec.nbytes
+        return keys
+
     def sync_kn(self, name: str) -> None:
-        """Scatter a resident KN's device state back into its cache
-        (arrays, scalars, histogram) and re-seed lazy-heap records for
-        entries whose kind changed on device."""
-        res = self.resident.pop(name, None)
-        if res is None:
+        """Scatter a live KN's device changes back into its cache (the
+        dirty slots' fields, the scalars, the histogram) and re-seed
+        lazy-heap records for entries whose kind changed on device."""
+        res = self.resident.get(name)
+        if res is None or not res.live:
             return
         t0 = time.perf_counter()
-        buf = res.buf.cpu().numpy()
-        kind, count, stamp, length, ptr, _wrote, hist, regs = \
-            _split(buf, res.kind0.shape[0])
+        n = res.dcount
+        h = self._to_host("sync", be.gather_dirty(res.state, res.dirty, n))
+        hist = h[:_NHIST]
+        regs = h[_NHIST:be.META]
+        keys = h[be.META:be.META + n].astype(np.int64)
+        vals = h[be.META + n:].reshape(be.FIELDS, n)
+        if n and keys.max() >= res.nslots:
+            raise RuntimeError(f"fused_window: {name}'s device copy wrote a "
+                               f"pad slot")
+        kind0 = res.shadow[0, keys]
+        res.shadow[:, keys] = vals
         cache = res.cache
-        ns = res.nslots
+        kind, count, stamp, length, ptr = vals
         with sanitize.owned(res.kn_name):
-            # device arrays are padded to a power of two; only the
-            # first ns slots are real (pad entries are never addressed)
-            cache.kind[:ns] = kind[:ns].astype(np.int8)
-            cache.count[:ns] = count[:ns]
-            cache.stamp[:ns] = stamp[:ns]
-            cache.length[:ns] = length[:ns]
-            cache.ptr[:ns] = ptr[:ns]
+            cache.kind[keys] = kind.astype(np.int8)
+            cache.count[keys] = count
+            cache.stamp[keys] = stamp
+            cache.length[keys] = length
+            cache.ptr[keys] = ptr
         cache._cnt_hist[:] = hist.tolist()
         cache.used = int(regs[be.R_USED])
         cache._clock = int(regs[be.R_CLOCK])
@@ -233,15 +415,20 @@ class JitEngine:
         cache._nshort = int(regs[be.R_NSHORT])
         # entries whose kind survived keep their lazy-heap records
         # (stale stamps/counts self-heal on pop); changed kinds need
-        # one fresh record to stay visible to victim selection
-        lru, lfu = cache._lru, cache._lfu
-        for k in np.nonzero(kind != res.kind0)[0].tolist():
-            kd = int(kind[k])
-            if kd == 2:
-                heapq.heappush(lru, (int(stamp[k]), k))
-            elif kd == 1:
-                heapq.heappush(lfu, (int(count[k]), k))
+        # one fresh record to stay visible to victim selection, pushed
+        # in key order (each heap's own order is all that matters)
+        moved = kind != kind0
+        for heap, kd, val in ((cache._lru, 2, stamp), (cache._lfu, 1, count)):
+            sel = np.flatnonzero(moved & (kind == kd))
+            if sel.size:
+                sel = sel[np.argsort(keys[sel])]
+                recs = zip(val[sel].tolist(), keys[sel].tolist())
+                any(map(heapq.heappush, itertools.repeat(heap), recs))
+        res.live = False
+        res.dcount = 0
         self.counts["syncs"] += 1
+        self.counts["sync_slots"] += n
+        self.counts["sync_bytes"] += h.nbytes
         ENGINE_WALL["jit_sync"] += time.perf_counter() - t0
 
     def sync_all(self) -> None:
@@ -260,23 +447,77 @@ class JitEngine:
             self._vmax[amr] = t
         return t
 
+    # ----- the advance: every KN's dispatches, one launch a step ---------
+    def advance(self, steps, host_window) -> None:
+        """Drive ``steps`` -- (window, ``run_window`` generator, its ops),
+        in KN order -- to their ends: each generator runs to its next
+        dispatch, the dispatches of all go into one launch, and each
+        folds its result and goes on, in KN order. A window the engine
+        declines runs through ``host_window(window, ops)``."""
+        active = []
+        for w, gen, full in steps:
+            self._step(w, gen, full, None, active, host_window)
+        while active:
+            outs = self._launch([job for *_, job in active])
+            cur, active = active, []
+            for (w, gen, full, _), out in zip(cur, outs):
+                self._step(w, gen, full, out, active, host_window)
+
+    @staticmethod
+    def _step(w, gen, full, out, active, host_window) -> None:
+        with sanitize.owned(w.kn.name):
+            try:
+                job = gen.send(out)
+            except StopIteration as stop:
+                if stop.value is False:
+                    # ineligible window (int32 guards / too small)
+                    host_window(w, full)
+                return
+        active.append((w, gen, full, job))
+
+    def _launch(self, jobs) -> list[np.ndarray]:
+        """One kernel-E launch over ``jobs``: their windows in through
+        one copy, each job's packed result back through one; returns the
+        results (views of the pinned buffer), in job order."""
+        t0 = time.perf_counter()
+        rows = np.concatenate([j.win.reshape(-1) for j in jobs])
+        dwin = self._to_device("window", rows)
+        wjobs = []
+        off = 0
+        for j in jobs:
+            win = dwin[off:off + 6 * j.n].view(6, j.n)
+            off += 6 * j.n
+            r = j.res
+            wjobs.append(be.WindowJob(r.state, tuple(win), j.n, j.cap,
+                                      self.cluster.value_bytes, j.vmax,
+                                      r.trees, r.dirty))
+        outs = be.fused_windows(wjobs)
+        host = self._to_host("out", outs.packed)
+        self.counts["launches"] += 1
+        ENGINE_WALL["jit_dispatch"] += time.perf_counter() - t0
+        got, off = [], 0
+        for j in jobs:
+            size = be.HEADER + 2 * j.n + 1
+            got.append(host[off:off + size])
+            off += size
+        return got
+
     # ----- window execution ----------------------------------------------
     def run_window(self, w, full, keys, kinds, plan, probe_map, dkeys,
-                   dbuckets, out_values) -> bool:
-        """Execute one KN window (global positions ``full``) through
-        the device engine. Returns False when the window is ineligible
-        (the caller runs it through the host engine untouched)."""
+                   dbuckets, out_values):
+        """Execute one KN window (global positions ``full``) through the
+        device engine, as a generator: it yields each prepared dispatch
+        (``advance`` launches it) and is sent back the dispatch's packed
+        result. Returns False when the window is ineligible (the caller
+        runs it through the host engine untouched), else True."""
         kn, cache = w.kn, w.cache
         name = kn.name
-        if full.size < MIN_SPAN and name not in self.resident:
+        if full.size < MIN_SPAN and not self._live(name):
             return False
         c = self.cluster
         self._ensure_pm(probe_map, keys.shape[0], c.pool)
-        if name not in self.resident:
-            res = self._upload(kn, cache, plan)
-            if res is None:
-                return False
-            self.resident[name] = res
+        if not self._live(name) and self._upload(kn, cache) is None:
+            return False
         skeys = keys[full]
         sops = kinds[full]
         dpos = np.nonzero(sops == 2)[0]
@@ -301,7 +542,7 @@ class JitEngine:
                                   dbuckets, out_values)
                 lo += 1
                 continue
-            if seg_end - lo < MIN_SPAN and name not in self.resident:
+            if seg_end - lo < MIN_SPAN and not self._live(name):
                 # too short to pay a fresh upload: run through the
                 # next delete on host, then resume
                 host_end = min(seg_end + 1, nall)
@@ -310,19 +551,17 @@ class JitEngine:
                                   dbuckets, out_values)
                 lo = host_end
                 continue
-            if name not in self.resident:
-                res = self._upload(kn, cache, plan)
-                if res is None:
-                    self._host_replay(kn, cache, full, skeys, sops, lo,
-                                      nall, plan, probe_map, dkeys,
-                                      dbuckets, out_values)
-                    return True
-                self.resident[name] = res
+            if not self._live(name) and self._upload(kn, cache) is None:
+                self._host_replay(kn, cache, full, skeys, sops, lo,
+                                  nall, plan, probe_map, dkeys,
+                                  dbuckets, out_values)
+                return True
             res = self.resident[name]
             n = min(seg_end - lo, W_MAX)
-            ne, cut = self._dispatch(kn, cache, res, full, skeys, sops,
-                                     lo, n, plan, dkeys, dbuckets,
-                                     out_values)
+            job = self._prepare(kn, cache, res, full, skeys, sops, lo, n,
+                                plan, dkeys, dbuckets)
+            packed = yield job
+            ne, cut = self._finish(kn, cache, job, packed, plan, out_values)
             lo += ne
             if cut:
                 stall = stall + 1 if ne < _STALL_NE else 0
@@ -348,9 +587,9 @@ class JitEngine:
                                   probe_map, dkeys, dbuckets,
                                   out_values)
 
-    # ----- one device dispatch + host fold --------------------------------
-    def _dispatch(self, kn, cache, res, full, skeys, sops, lo, n, plan,
-                  dkeys, dbuckets, out_values):
+    # ----- one device dispatch: prepare, then fold ------------------------
+    def _prepare(self, kn, cache, res, full, skeys, sops, lo, n, plan,
+                 dkeys, dbuckets) -> _Job:
         t0 = time.perf_counter()
         hi = lo + n
         spos = full[lo:hi]
@@ -366,43 +605,51 @@ class JitEngine:
         pm = self._pm_ptr[spos].copy()
         pml[:] = self._pm_len[spos]
         # a prefetch stays valid only while its key and bucket are
-        # untouched by mid-batch merges (the pool's dirty sets)
-        if dkeys:
-            dk = np.fromiter(dkeys, np.int64, len(dkeys))
-            pm[np.isin(ck, dk)] = be.PM_INVALID
-        if dbuckets:
-            db = np.fromiter(dbuckets, np.int64, len(dbuckets))
-            pm[np.isin(self._pm_bucket[spos], db)] = be.PM_INVALID
+        # untouched by mid-batch merges (the pool's dirty sets); only
+        # the window's prefetched positions are looked up
+        if dkeys or dbuckets:
+            at = np.flatnonzero(pm != be.PM_INVALID)
+            if at.size:
+                kl = ck[at].tolist()
+                bl = self._pm_bucket[spos[at]].tolist()
+                stale = [k in dkeys or b in dbuckets
+                         for k, b in zip(kl, bl)]
+                pm[at[np.array(stale, bool)]] = be.PM_INVALID
         pmp[:] = pm
+        # a read may find its key in the segment cache (writes do not
+        # look): the window's reads looked up in it as they stand
         segd = kn.segcache
         if segd:
-            sk = np.fromiter(segd.keys(), np.int64, len(segd))
-            seg0[:] = np.isin(ck, sk)
-        vmax = self._vmax_for(cache)
-        window = torch.from_numpy(win).to(self.device)
+            rd = np.flatnonzero(ops32 == 0)
+            if rd.size:
+                seg0[rd] = np.fromiter(
+                    (k in segd for k in ck[rd].tolist()), bool, rd.size)
+        job = _Job()
+        job.res, job.win, job.n, job.cap = res, win, n, cache.capacity
+        job.vmax = self._vmax_for(cache)
+        job.spos, job.ck = spos, ck
         ENGINE_WALL["jit_prep"] += time.perf_counter() - t0
+        return job
 
+    def _finish(self, kn, cache, job, host, plan, out_values):
+        """Read one dispatch's packed result and fold it; returns
+        (n_exec, cut)."""
         t0 = time.perf_counter()
-        out = be.fused_window(res.state, *window, n, cache.capacity,
-                              self.cluster.value_bytes, vmax,
-                              trees=res.trees)
-        host = out.packed.cpu().numpy()        # the one copy back
+        res, n = job.res, job.n
         ne, cut = int(host[0]), int(host[1])
         if cut == be.CUT_BAD_KEY:
             raise RuntimeError(f"fused_window: a key of {kn.name}'s window "
-                               f"lies outside its {res.kind0.size} slots")
+                               f"lies outside its {res.pad} slots")
         regs = host[2:be.HEADER]
         events = host[be.HEADER:be.HEADER + ne]
         out_ptr = host[be.HEADER + n:be.HEADER + n + ne]
+        res.dcount = int(host[be.HEADER + 2 * n])
         self.counts["dispatches"] += 1
         self.counts["dispatched_ops"] += ne
         if cut:
             self.counts[f"cut_{_CUT_NAMES[cut]}"] += 1
-        ENGINE_WALL["jit_dispatch"] += time.perf_counter() - t0
-
-        t0 = time.perf_counter()
-        self._fold(kn, cache, res, spos[:ne], ck[:ne], events, out_ptr,
-                   regs, plan, out_values)
+        self._fold(kn, cache, res, job.spos[:ne], job.ck[:ne], events,
+                   out_ptr, regs, plan, out_values)
         ENGINE_WALL["jit_fold"] += time.perf_counter() - t0
         return ne, cut
 

@@ -68,7 +68,7 @@ MERGE_PLAN_STATS = {"planned_windows": 0, "planned_entries": 0,
 # depend on the host.
 ENGINE_WALL = {"host_plan": 0.0, "host_apply": 0.0, "host_replay": 0.0,
                "jit_prep": 0.0, "jit_dispatch": 0.0, "jit_fold": 0.0,
-               "jit_sync": 0.0, "jit_upload": 0.0}
+               "jit_sync": 0.0, "jit_upload": 0.0, "jit_full_upload": 0.0}
 
 
 def reset_plan_stats() -> None:

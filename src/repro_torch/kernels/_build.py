@@ -8,8 +8,8 @@ loaded with ctypes; every pointer and the stream go as ``c_void_p``.
 Any failure raises: there is no fallback.
 
 ``launches`` counts the launches of each kernel and ``work`` the keys,
-entries, query rows, sequences, (token, head) rows, op rows or window ops
-handed to it;
+entries, query rows, sequences, (token, head) rows, op rows, window ops or
+moved slots handed to it;
 ``launch`` is the only place that adds to them.
 """
 
@@ -50,12 +50,16 @@ SIGNATURES = {
     "ssd_scan_launch": (_I, *(_P,) * 7, *(_I,) * 13, _P),
     "cache_transition_launch": (_P, _I, _P, *(_I,) * 4, _P, _P, _P, _P),
     "fused_window_build": (_P, _P, _P, _I, _P, _P, _P),
-    "fused_window_launch": (*(_P,) * 8, _I, _P, _P, *(_P,) * 6, _I, _I, _I,
-                            _I, _P, _I, _P, _P),
+    "fused_windows_launch": (_P, _I, _P),
+    "fused_window_gather": (*(_P,) * 8, _I, _P, _I, _P, _P),
+    "fused_window_scatter": (*(_P,) * 8, _I, _P, _P, _P, _I, _P),
+    "fused_window_guards": (*(_P,) * 4, _I, _P, _P),
 }
 KERNELS = ("clht_probe", "kvs_lookup_fused", "log_merge_sorted",
            "clht_insert", "flash_attention", "paged_decode_attention",
-           "ssd_scan", "cache_transition", "fused_window")
+           "ssd_scan", "cache_transition", "fused_window",
+           "fused_window_gather", "fused_window_scatter",
+           "fused_window_guards")
 
 launches = dict.fromkeys(KERNELS, 0)
 work = dict.fromkeys(KERNELS, 0)

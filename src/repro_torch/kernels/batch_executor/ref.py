@@ -411,3 +411,31 @@ def _victim_sum_shifted(s: _S, n_evict: int, c: int):
         if got == n_evict:
             return False, total
     return True, 0
+
+
+def fused_windows_ref(jobs):
+    """The plain version of ``fused_windows``: ``fused_window_ref`` on each
+    job's (state, window (six arrays), n, cap, write_bytes, vmax) in
+    turn. The jobs' states are distinct, so the order cannot matter."""
+    return [fused_window_ref(state, *window, n, cap, wb, vmax)
+            for state, window, n, cap, wb, vmax in jobs]
+
+
+def dirty_slots_ref(before, after) -> np.ndarray:
+    """The plain version of a launch's dirty record: every slot where any
+    of the six per-slot arrays (kind, count, stamp, length, ptr, wrote)
+    differs between ``before`` and ``after``, ascending."""
+    changed = np.zeros(before[0].shape[0], bool)
+    for a, b in zip(before[:6], after[:6], strict=True):
+        changed |= a != b
+    return np.flatnonzero(changed)
+
+
+def guard_maxima_ref(kind, count, ptr, length, nslots: int) -> np.ndarray:
+    """The plain version of ``guard_maxima``: (3,) int32, the largest
+    count, ptr and length over the live slots (kind != 0) of [0, nslots),
+    -2^31 where none is live."""
+    live = kind[:nslots] != 0
+    lo = np.iinfo(np.int32).min
+    return np.array([a[:nslots][live].max(initial=lo)
+                     for a in (count, ptr, length)], np.int32)

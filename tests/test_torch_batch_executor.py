@@ -165,3 +165,100 @@ def test_wrapper_refuses_bad_inputs():
     with pytest.raises(ValueError, match="int32"):
         tbe.fused_window(state, *win, 8, 2**31, 64, vmax)
     assert tbe.build_trees(state) is None       # the plain version scans
+
+
+def four_kn_jobs(seed):
+    """Four KNs' windows (32, 1,024, 1,024 slots full of victims, 64
+    slots): numpy jobs (state, window, n, cap, write_bytes, vmax)."""
+    cases_ = [cases.window_chain(seed, 32, 64, 1),
+              cases.window_chain(seed + 1, 1024, 512, 1),
+              cases.window_victims_case(seed, 1 << 10, 256, 1),
+              cases.window_chain(seed + 2, 64, 64, 1)]
+    return [(tuple(a.copy() for a in state), wins[0][:6], wins[0][6], cap,
+             wb, tbe.build_promote_table(amr))
+            for state, wins, cap, wb, amr in cases_]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fused_windows_is_fused_window_per_kn(seed):
+    """fused_windows_ref over four KNs' windows equals fused_window_ref
+    on each; the port's fused_windows on CPU tensors (one call, four
+    jobs, each with a dirty record) equals both, each job's record
+    holding exactly the slots that changed, once each, and its packed
+    tail their count."""
+    jobs = four_kn_jobs(seed)
+    wants = [tbe.fused_window_ref(tuple(a.copy() for a in st), *win, n,
+                                  cap, wb, vmax)
+             for st, win, n, cap, wb, vmax in jobs]
+    got = tbe.fused_windows_ref([(tuple(a.copy() for a in st), *rest)
+                                 for st, *rest in jobs])
+    tjobs = [tbe.WindowJob(tuple(torch.from_numpy(a.copy()) for a in st),
+                           tuple(torch.from_numpy(a) for a in win), n, cap,
+                           wb, torch.from_numpy(vmax), None,
+                           tbe.new_dirty(st[0].size, "cpu"))
+             for st, win, n, cap, wb, vmax in jobs]
+    launches = _build.launches["fused_window"]
+    outs = tbe.fused_windows(tjobs)
+    assert _build.launches["fused_window"] == launches   # the plain path
+    for job, out, g, want, (st, *_) in zip(tjobs, outs, got, wants, jobs,
+                                           strict=True):
+        ne = want[0]
+        for a in (g, (int(out[0]), [t.numpy() for t in out[1]],
+                      out[2].numpy(), out[3].numpy(), int(out[4]))):
+            assert (a[0], a[4]) == (ne, want[4])
+            np.testing.assert_array_equal(a[2], want[2])
+            np.testing.assert_array_equal(a[3], want[3])
+            for x, y in zip(a[1], want[1], strict=True):
+                np.testing.assert_array_equal(x, y)
+        slots = tbe.dirty_slots_ref(st, want[1])
+        d = job.dirty.numpy()
+        words = (st[0].size + 31) // 32
+        assert int(out.packed[-1]) == int(d[0]) == slots.size
+        np.testing.assert_array_equal(
+            np.sort(d[1 + words:1 + words + slots.size]), slots)
+        bits = d[1:1 + words].view(np.uint32)
+        assert sum(bin(int(b)).count("1") for b in bits) == slots.size
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_moved_slot_plain_versions(seed):
+    """The moved-slot functions on CPU tensors: gather_dirty after a
+    window returns the changed slots' fields, the histogram and the
+    registers, empties the record and clears the slots' wrote flags;
+    scatter_slots of that buffer into the state as it was before the
+    window gives the state after it (wrote aside); guard_maxima is the
+    masked maxima over the first nslots, -2^31 where none is live."""
+    st, win, n, cap, wb, vmax = four_kn_jobs(seed)[2]
+    before = tuple(torch.from_numpy(a.copy()) for a in st)
+    after = tuple(torch.from_numpy(a.copy()) for a in st)
+    dirty = tbe.new_dirty(st[0].size, "cpu")
+    out = tbe.fused_windows([tbe.WindowJob(
+        after, tuple(torch.from_numpy(a) for a in win), n, cap, wb,
+        torch.from_numpy(vmax), None, dirty)])[0]
+    m = int(out.packed[-1])
+    assert m > 0
+    wrote = after[5].numpy().copy()
+    rec = tbe.gather_dirty(after, dirty, m)
+    assert rec.shape == (tbe.META + (1 + tbe.FIELDS) * m,)
+    words = (st[0].size + 31) // 32
+    assert int(dirty[0]) == 0 and not dirty[1:1 + words].any()
+    keys = rec[tbe.META:tbe.META + m].numpy()
+    assert not after[5].numpy()[keys].any() and wrote.any()
+    tbe.scatter_slots(before, None, rec)
+    for j in (0, 1, 2, 3, 4, 6, 7):
+        np.testing.assert_array_equal(before[j].numpy(), after[j].numpy())
+    g = np.random.default_rng(seed)
+    kind = g.integers(0, 3, 1000).astype(np.int32)
+    vals = [g.integers(-9, 2**31 - 1, 1000).astype(np.int32)
+            for _ in range(3)]
+    for nslots in (0, 1, 500, 1000):
+        live = kind[:nslots] != 0
+        want = [int(v[:nslots][live].max()) if live.any() else -2**31
+                for v in vals]
+        state = tuple(torch.from_numpy(a) for a in (
+            kind, vals[0], kind, vals[2], vals[1], kind))
+        state = state + (torch.zeros(65, dtype=torch.int32),
+                         torch.zeros(8, dtype=torch.int32))
+        state = tuple(torch.cat([t, t[:24]]) if t.shape == (1000,) else t
+                      for t in state)
+        assert tbe.guard_maxima(state, nslots).tolist() == want

@@ -1121,5 +1121,154 @@ def test_jit_cluster_on_the_card_equals_the_host_engine(dev):
                 c.fail_kn("kn2")
         assert cluster_state(jit, heaps=False) == \
             cluster_state(host, heaps=False)
-    assert _build.launches["fused_window"] - n0 == \
-        jit._jit.counts["dispatches"] > 0
+    counts = jit._jit.counts
+    assert _build.launches["fused_window"] - n0 == counts["launches"] > 0
+    assert counts["dispatches"] >= counts["launches"]
+
+
+def trees_valid(dstate, trees):
+    """The trees a launch leaves equal a fresh build from its state
+    (node 0 is unused)."""
+    fresh = tbe.build_trees(dstate)
+    return all(torch.equal(a[1:], b[1:]) for a, b in zip(trees, fresh))
+
+
+def held_jobs(dev, cases_, launches):
+    """``launches`` launches of kernel E, each over every case's next
+    window at once (one job a case, each state with its trees and a dirty
+    record on the card), each job held to fused_window_ref on host copies
+    of its inputs and its dirty record to the slots that changed; the
+    trees valid after each launch. Returns the host states, the card
+    states and their dirty records."""
+    host = [c[0] for c in cases_]
+    dstates = [tuple(torch.from_numpy(a.copy()).to(dev) for a in c[0])
+               for c in cases_]
+    trees = [tbe.build_trees(d) for d in dstates]
+    dirty = [tbe.new_dirty(d[0].shape[0], dev) for d in dstates]
+    changed = [set() for _ in cases_]
+    for step in range(launches):
+        jobs, wants = [], []
+        for i, (state, wins, cap, wb, amr) in enumerate(cases_):
+            win = wins[step]
+            vmax = tbe.build_promote_table(amr)
+            wants.append(tbe.fused_window_ref(
+                tuple(a.copy() for a in host[i]), *win, cap, wb, vmax))
+            jobs.append(tbe.WindowJob(
+                dstates[i], tuple(torch.from_numpy(a).to(dev)
+                                  for a in win[:6]), win[6], cap, wb,
+                torch.from_numpy(vmax).to(dev), trees[i], dirty[i]))
+        n0 = _build.launches["fused_window"]
+        outs = tbe.fused_windows(jobs)
+        assert _build.launches["fused_window"] == n0 + 1
+        for i, (out, want) in enumerate(zip(outs, wants)):
+            assert (int(out[0]), int(out[4])) == (want[0], want[4])
+            assert np.array_equal(out[2].cpu().numpy(), want[2])
+            assert np.array_equal(out[3].cpu().numpy(), want[3])
+            for a, b in zip(want[1], dstates[i]):
+                assert np.array_equal(a, b.cpu().numpy())
+            changed[i] |= set(tbe.dirty_slots_ref(host[i], want[1])
+                              .tolist())
+            host[i] = want[1]
+            n = int(out.packed[-1])
+            got = dirty[i][1 + (host[i][0].size + 31) // 32:][:n]
+            assert int(dirty[i][0]) == n
+            assert changed[i] <= set(got.cpu().tolist())
+            assert len(set(got.cpu().tolist())) == n
+            assert trees_valid(dstates[i], trees[i])
+    return host, dstates, dirty
+
+
+def test_fused_windows_four_kns_in_one_launch(dev):
+    """Four KNs' windows in each launch (32, 1024, 4096 and 2^21 slots,
+    chained three deep): every job equal to fused_window_ref on its own
+    inputs, its dirty record holding every slot that changed, once."""
+    cases_ = [cases.window_chain(0, 32, 64, 3),
+              cases.window_chain(1, 1024, 512, 3),
+              cases.window_victims_case(2, 1 << 12, 1024),
+              cases.window_chain(0, 1 << 21, 300, 3, 64)]
+    held_jobs(dev, cases_, 3)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_deferred_repair_on_windows_that_consume_victims(dev, seed):
+    """Windows whose hits change leaves of both trees between
+    make-spaces that demote values and evict shortcuts (thousands of
+    victims): equal to the plain version, the trees valid after each."""
+    state, wins, cap, wb, amr = cases.window_victims_case(seed)
+    host, _, _ = held_jobs(dev, [(state, wins, cap, wb, amr)], 3)
+    assert host[0][7][6] > 1000 and host[0][7][7] > 100
+
+
+def test_dirty_gather_and_scatter_match_plain(dev):
+    """gather_dirty after a launch returns each dirty slot's fields (the
+    plain version's, whatever the record's order), empties the record and
+    clears the slots' wrote flags; scatter_slots writes a record's slots
+    into a state and repairs its trees, for a few slots (the repair) and
+    for many (the rebuild)."""
+    case = cases.window_victims_case(4, 1 << 12, 1024, 1)
+    host, dstates, dirty = held_jobs(dev, [case], 1)
+    st, d = dstates[0], dirty[0]
+    n = int(d[0])
+    cpu = tuple(torch.from_numpy(a.copy()) for a in host[0])
+    dcpu = d.cpu().clone()
+    n_launch = _build.launches["fused_window_gather"]
+    got = tbe.gather_dirty(st, d, n).cpu().numpy()
+    want = tbe.gather_dirty(cpu, dcpu, n).numpy()
+    assert _build.launches["fused_window_gather"] == n_launch + 1
+    meta = tbe.META
+    assert np.array_equal(got[:meta], want[:meta])
+    go, wo = np.argsort(got[meta:meta + n]), np.argsort(want[meta:meta + n])
+    for f in range(1 + tbe.FIELDS):
+        blk = slice(meta + f * n, meta + (f + 1) * n)
+        assert np.array_equal(got[blk][go], want[blk][wo])
+    assert torch.equal(d.cpu(), dcpu) and int(d[0]) == 0
+    for a, b in zip(st, cpu):
+        assert torch.equal(a.cpu(), b)
+    rng = np.random.default_rng(5)
+    s = st[0].shape[0]
+    trees = tbe.build_trees(st)
+    for m in (7, 3000):
+        keys = rng.choice(s, m, replace=False).astype(np.int32)
+        kind = rng.integers(0, 3, m).astype(np.int32)
+        rec = np.concatenate([rng.integers(0, 9, tbe.META), keys, kind,
+                              *(rng.integers(-5, 1 << 20, m)
+                                for _ in range(4))]).astype(np.int32)
+        tbe.scatter_slots(st, trees, torch.from_numpy(rec).to(dev))
+        tbe.scatter_slots(cpu, None, torch.from_numpy(rec))
+        for a, b in zip(st, cpu):
+            assert torch.equal(a.cpu(), b)
+        assert trees_valid(st, trees)
+
+
+@pytest.mark.parametrize("nslots", [2, 1000, 1 << 21])
+def test_guard_maxima_at_the_edges(dev, nslots):
+    """The guards' three maxima over live slots equal the plain
+    version's where a live value sits at each guard's edge (2^30 - 1,
+    2^30, 2^31 - 1), dead slots and slots past nslots hold larger ones,
+    and where no slot is live."""
+    s = 2
+    while s < nslots:
+        s <<= 1
+    rng = np.random.default_rng(nslots)
+    for edge in (2**30 - 1, 2**30, 2**31 - 1, None):
+        arrs = [np.zeros(s, np.int32) for _ in range(6)]
+        live = (rng.random(s) < 0.3) & (edge is not None)
+        arrs[0][:] = np.where(live, rng.integers(1, 3, s), 0)
+        for j in (1, 3, 4):
+            arrs[j][:] = rng.integers(-10, 1 << 20, s)
+            arrs[j][~live] = 2**31 - 1
+        if edge is not None:
+            for j in (1, 3, 4):
+                k = int(rng.integers(0, nslots))
+                arrs[0][k] = 1
+                arrs[j][k] = edge
+        arrs[0][nslots:] = 2
+        arrs[1][nslots:] = 2**31 - 1
+        state = (*arrs, np.zeros(65, np.int32), np.zeros(8, np.int32))
+        dstate = tuple(torch.from_numpy(a).to(dev) for a in state)
+        n0 = _build.launches["fused_window_guards"]
+        got = tbe.guard_maxima(dstate, nslots).cpu().numpy()
+        assert _build.launches["fused_window_guards"] == n0 + 1
+        want = tbe.guard_maxima_ref(arrs[0], arrs[1], arrs[4], arrs[3],
+                                    nslots)
+        assert np.array_equal(got, want), (edge, got, want)

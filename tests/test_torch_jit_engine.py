@@ -14,6 +14,8 @@ host engine (the same state less the lazy heaps' records, which the jit
 engine re-seeds at its scatter-back), and one stream runs under the
 ownership sanitizer. Exact comparisons throughout."""
 
+import contextlib
+
 import numpy as np
 import pytest
 from hypothesis import given, settings
@@ -26,6 +28,7 @@ from repro.core import sanitize as js  # noqa: E402
 from repro.core import transition as jt  # noqa: E402
 from repro.data import Workload  # noqa: E402
 from repro_torch.core import cluster as tcl  # noqa: E402
+from repro_torch.core import jit_engine as jen  # noqa: E402
 from repro_torch.core import sanitize as ts  # noqa: E402
 from repro_torch.core import transition as tt  # noqa: E402
 from torch_cluster_cases import batch_result, cluster_state  # noqa: E402
@@ -276,3 +279,133 @@ def test_jit_under_the_sanitizer():
     finally:
         for s in (js, ts):
             s.disable()
+
+
+# ------------------------------- the residency kept across batches
+@contextlib.contextmanager
+def moved_slots_checked(cluster):
+    """Check every upload and scatter-back of ``cluster``'s jit engine:
+    the slots a delta upload sends are exactly those where the cache
+    arrays differ from the engine's shadow (a full diff: no host write
+    path escaped the record), and the slots a scatter-back moves cover
+    every slot where the device copy differs from the shadow. Yields the
+    numbers of checked uploads and syncs."""
+    real_delta, real_sync = jen.JitEngine._delta, jen.JitEngine.sync_kn
+    seen = {"uploads": 0, "syncs": 0}
+
+    def delta(self, res):
+        cache = res.cache
+        host = np.stack([getattr(cache, f)[:res.nslots]
+                         for f in jen._FIELDS]).astype(np.int64)
+        want = np.flatnonzero((host != res.shadow).any(axis=0))
+        sent = real_delta(self, res)
+        np.testing.assert_array_equal(sent, want)
+        seen["uploads"] += 1
+        return sent
+
+    def sync(self, name):
+        res = self.resident.get(name)
+        if res is not None and res.live:
+            dev = np.stack([t.numpy()[:res.nslots]
+                            for t in res.state[:5]]).astype(np.int64)
+            changed = (dev != res.shadow).any(axis=0) | \
+                (res.state[5].numpy()[:res.nslots] != 0)
+            d = res.dirty.numpy()
+            words = (res.pad + 31) // 32
+            listed = set(d[1 + words:1 + words + res.dcount].tolist())
+            assert int(d[0]) == res.dcount
+            assert set(np.flatnonzero(changed).tolist()) <= listed
+            seen["syncs"] += 1
+        return real_sync(self, name)
+
+    jen.JitEngine._delta, jen.JitEngine.sync_kn = delta, sync
+    try:
+        yield seen
+    finally:
+        jen.JitEngine._delta, jen.JitEngine.sync_kn = real_delta, real_sync
+
+
+def test_record_and_dirty_list_cover_every_change():
+    """Chained YCSB batches through replication, a join and a failure,
+    with deletes and host replays: at every delta upload the cache's
+    record equals a full diff against the shadow, at every scatter-back
+    the device's list covers every changed slot; the residency outlives
+    the batches (a full upload only at first use and after each
+    reconfiguration's clear); every state equal to the reference's jit
+    engine and to the port's host engine."""
+    t = JitTwin(4000, num_kns=4, cache_bytes=int(4000 * 1024 * 0.03),
+                value_bytes=1024, num_buckets=1 << 12, segment_capacity=64,
+                host=True)
+    hot = Workload(num_keys=4000, zipf=1.6, mix="write_heavy_update",
+                   seed=4).hot_keys(3)
+    with moved_slots_checked(t.port) as seen:
+        for step in range(7):
+            mix = MIX_NAMES[1 + step % 4]
+            t.batch(*mixed_ops(step, 4000, 4000, mix, delete_frac=0.02),
+                    collect_values=True)
+            counts = t.port._jit.counts
+            if step == 0:
+                assert counts["full_uploads"] == 4
+            if step == 1:
+                for c in t.clusters:
+                    for k in hot:
+                        c.replicate_key(k, 3)
+            if step == 3:
+                for c in t.clusters:
+                    c.add_kn()
+            if step == 4:
+                for c in t.clusters:
+                    c.fail_kn("kn2")
+                assert "kn2" not in t.port._jit.resident
+            t.check()
+    counts = t.port._jit.counts
+    assert seen["uploads"] == counts["uploads"] - counts["full_uploads"] > 0
+    assert seen["syncs"] == counts["syncs"] > 10
+    assert counts["upload_deltas"] > 0 and counts["host_replays"] > 0
+    # whole uploads: first use, then the caches the join and the failure
+    # cleared
+    assert counts["full_uploads"] > 4
+    assert counts["launches"] < counts["dispatches"]
+
+
+def test_chained_batches_move_only_changed_slots():
+    """Without reconfigurations the four caches are uploaded whole once;
+    every later upload and scatter-back moves a small share of the
+    slots, and the states stay equal to both twins'."""
+    t = dataplane_twin(11, 1 << 17, host=True)
+    with moved_slots_checked(t.port):
+        for s in range(4):
+            kinds, keys = Workload(num_keys=6000, zipf=1.1,
+                                   mix="write_heavy_update",
+                                   seed=s).ops_arrays(2000)
+            t.batch(kinds, keys)
+    counts = t.port._jit.counts
+    nslots = max(r.nslots for r in t.port._jit.resident.values())
+    assert counts["full_uploads"] == 4
+    assert counts["sync_slots"] < counts["syncs"] * nslots // 2
+
+
+def test_deepcopy_drops_the_residency():
+    """A copied cluster's engine holds no residency and its caches
+    record nothing; both go on equal to each other (chip_smoke.py's
+    cluster phase copies a loaded cluster)."""
+    import copy
+    a = tcl.DinomoCluster(tcl.VARIANTS["dinomo"], device="cpu", num_kns=4,
+                          cache_bytes=1 << 17, value_bytes=1024,
+                          num_buckets=1 << 12, segment_capacity=64)
+    a.load(((k, f"v{k}") for k in range(3000)), warm=True)
+    kinds, keys = Workload(num_keys=3000, zipf=1.1, mix="write_heavy_update",
+                           seed=1).ops_arrays(1500)
+    a.execute_batch(kinds, keys, values=lambda i: f"w{i}", engine="jit")
+    assert a._jit.resident
+    assert all(kn.cache._dirty is not None for kn in a.kns.values())
+    b = copy.deepcopy(a)
+    assert not b._jit.resident
+    assert all(kn.cache._dirty is None for kn in b.kns.values())
+    kinds, keys = Workload(num_keys=3000, zipf=1.1, mix="write_heavy_update",
+                           seed=2).ops_arrays(1500)
+    got = [batch_result(c.execute_batch(kinds, keys, values=lambda i: f"x{i}",
+                                        engine="jit")) for c in (a, b)]
+    assert got[0] == got[1]
+    assert cluster_state(a) == cluster_state(b)
+    assert b._jit.counts["full_uploads"] - a._jit.counts["full_uploads"] == 4

@@ -287,3 +287,50 @@ def window_cut_case(name: str, nslots: int = 64, prefix: int = 5):
 
 WINDOW_CUTS = ("segcache", "prefetch", "spill", "ema", "table", "promote",
                "no_promote")
+
+
+def window_victims_case(seed: int, nslots: int = 1 << 12, w: int = 2048,
+                        windows: int = 3, nvals: int | None = None):
+    """A full cache over ``nslots`` slots -- ``nvals`` values (nslots/32
+    if None; stamps ascending) and nslots/4 shortcuts, most of them never
+    hit -- and
+    windows of value and shortcut hits (leaves of both trees changed
+    between make-spaces), misses that fill, writes and promotions, each
+    of which makes space: the values are demoted first, then shortcuts
+    evicted, so the windows consume victims from both trees. Returns
+    (state, [(ops, keys, wptr, pm_ptr, pm_len, seg0, n), ...], cap,
+    write_bytes, amr)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(nslots)
+    nv, ns = (nslots // 32 if nvals is None else nvals), nslots // 4
+    vk, sk, rest = perm[:nv], perm[nv:nv + ns], perm[nv + ns:]
+    length = 100
+    vcnt = rng.integers(1, 50, nv)
+    scnt = np.where(rng.random(ns) < 0.6, 0, rng.integers(1, 40, ns))
+    kind = {**{int(k): 2 for k in vk}, **{int(k): 1 for k in sk}}
+    count = {**dict(zip(vk.tolist(), vcnt.tolist())),
+             **dict(zip(sk.tolist(), scnt.tolist()))}
+    lens = {int(k): length for k in perm[:nv + ns]}
+    cap = nv * (length + 40) + ns * 32
+    state = window_state(nslots, kind, count, lens, used=cap,
+                         zshort=int((scnt == 0).sum()), nvals=nv, nshort=ns)
+    out = []
+    for _ in range(windows):
+        # reads of the values, the shortcuts and half the rest; writes to
+        # the other half (a read of a written key would cut the window)
+        src = rng.choice(3, w, p=[0.4, 0.35, 0.25])
+        ops = (rng.random(w) < 0.15).astype(np.int32)
+        half = rest.size // 2
+        keys = np.where(src == 0, rng.choice(vk, w),
+                        np.where(src == 1, rng.choice(sk, w),
+                                 rng.choice(rest[:half], w)))
+        keys = np.where(ops == 1, rng.choice(rest[half:], w),
+                        keys).astype(np.int32)
+        wptr = rng.integers(0, 1 << 20, w).astype(np.int32)
+        pm_ptr = np.where(rng.random(w) < 0.8,
+                          rng.integers(0, 1 << 20, w),
+                          PM_ABSENT).astype(np.int32)
+        pm_len = np.full(w, length, np.int32)
+        seg0 = np.zeros(w, np.int32)
+        out.append((ops, keys, wptr, pm_ptr, pm_len, seg0, w))
+    return state, out, cap, length, 0.5

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the port's kernels 7 (ssd_scan), D (clht_insert), C
-(log_merge_sorted), 4 (cache_transition) and A (clht_probe) against an
-earlier version of them on the same card, in one process, on the same
-inputs.
+(log_merge_sorted), 4 (cache_transition), A (clht_probe) and E
+(fused_window) against an earlier version of them on the same card, in
+one process, on the same inputs.
 
     python3 tools/ab_kernels.py --baseline DIR [--only NAME,...]
 
@@ -53,6 +53,18 @@ against the plain version. Shapes:
                with the package's nvcc flags) at the read batch and at
                the prefetch, each shape bit for bit against
                clht_probe_ref
+  fused_window the launch alone on two KN windows over 2^21 slots
+               (tests/torch_cases.py:window_victims_case): 3,072 ops
+               with room to spare (hits and inserts, no victim) and
+               2,048 ops that demote and evict from a full cache; a fresh
+               copy of the state and its trees before every run; each
+               version held to fused_window_ref (n_exec and the state);
+               then trial builds of the current source with one part of
+               the op loop cut (ABLATIONS: the leaves' notes and repairs,
+               the dirty record's notes, the event tapes, all three),
+               timed only: each computes another function, so the
+               differences say what the parts cost; and one with the
+               trees' top levels left in device memory
 
 Needs a CUDA card; prints one JSON object per line, the card's name and
 power limit first.
@@ -93,14 +105,14 @@ REPS = 30
 KEYS_LOG2 = 25
 LOAD_SLOW = 21_836      # the load's mean slow-path entries per launch
 KERNELS = ("ssd_scan", "clht_insert", "log_merge_sorted", "cache_transition",
-           "clht_probe")
+           "clht_probe", "fused_window")
 HBM_BYTES_PER_S = 3.35e12
 
 
 def load_baseline(root: Path):
     """The package at root/src/repro_torch, imported as
     ``baseline_repro_torch``: its ssd_scan, clht, log_merge,
-    cache_transition and clht_probe modules."""
+    cache_transition, clht_probe and batch_executor ops modules."""
     pkg = root / "src" / "repro_torch"
     spec = importlib.util.spec_from_file_location(
         "baseline_repro_torch", pkg / "__init__.py",
@@ -112,7 +124,8 @@ def load_baseline(root: Path):
                  ("kernels.ssd_scan.ssd_scan", "core.clht",
                   "kernels.log_merge.log_merge",
                   "kernels.cache_transition.cache_transition",
-                  "kernels.clht_probe.clht_probe"))
+                  "kernels.clht_probe.clht_probe",
+                  "kernels.batch_executor.ops"))
 
 
 def event_ms(fn, reps: int, setup=None) -> float:
@@ -206,6 +219,8 @@ def main() -> int:
         ab_ssd(old[0], dev, args.reps)
     if "cache_transition" in only:
         ab_transition(old[3], dev, args.reps)
+    if "fused_window" in only:
+        ab_window(old[5], dev, args.reps)
     if {"clht_insert", "log_merge_sorted", "clht_probe"} & set(only):
         table = full_table(dev)
         if "clht_probe" in only:
@@ -437,6 +452,122 @@ def ab_transition(old_trans, dev, reps: int) -> None:
                                      launch(trans, idle), reps),
                "equal_to_plain": {"baseline": equal(old_trans),
                                   "current": equal(trans)}}
+        print(json.dumps(row), flush=True)
+
+
+# kernel E's op loop with one part cut, for trial builds (source edits of
+# csrc/fused_window.cu; each must match once)
+_NOTE_SLOT = ("    if (ev != EV_MISS_ABSENT) m.note_slot(k);\n", "")
+_NOTE_LEAF = ("    if (lru_dirty) note_leaf(true, k, lru_val);\n"
+              "    if (lfu_dirty) note_leaf(false, k, lfu_val);\n", "")
+_TAPES = ("      events[i] = ev;\n      out_ptr[i] = outp;\n", "")
+# and with the trees' top levels left in device memory (a root in shared
+# memory only), which computes the same function
+_TOP = ("constexpr int kTop = 4096;", "constexpr int kTop = 2;")
+ABLATIONS = {"no_leaf_notes": (_NOTE_LEAF,), "no_slot_notes": (_NOTE_SLOT,),
+             "no_tapes": (_TAPES,),
+             "none_of_the_three": (_NOTE_LEAF, _NOTE_SLOT, _TAPES),
+             "top_levels_in_device_memory": (_TOP,)}
+
+
+def window_trial_lib(name: str, edits) -> ctypes.CDLL:
+    """csrc/fused_window.cu with ``edits`` applied, built with the
+    package's nvcc flags under build/tools/ (its fused_windows_launch)."""
+    out = ROOT / "build" / "tools"
+    out.mkdir(parents=True, exist_ok=True)
+    src = (_build.CSRC / "fused_window.cu").read_text()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"ablation {name}: an edit does not match")
+        src = src.replace(old, new)
+    cu = out / f"fused_window_{name}.cu"
+    cu.write_text(src)
+    so = out / f"libfused_window_{name}.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", str(cu),
+                    "-o", str(so)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.fused_windows_launch.restype = ctypes.c_int
+    lib.fused_windows_launch.argtypes = (ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_void_p)
+    return lib
+
+
+def ab_window(old_ops, dev, reps: int) -> None:
+    """Kernel E's launch alone on two 2^21-slot windows (one with no
+    victim, one demoting and evicting), each version held to
+    fused_window_ref; then the ablation trial builds, timed only."""
+    from repro_torch.kernels import batch_executor as be
+    from repro_torch.kernels.batch_executor import ops as cur_ops
+    from torch_cases import window_victims_case
+    s = 1 << 21
+    cases = {}
+    state, wins, _, wb, amr = window_victims_case(0, s, 3072, 1, 1 << 16)
+    cases["no_victim_3072"] = (state, wins[0], 1 << 30, wb, amr)
+    state, wins, cap, wb, amr = window_victims_case(1, s, 2048, 1, 32)
+    cases["victims_2048"] = (state, wins[0], cap, wb, amr)
+    libs = {name: window_trial_lib(name, edits)
+            for name, edits in ABLATIONS.items()}
+    for name, (state, win, cap, wb, amr) in cases.items():
+        vmax_h = be.build_promote_table(amr)
+        want = be.fused_window_ref(tuple(a.copy() for a in state), *win[:6],
+                                   win[6], cap, wb, vmax_h)
+        n = win[6]
+        dwin = [torch.from_numpy(a).to(dev) for a in win[:6]]
+        vmax = torch.from_numpy(vmax_h).to(dev)
+        st0 = tuple(torch.from_numpy(a).to(dev) for a in state)
+        tr0 = be.build_trees(st0)
+
+        def fresh():
+            return (tuple(t.clone() for t in st0),
+                    tuple(t.clone() for t in tr0))
+
+        def old_setup():
+            st, tr = fresh()
+            return st, tr, torch.empty(old_ops.HEADER + 2 * n,
+                                       dtype=torch.int32, device=dev)
+
+        def cur_setup():
+            st, tr = fresh()
+            job = be.WindowJob(st, tuple(dwin), n, cap, wb, vmax, tr,
+                               be.new_dirty(s, dev))
+            desc, out, ops = cur_ops.prepare([job])
+            return desc, out, ops, st
+
+        def old_launch(st, tr, packed):
+            old_ops.launch(st, tr, dwin, n, cap, wb, vmax, packed)
+
+        def cur_launch(desc, out, ops, st):
+            cur_ops.launch(desc, ops)
+
+        def equal(launch, setup, state_at, n_exec) -> bool:
+            args = setup()
+            launch(*args)
+            return n_exec(args) == want[0] and all(
+                np.array_equal(a.cpu().numpy(), b)
+                for a, b in zip(state_at(args), want[1]))
+
+        def trial(lib):
+            def run(desc, out, ops, st):
+                err = lib.fused_windows_launch(desc.data_ptr(), 1,
+                                               _build.stream(desc))
+                if err:
+                    raise RuntimeError(f"trial launch failed: {err}")
+            return run
+
+        regs0, regs1 = state[7], want[1][7]
+        row = {"kernel": "fused_window", "window": name, "slots": s,
+               "ops": n, "executed": int(want[0]),
+               "demotions": int(regs1[6] - regs0[6]),
+               "evictions": int(regs1[7] - regs0[7]),
+               **turns(old_launch, cur_launch, reps, old_setup, cur_setup),
+               "equal_to_plain": {
+                   "baseline": equal(old_launch, old_setup,
+                                     lambda a: a[0], lambda a: int(a[2][0])),
+                   "current": equal(cur_launch, cur_setup,
+                                    lambda a: a[3],
+                                    lambda a: int(a[1][0][0]))},
+               "ablations_ms": {k: event_ms(trial(lib), reps, cur_setup)
+                                for k, lib in libs.items()}}
         print(json.dumps(row), flush=True)
 
 
