@@ -83,6 +83,21 @@ dataplane cluster at 2^21 keys, by both batch engines:
              held batch for batch to its per-op twin
              (reference_cache=True) by both engines on the card, every
              kernel-E launch there held to fused_window_ref
+  cluster_variants
+             the paper's baselines on the same configuration and streams,
+             each taking a copy of the cluster phase's pool as loaded
+             (kept pickled, out of the garbage collector's walks):
+             dinomo-s (static shortcut-only caches, windows planned by
+             plan_static_window) and clover (shared everything: every
+             batch reads the index for every op through kernel A, then
+             lands its index updates on the host, which the next batch's
+             sync_index uploads as changed rows), then read_only batches,
+             a join and a failure; every kernel-A launch held to
+             clht_probe_ref and every batched read to the host index's
+             walk; the read-back, verify_integrity(), RTs an op ordered
+             dinomo < dinomo-s < clover on write_heavy_update; each
+             baseline at 2^16 keys held batch for batch to its per-op
+             oracle on the card
 
 and times kernel E on the largest window held (a KN window over 2^21
 slots), beside the host engine's time for that window, on a window that
@@ -133,8 +148,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import importlib
 import json
+import pickle
 import subprocess
 import sys
 import time
@@ -150,8 +167,8 @@ sys.path.insert(0, str(ROOT / "tests"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import clht, log  # noqa: E402
-from repro_torch.core.cluster import (DINOMO, DinomoCluster,  # noqa: E402
-                                      KVSNode, _WritePlan,
+from repro_torch.core.cluster import (DINOMO, VARIANTS,  # noqa: E402
+                                      DinomoCluster, KVSNode, _WritePlan,
                                       apply_window_plan, warm_load)
 from repro_torch.core.dac import (SHORTCUT_BYTES,  # noqa: E402
                                   VALUE_OVERHEAD_BYTES)
@@ -183,7 +200,8 @@ from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from torch_cases import (MERGE_CASES, TRANSITION_CASES,  # noqa: E402
                          merge_case, transition_case, window_victims_case)
-from torch_cluster_cases import cluster_snapshot  # noqa: E402
+from torch_cluster_cases import (cache_contents,  # noqa: E402
+                                 cluster_snapshot, loaded_like, pool_index)
 
 KEYS_LOG2 = 25              # the paper's 32 GB of 1 KB values
 WIDTH = 256                 # int32 lanes per value row = 1 KB
@@ -233,6 +251,11 @@ CLUSTER_BATCHES = 8         # timed batches per mix
 CLUSTER_RECONFIG_BATCHES = 2    # batches after each reconfiguration
 CLUSTER_TWIN_KEYS_LOG2 = 16     # the per-op twin's keys
 CLUSTER_TWIN_BATCHES = 2        # the first batches of each mix
+# the paper's baselines on the cluster phase's configuration (the
+# variant changed, as benchmarks/fig5_scalability.py compares them): the
+# cluster phase's streams, then read_only batches
+BASELINES = ("dinomo-s", "clover")
+BASELINE_READ_BATCHES = 2
 ARCH = "qwen1.5-0.5b"
 PREFILL_B, PREFILL_S, PREFILL_REPS = 4, 2048, 3
 SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 8, 256, 128, 64
@@ -468,6 +491,27 @@ def recorded(module, name: str, replace=None, clone=False):
 
 
 @contextlib.contextmanager
+def gc_meter():
+    """The cyclic garbage collector's passes inside the block: the seconds
+    they took and their count by generation."""
+    m = {"s": 0.0, "collections": [0, 0, 0]}
+    start = [0.0]
+
+    def meter(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            m["s"] += time.perf_counter() - start[0]
+            m["collections"][info["generation"]] += 1
+
+    gc.callbacks.append(meter)
+    try:
+        yield m
+    finally:
+        gc.callbacks.remove(meter)
+
+
+@contextlib.contextmanager
 def uncounted():
     """Launches made inside the block (checks of the main path, not the
     main path) leave the launch counts as they were."""
@@ -493,6 +537,18 @@ def _last_writes(keys: np.ndarray) -> np.ndarray:
     """Positions of each distinct key's last occurrence in ``keys``."""
     _, first = np.unique(keys[::-1], return_index=True)
     return keys.size - 1 - first
+
+
+def _read_back_keys(last: np.ndarray):
+    """A cluster's read-back: every written key (``last``: the global
+    index of its last acknowledged write, -1 for none) and 2^12 unwritten
+    keys, with what each must read (f"w{index}", or its loaded value
+    f"v{key}"). Returns (written, unwritten, keys, want)."""
+    written = np.flatnonzero(last >= 0)
+    unwritten = np.flatnonzero(last < 0)[:1 << 12]
+    want = [f"w{g}" for g in last[written].tolist()] + \
+        [f"v{k}" for k in unwritten.tolist()]
+    return written, unwritten, np.concatenate([written, unwritten]), want
 
 
 class PoolView:
@@ -1530,6 +1586,16 @@ class Smoke:
         cj = copy.deepcopy(c)            # the jit leg, as loaded
         self._cluster_equal(c, cj, "the copy")
         emit({"phase": "cluster_copy", "seconds": time.perf_counter() - t0})
+        # the baselines' pool, as loaded (cluster_variants): a load leaves
+        # the pool alike for every variant. Kept pickled, one bytes object
+        # the garbage collector never walks: a live copy would add a
+        # pool's objects to every full collection in this phase's batches
+        t0 = time.perf_counter()
+        self.loaded_pool = pickle.dumps(c.pool, pickle.HIGHEST_PROTOCOL)
+        emit({"phase": "cluster_pool_copy",
+              "seconds": time.perf_counter() - t0,
+              "bytes": len(self.loaded_pool)})
+        self.dinomo_host = {}
         legs = {"host": c, "jit": cj}
         # run: ops so far, each key's last acknowledged write (the global
         # index of the op, its value f"w{index}"), kernel-A calls checked,
@@ -1542,7 +1608,8 @@ class Smoke:
             for cl in legs.values():
                 cl.reset_stats()
             tally = {leg: {"sec": 0.0, "wall": self._zero_wall(),
-                           "plan": dict.fromkeys(PLAN_STATS, 0)}
+                           "plan": dict.fromkeys(PLAN_STATS, 0),
+                           "gc_s": 0.0, "gc_collections": [0, 0, 0]}
                      for leg in legs}
             jit_counts = dict(cj._jit.counts) if cj._jit else None
             e0 = _build.launches["fused_window"]
@@ -1592,6 +1659,10 @@ class Smoke:
             for leg, cl in legs.items():
                 agg = cl.aggregate_stats()
                 sec = tally[leg]["sec"]
+                if leg == "host":
+                    self.dinomo_host[mix] = {
+                        "ops_per_s": CLUSTER_BATCHES * CLUSTER_BATCH / sec,
+                        "rts_per_op": agg["rts_per_op"]}
                 emit({"phase": "cluster_mix", "leg": leg, "mix": mix,
                       "ops": CLUSTER_BATCHES * CLUSTER_BATCH,
                       "execute_batch_s": sec,
@@ -1602,6 +1673,8 @@ class Smoke:
                       "plan_stats": tally[leg]["plan"],
                       "held_check_s_excluded":
                       tally[leg].get("held_check_s", 0.0),
+                      "gc_s": tally[leg]["gc_s"],
+                      "gc_collections": tally[leg]["gc_collections"],
                       "engine_wall_s": {
                           k: v for k, v in tally[leg]["wall"].items()
                           if v or k.startswith(leg)},
@@ -1638,13 +1711,7 @@ class Smoke:
                for r in cl.reconfig_log):
             raise AssertionError("cluster: a dinomo reconfiguration moved "
                                  "data")
-        # read-back: every written key, and unwritten keys for their load
-        last = run["last"]
-        written = np.flatnonzero(last >= 0)
-        unwritten = np.flatnonzero(last < 0)[:1 << 12]
-        keys = np.concatenate([written, unwritten])
-        want = [f"w{g}" for g in last[written].tolist()] + \
-            [f"v{k}" for k in unwritten.tolist()]
+        written, unwritten, keys, want = _read_back_keys(run["last"])
         read_s = {}
         for leg, cl in legs.items():
             t0 = time.perf_counter()
@@ -1692,17 +1759,23 @@ class Smoke:
               "twin": twin,
               "launches": {k: v for k, v in counts.items() if v}})
 
-    def _cluster_at(self, n: int, reference_cache: bool):
+    def _cluster_at(self, n: int, reference_cache: bool, variant=DINOMO,
+                    pool=None):
         """The phase's cluster over ``n`` keys on the card, loaded warm
-        (the values v{key})."""
-        c = DinomoCluster(DINOMO, num_kns=CLUSTER_KNS,
+        (the values v{key}); given ``pool``, a copy of such a cluster's
+        pool as loaded, it takes that pool and warms its caches
+        (torch_cluster_cases.loaded_like) instead of loading."""
+        c = DinomoCluster(variant, num_kns=CLUSTER_KNS,
                           cache_bytes=int(n * VALUE_BYTES * CACHE_FRAC),
                           value_bytes=VALUE_BYTES, num_buckets=n,
                           segment_capacity=CLUSTER_SEGMENT,
                           policy=PolicyConfig(grace_period_s=1e9,
                                               epoch_s=1e9),
                           reference_cache=reference_cache, device=self.dev)
-        c.load(((k, f"v{k}") for k in range(n)), warm=True)
+        if pool is None:
+            c.load(((k, f"v{k}") for k in range(n)), warm=True)
+        else:
+            loaded_like(c, pool, range(n))
         return c
 
     @staticmethod
@@ -1724,9 +1797,10 @@ class Smoke:
         recorded and held to clht_probe_ref), every BatchResult field
         equal, then one simulated second of DPM merging under its
         allowance on each; the batch's writes noted in ``run``. ``tally``
-        gathers each leg's synchronized seconds, ENGINE_WALL and
-        PLAN_STATS. The first kernel-E launch of each KN not in ``first``
-        is held to fused_window_ref (``_held_windows``). ``time_window``
+        gathers each leg's synchronized seconds, ENGINE_WALL, PLAN_STATS
+        and the garbage collector's passes inside the batch. The first
+        kernel-E launch of each KN not in ``first`` is held to
+        fused_window_ref (``_held_windows``). ``time_window``
         times the host engine on each KN's window (the time_fused_window
         row's comparison); ``profile_jit`` profiles the jit leg's batch
         and emits its device summary."""
@@ -1742,6 +1816,7 @@ class Smoke:
             with contextlib.ExitStack() as stack:
                 calls = stack.enter_context(
                     recorded(probe_ops, "clht_probe", clone=True))
+                g = stack.enter_context(gc_meter())
                 if leg == "jit" and first is not None:
                     stack.enter_context(self._held_windows(
                         c, run, first, keep=time_window))
@@ -1779,6 +1854,9 @@ class Smoke:
                 t = tally[leg]
                 t["sec"] += sec
                 t["held_check_s"] = t.get("held_check_s", 0.0) + held
+                t["gc_s"] += g["s"]
+                t["gc_collections"] = [a + b for a, b in zip(
+                    t["gc_collections"], g["collections"])]
                 for k, v in ENGINE_WALL.items():
                     t["wall"][k] += v - wall0[k]
                 for k, v in PLAN_STATS.items():
@@ -1952,6 +2030,312 @@ class Smoke:
                 "kernel_e_launches_equal_to_plain": run["e_checked"],
                 "jit": trio[1][0]._jit.counts,
                 "aggregate": got[0][-1]}
+
+    # ------------------------------------------------------- the baselines
+    def cluster_variants(self) -> None:
+        """The paper's baselines on the card: the cluster phase's
+        configuration (CLUSTER_KNS KNs, 1 KB values, segments of
+        CLUSTER_SEGMENT, caches CACHE_FRAC of the data, 2^CLUSTER_KEYS_LOG2
+        keys loaded warm) built as dinomo-s (static shortcut-only caches,
+        windows planned by plan_static_window or replayed) and as clover
+        (shared everything: the batched Clover plane reads the index for
+        every op of a batch, index_lookup_batch and so kernel A once a
+        batch, and lands the batch's index updates on the host index; the
+        next batch's sync_index uploads the changed rows). Each takes a
+        copy of the cluster phase's pool as loaded, unpickled from the
+        bytes that phase kept (torch_cluster_cases.loaded_like; a CPU test
+        holds such a cluster to one loaded itself), its caches warmed key
+        by key and the cluster phase's streams: CLUSTER_BATCHES batches
+        of write_heavy_update, then of read_mostly_update, the merge
+        allowance of one simulated second between batches; then
+        BASELINE_READ_BATCHES of read_only; add_kn(), then fail_kn("kn2"),
+        each followed by CLUSTER_RECONFIG_BATCHES batches; the read-back.
+
+        Every kernel-A launch equals clht_probe_ref on its inputs (held
+        before the next sync writes into the lines) and every batched
+        read the host index's walk; clover launches kernel A in every
+        batch. No op is refused. Every written key reads back its last
+        acknowledged write and a sample of unwritten keys its loaded
+        value, through batch_read; verify_integrity() is empty. RTs an
+        op on write_heavy_update are ordered dinomo < dinomo-s < clover
+        (the reference's test_rts_ordering). A twin at
+        2^CLUSTER_TWIN_KEYS_LOG2 keys holds each baseline's batched engine
+        on the card to its per-op oracle (reference_cache=True)."""
+        n = 1 << CLUSTER_KEYS_LOG2
+        t_phase = time.perf_counter()
+        _build.reset_counts()
+        blob = self.loaded_pool
+        del self.loaded_pool
+        # ops, kernel-A launches held, and each (variant, mix)'s ops/s
+        # and RTs an op
+        out = {"ops": 0, "checked": 0, "mix": {}}
+        for variant in BASELINES:
+            t0 = time.perf_counter()
+            c = self._cluster_at(n, False, VARIANTS[variant],
+                                 pool=pickle.loads(blob))
+            emit({"phase": "cluster_variant_load", "variant": variant,
+                  "seconds": time.perf_counter() - t0,
+                  "cache_bytes_per_kn": c.cache_bytes})
+            run = {"ops": 0, "last": np.full(n, -1, np.int64),
+                   "checked": 0}
+            probe = self._probe_meter(c.pool)
+            loads = {mix: Workload(n, zipf=ZIPF, mix=mix, seed=SEED + 4)
+                     for mix in CLUSTER_MIXES + ("read_only",)}
+            for mix in loads:
+                nb = BASELINE_READ_BATCHES if mix == "read_only" \
+                    else CLUSTER_BATCHES
+                self._variant_mix(c, variant, mix, loads[mix], nb, run,
+                                  probe, out)
+            for event in ("add", "fail"):
+                t0 = time.perf_counter()
+                if event == "add":
+                    c.add_kn()
+                else:
+                    c.fail_kn("kn2")
+                rec = c.reconfig_log[-1]
+                emit({"phase": "cluster_variant_reconfig",
+                      "variant": variant, "event": rec["event"],
+                      "seconds": time.perf_counter() - t0,
+                      "merged_entries": rec["merged_entries"],
+                      "moved_fraction": rec["moved_fraction"]})
+                self._variant_mix(c, variant, f"write_heavy_update after "
+                                  f"{event}", loads["write_heavy_update"],
+                                  CLUSTER_RECONFIG_BATCHES, run, probe, out)
+            written, unwritten, keys, want = _read_back_keys(run["last"])
+            t0 = time.perf_counter()
+            with recorded(probe_ops, "clht_probe", clone=True) as calls:
+                vals, _ = c.batch_read(keys)
+            run["checked"] += self._pool_probe_check(calls, variant)
+            if vals != want:
+                bad = next(i for i, (v, w) in enumerate(zip(vals, want))
+                           if v != w)
+                raise AssertionError(f"{variant}: key {keys[bad]} read "
+                                     f"back {vals[bad]!r}, not "
+                                     f"{want[bad]!r}")
+            problems = c.pool.verify_integrity()
+            if problems:
+                raise AssertionError(f"{variant}: verify_integrity: "
+                                     f"{problems[:4]}")
+            emit({"phase": "cluster_variant_read_back", "variant": variant,
+                  "written_keys": int(written.size),
+                  "unwritten_keys": int(unwritten.size),
+                  "seconds": time.perf_counter() - t0, "equal": True,
+                  "integrity_problems": 0,
+                  "host_walked_keys": c.pool.host_walked_keys,
+                  "index_lookups": probe["calls"]})
+            out["ops"] += run["ops"]
+            out["checked"] += run["checked"]
+            del c
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        if counts["clht_probe"] != out["checked"]:
+            raise AssertionError(f"cluster_variants: kernel A launched "
+                                 f"{counts['clht_probe']} times, "
+                                 f"{out['checked']} held to its plain "
+                                 f"version")
+        self.tally("cluster_variants", counts)
+        for mix in CLUSTER_MIXES + ("read_only",):
+            row = {"dinomo (host leg)": self.dinomo_host.get(mix, {}),
+                   **{v: out["mix"][(v, mix)] for v in BASELINES}}
+            emit({"phase": "cluster_variants_compare", "mix": mix,
+                  "measure": "host wall-clock ops/s of the functional "
+                             "plane (execute_batch, synchronized), not the "
+                             "paper's modelled throughput",
+                  **{k: {v: r.get(k) for v, r in row.items()}
+                     for k in ("ops_per_s", "rts_per_op")}})
+        rts = {"dinomo": self.dinomo_host[CLUSTER_MIXES[0]]["rts_per_op"],
+               **{v: out["mix"][(v, CLUSTER_MIXES[0])]["rts_per_op"]
+                  for v in BASELINES}}
+        if not rts["dinomo"] < rts["dinomo-s"] < rts["clover"]:
+            raise AssertionError(f"cluster_variants: RTs an op on "
+                                 f"write_heavy_update not ordered dinomo < "
+                                 f"dinomo-s < clover: {rts}")
+        twins = {v: self._variant_twin(v) for v in BASELINES}
+        emit({"phase": "cluster_variants",
+              "seconds": time.perf_counter() - t_phase, "ops": out["ops"],
+              "refused": 0, "rts_ordered": True,
+              "rts_per_op_write_heavy_update": rts,
+              "kernel_a_launches": counts["clht_probe"],
+              "kernel_a_launches_equal_to_plain": out["checked"],
+              "twins": twins,
+              "launches": {k: v for k, v in counts.items() if v}})
+
+    @staticmethod
+    def _probe_meter(pool) -> dict:
+        """Meter ``pool``'s batched index reads: each call's seconds,
+        keys and kernel-A launches; its sync_index uploads (rows, bytes;
+        the first one the whole table) inside them, each upload's span
+        between two CUDA events (``events``: no synchronization is added
+        to the batch; ``_variant_mix`` reads them into ``sync_s`` once the
+        batch is synchronized); every read held to the host index's walk
+        (``check_s``, left out of the batches' time)."""
+        m = {"calls": 0, "keys": 0, "s": 0.0, "sync_s": 0.0, "rows": 0,
+             "bytes": 0, "check_s": 0.0, "events": []}
+        real_sync, real_lookup = pool.sync_index, pool.index_lookup_batch
+
+        def sync_index():
+            t0 = time.perf_counter()
+            ix = pool.index
+            full = pool.index_dev is None
+            rows = ix.nxt.shape[0] if full else int(ix.noted_rows().size)
+            m["check_s"] += time.perf_counter() - t0
+            span = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            span[0].record()
+            table = real_sync()
+            span[1].record()
+            m["events"].append(span)
+            m["rows"] += rows
+            m["bytes"] += rows * table.lines.shape[1] * 4 + \
+                (0 if full else rows * 4)
+            return table
+
+        def index_lookup_batch(keys):
+            t0 = time.perf_counter()
+            ptrs, probes = real_lookup(keys)
+            t1 = time.perf_counter()
+            m["s"] += t1 - t0
+            m["calls"] += 1
+            m["keys"] += int(np.size(keys))
+            want = pool.index.lookup_batch(np.asarray(keys, np.int64))
+            if not (np.array_equal(ptrs, want[0])
+                    and np.array_equal(probes, want[1])):
+                raise AssertionError("cluster_variants: a batched read on "
+                                     "the card disagrees with the host "
+                                     "index walk")
+            m["check_s"] += time.perf_counter() - t1
+            return ptrs, probes
+
+        pool.sync_index = sync_index
+        pool.index_lookup_batch = index_lookup_batch
+        return m
+
+    def _variant_mix(self, c, variant, mix, load, batches, run, probe,
+                     out) -> None:
+        """``batches`` batches of ``load``'s ops through ``c``'s
+        execute_batch, each followed by one simulated second's merging
+        under its allowance; each batch's kernel-A launches held to
+        clht_probe_ref; its writes noted in ``run``. Emits the mix's
+        ops/s (synchronized execute_batch seconds less the read checks),
+        aggregate_stats(), ms_ops, PLAN_STATS, kernel A's launches and
+        keys, index_lookup_batch's seconds split into the sync_index
+        upload and the probe, and the garbage collector's passes inside
+        execute_batch (seconds, count by generation)."""
+        c.reset_stats()
+        budget = int(DEFAULT_MODEL.merge_capacity())
+        probe["events"].clear()          # uploads outside these batches
+        before = dict(probe)
+        a0 = _build.launches["clht_probe"]
+        plan = dict.fromkeys(PLAN_STATS, 0)
+        sec = 0.0
+        gcs = {"s": 0.0, "collections": [0, 0, 0]}
+        for _ in range(batches):
+            kinds, keys = load.ops_arrays(CLUSTER_BATCH)
+            base = run["ops"]
+            c.pool.merge_allowance = budget
+            reset_plan_stats()
+            check0 = probe["check_s"]
+            with recorded(probe_ops, "clht_probe", clone=True) as calls, \
+                    gc_meter() as g:
+                res, s = synced(lambda: c.execute_batch(
+                    kinds, keys, values=lambda i: f"w{base + i}"))
+            sec += s - (probe["check_s"] - check0)
+            probe["sync_s"] += sum(a.elapsed_time(b)
+                                   for a, b in probe["events"]) / 1e3
+            probe["events"].clear()
+            gcs["s"] += g["s"]
+            gcs["collections"] = [a + b for a, b in
+                                  zip(gcs["collections"], g["collections"])]
+            for k, v in PLAN_STATS.items():
+                plan[k] += v
+            n_calls = self._pool_probe_check(calls, variant)
+            run["checked"] += n_calls
+            if variant == "clover" and not n_calls:
+                raise AssertionError(f"clover: a {mix} batch launched no "
+                                     f"kernel A")
+            c.advance_merge(budget)
+            c.pool.merge_allowance = None
+            refused = sum(kn.stats.refused for kn in c.kns.values())
+            if res.executed != keys.size or refused:
+                raise AssertionError(f"{variant}: {keys.size - res.executed}"
+                                     f" ops not executed, {refused} "
+                                     f"refused")
+            wpos = np.flatnonzero(kinds == 1)
+            lw = _last_writes(keys[wpos])
+            run["last"][keys[wpos][lw]] = base + wpos[lw]
+            run["ops"] += keys.size
+        agg = c.aggregate_stats()
+        d = {k: probe[k] - before[k] for k in probe if k != "events"}
+        ops = batches * CLUSTER_BATCH
+        out["mix"][(variant, mix)] = {"ops_per_s": ops / sec,
+                                      "rts_per_op": agg["rts_per_op"]}
+        emit({"phase": "cluster_variant_mix", "variant": variant,
+              "mix": mix, "ops": ops, "execute_batch_s": sec,
+              "ops_per_s": ops / sec,
+              **{k: float(agg[k]) for k in ("rts_per_op", "hit_ratio",
+                                            "value_hit_ratio")},
+              "write_stalls": agg["write_stalls"], "ms_ops": c.ms_ops,
+              "plan_stats": plan,
+              "kernel_a_launches": _build.launches["clht_probe"] - a0,
+              "kernel_a_keys": d["keys"],
+              "index_lookup_s": d["s"], "sync_upload_s": d["sync_s"],
+              "sync_rows": d["rows"], "sync_bytes": d["bytes"],
+              "probe_s": d["s"] - d["sync_s"],
+              "host_walk_check_s_excluded": d["check_s"],
+              "gc_s": gcs["s"], "gc_collections": gcs["collections"]})
+
+    def _variant_twin(self, variant: str) -> dict:
+        """``variant`` at 2^CLUSTER_TWIN_KEYS_LOG2 keys as two clusters
+        on the card: the batched engine (array caches; clover's batched
+        plane) and the fused per-op loop over the reference caches
+        (reference_cache=True). The first CLUSTER_TWIN_BATCHES batches of
+        each mix, then a read_only batch, a KN added between the mixes;
+        after each batch every BatchResult field and collected value,
+        cluster_snapshot, aggregate_stats(), the versions, the
+        metadata-server ops, the pool's index row for row and each KN's
+        cache contents (torch_cluster_cases.cache_contents: entries in
+        LRU order) are equal. Outside the main path's launch counts."""
+        n = 1 << CLUSTER_TWIN_KEYS_LOG2
+        batches = 0
+        budget = int(DEFAULT_MODEL.merge_capacity())
+        with uncounted():
+            pair = [self._cluster_at(n, rc, VARIANTS[variant])
+                    for rc in (False, True)]
+            steps = [(m, CLUSTER_TWIN_BATCHES) for m in CLUSTER_MIXES] + \
+                [("read_only", 1)]
+            for mix, nb in steps:
+                if mix == CLUSTER_MIXES[1]:
+                    for c in pair:
+                        c.add_kn()
+                loads = [Workload(n, zipf=ZIPF, mix=mix, seed=SEED + 5)
+                         for _ in pair]
+                for _ in range(nb):
+                    got = []
+                    for c, load in zip(pair, loads):
+                        kinds, keys = load.ops_arrays(CLUSTER_BATCH)
+                        c.pool.merge_allowance = budget
+                        res = c.execute_batch(kinds, keys,
+                                              values=lambda i: f"w{i}",
+                                              collect_values=True)
+                        c.advance_merge(budget)
+                        c.pool.merge_allowance = None
+                        got.append((
+                            res.executed, res.writes, res.per_kn,
+                            res.executed_keys.tolist(), res.values,
+                            cluster_snapshot(c), c.aggregate_stats(),
+                            dict(c.versions), c.ms_ops, pool_index(c.pool),
+                            {nm: cache_contents(kn.cache)
+                             for nm, kn in c.kns.items()}))
+                    if got[0] != got[1]:
+                        part = next(i for i, (a, b) in enumerate(
+                            zip(*got)) if a != b)
+                        raise AssertionError(f"{variant} twin: the batched "
+                                             f"engine and the per-op oracle "
+                                             f"part in {mix} (field "
+                                             f"{part})")
+                    batches += 1
+        return {"keys": n, "batches": batches, "equal": True,
+                "aggregate": {k: float(v) for k, v in got[0][6].items()},
+                "ms_ops": got[0][8]}
 
     def time_transition(self) -> list[dict]:
         """Kernel 4 on a 512-op window of the KN path that consumed
@@ -3146,6 +3530,7 @@ def main() -> int:
     smoke.dpm_pool()
     torch.cuda.empty_cache()
     smoke.cluster()
+    smoke.cluster_variants()
     kernels += smoke.time_fused_window()
     del smoke.window_case, smoke.held_jobs
     torch.cuda.empty_cache()

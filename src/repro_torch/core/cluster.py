@@ -1,9 +1,11 @@
 """The DINOMO cluster: clients -> RNs -> KNs -> DPM pool (paper Fig. 1).
 
-The port's copy of the reference's host engine for the variants that
-cache with the DAC (paper Sec. 5):
+The port's copy of the reference's host engine. Four system variants
+share it (paper Sec. 5):
   dinomo    OP + DAC + selective replication          (the paper's system)
+  dinomo-s  OP + shortcut-only cache                  (isolates DAC's benefit)
   dinomo-n  shared-nothing + DAC                      (AsymNVM stand-in)
+  clover    shared-everything + shortcut-only cache   (state of the art)
 Every request runs against the real structures (DAC caches, the CLHT
 index, log segments, the indirection table) and the exact number of
 network round trips is counted per operation, decision for decision as
@@ -11,14 +13,13 @@ the reference does. Like the reference it is a host program over numpy
 and Python structures, with two parts on the device: the DPM pool's
 batched index reads (``DPMPool.index_lookup_batch``: kernel A over a
 packed copy of the index), which ``execute_batch`` makes once per KN a
-batch for that KN's predicted cache misses, and, with
+batch for that KN's predicted cache misses (``clover``: once a batch
+for every op's key, the batched Clover plane's index read), and, with
 ``execute_batch(engine="jit")``, each eligible KN window of the DAC
 state machine (``core.jit_engine``: kernel E over the KN's cache state,
-resident on the device for the batch).
-
-``dinomo-s`` (static split cache) and ``clover`` (shared everything,
-version chains) need caches and planners that are not ported yet
-(ROADMAP Queue 2 item 2b): building a cluster of either raises.
+resident on the device for the batch). A static cache's windows
+(``dinomo-s``) run on the host engine under either engine, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -34,17 +35,15 @@ import numpy as np
 
 from . import sanitize
 from .dac import (CNT_HIST_MAX, SHORTCUT_BYTES, VALUE_OVERHEAD_BYTES,
-                  ArrayDAC, CacheStats, DAC)
+                  ArrayDAC, ArrayStaticCache, CacheStats, DAC, StaticCache)
 from .dpm_pool import DPMPool, FencedWrite
 from .faults import CRASH_POINTS, KNCrash
+from .hashring import stable_hash
 from .mnode import PolicyConfig, PolicyEngine
 from .netmodel import DEFAULT_MODEL, NetModel
 from .ownership import OwnershipMap, ReconfigEvent
-from .transition import ENGINE_WALL, PLAN_STATS, plan_dac_window
-
-NOT_PORTED_2B = ("ROADMAP Queue 2 item 2b: the {what} is not ported yet "
-                 "(the port's cluster runs the DAC variants, dinomo and "
-                 "dinomo-n)")
+from .transition import (ENGINE_WALL, PLAN_STATS, plan_clover_reads,
+                         plan_dac_window, plan_static_window)
 
 
 @dataclass(frozen=True)
@@ -64,19 +63,142 @@ VARIANTS = {v.name: v for v in (DINOMO, DINOMO_S, DINOMO_N, CLOVER)}
 
 def make_cache(policy: str, capacity_bytes: int, reference: bool = False,
                initial_keys: int = 1024):
-    """Build a KN cache. The DAC has two decision-for-decision equivalent
-    implementations: the array-backed one the batched data plane
-    vectorizes over (pre-sized to ``initial_keys`` keys), and the
+    """Build a KN cache. Every policy has two decision-for-decision
+    equivalent implementations: the array-backed one the batched data
+    plane vectorizes over (pre-sized to ``initial_keys`` keys), and the
     OrderedDict/heapq one -- ``reference=True`` selects the latter as
-    the oracle. The other policies are not ported yet."""
+    the oracle."""
     if policy == "dac":
         return DAC(capacity_bytes) if reference \
             else ArrayDAC(capacity_bytes, initial_keys=initial_keys)
-    if policy in ("shortcut", "value", "clover") \
-            or policy.startswith("static:"):
-        raise NotImplementedError(NOT_PORTED_2B.format(
-            what=f"{policy!r} cache policy"))
+    if policy in ("shortcut", "value") or policy.startswith("static:"):
+        frac = {"shortcut": 0.0, "value": 1.0}.get(policy)
+        if frac is None:
+            frac = float(policy.split(":")[1])
+        return StaticCache(capacity_bytes, frac) if reference \
+            else ArrayStaticCache(capacity_bytes, frac,
+                                  initial_keys=initial_keys)
+    if policy == "clover":
+        return CloverCache(capacity_bytes) if reference \
+            else ArrayCloverCache(capacity_bytes, initial_keys=initial_keys)
     raise ValueError(f"unknown cache policy {policy!r}")
+
+
+class CloverCache:
+    """Clover KNs keep a shortcut-only cache whose entries can go stale:
+    out-of-place updates grow a version chain that readers must walk."""
+
+    def __init__(self, capacity_bytes: int, entry_bytes: int = 32):
+        self.cap_entries = max(capacity_bytes // entry_bytes, 1)
+        self.entries: OrderedDict[int, int] = OrderedDict()  # key -> version
+        self.stats = CacheStats()
+
+    def lookup(self, key: int):
+        v = self.entries.get(key)
+        if v is None:
+            self.stats.misses += 1
+            return None
+        self.entries.move_to_end(key)
+        self.stats.shortcut_hits += 1
+        return v
+
+    def fill(self, key: int, version: int):
+        self.entries[key] = version
+        self.entries.move_to_end(key)
+        while len(self.entries) > self.cap_entries:
+            self.entries.popitem(last=False)
+            self.stats.evictions += 1
+
+    def clear(self):
+        self.entries.clear()
+
+
+class ArrayCloverCache:
+    """Array-backed CloverCache: the batched Clover plane's version
+    cache. Same policy as ``CloverCache`` decision-for-decision
+    (property-tested): presence + version + recency stamp per key, LRU
+    eviction through a lazy (stamp, key) heap -- argmin stamp over
+    present keys equals the OrderedDict front."""
+
+    def __init__(self, capacity_bytes: int, entry_bytes: int = 32,
+                 initial_keys: int = 1024):
+        self.cap_entries = max(capacity_bytes // entry_bytes, 1)
+        n = max(initial_keys, 8)
+        self.present = np.zeros(n, bool)
+        self.ver = np.zeros(n, np.int64)
+        self.stamp = np.zeros(n, np.int64)
+        self._clock = 1
+        self._lru: list[tuple[int, int]] = []
+        self._n = 0
+        self.stats = CacheStats()
+
+    def _ensure(self, key: int) -> None:
+        n = self.present.shape[0]
+        if key < n:
+            return
+        m = max(2 * n, key + 1)
+        self.present = np.concatenate(
+            [self.present, np.zeros(m - n, bool)])
+        self.ver = np.concatenate([self.ver, np.zeros(m - n, np.int64)])
+        self.stamp = np.concatenate([self.stamp,
+                                     np.zeros(m - n, np.int64)])
+
+    def lookup(self, key: int):
+        self._ensure(key)
+        if not self.present[key]:
+            self.stats.misses += 1
+            return None
+        self.stamp[key] = self._clock
+        self._clock += 1
+        self.stats.shortcut_hits += 1
+        return self.ver[key]
+
+    def fill(self, key: int, version: int):
+        self._ensure(key)
+        if not self.present[key]:
+            self.present[key] = True
+            self._n += 1
+        self.ver[key] = version
+        self.stamp[key] = self._clock
+        heapq.heappush(self._lru, (self._clock, key))
+        self._clock += 1
+        while self._n > self.cap_entries:
+            if len(self._lru) > 4 * self._n + 64:
+                ks = np.flatnonzero(self.present)
+                self._lru = list(zip(self.stamp[ks].tolist(),
+                                     ks.tolist()))
+                heapq.heapify(self._lru)
+            st, k = heapq.heappop(self._lru)
+            if not self.present[k]:
+                continue                          # stale record: drop
+            cur = self.stamp[k]
+            if cur != st:
+                heapq.heappush(self._lru, (cur, k))   # refresh
+                continue
+            self.present[k] = False
+            self._n -= 1
+            self.stats.evictions += 1
+
+    def apply_plan(self, plan) -> None:
+        """Apply one planned read-batch window in bulk (see
+        core.transition.plan_clover_reads): deduplicated fill scatters,
+        eviction-free by construction, clock-ascending LRU records."""
+        if plan.fill_keys.size:
+            self.present[plan.fill_keys] = True
+            self.ver[plan.fill_keys] = plan.fill_ver
+        if plan.stp_keys.size:
+            self.stamp[plan.stp_keys] = plan.stp_vals
+        self._clock += plan.clock_delta
+        if plan.lru_records:
+            self._lru.extend(plan.lru_records)
+        self._n = plan.n_final
+        self.stats.shortcut_hits += plan.shortcut_hits
+        self.stats.misses += plan.misses
+
+    def clear(self):
+        self.present[:] = False
+        self._lru.clear()
+        self._n = 0
 
 
 @dataclass
@@ -134,7 +256,7 @@ class _WritePlan:
 
 class _KnWindow:
     """Per-KN cursor over its live non-replicated ops in a batch."""
-    __slots__ = ("kn", "cache", "pos", "idx", "is_dac")
+    __slots__ = ("kn", "cache", "pos", "idx", "is_dac", "is_static")
 
     def __init__(self, kn, cache, pos):
         self.kn = kn
@@ -142,6 +264,7 @@ class _KnWindow:
         self.pos = pos
         self.idx = 0
         self.is_dac = isinstance(cache, ArrayDAC)
+        self.is_static = isinstance(cache, ArrayStaticCache)
 
 
 class KVSNode:
@@ -236,8 +359,7 @@ class DinomoCluster:
         # batch engine selection ("host" | "jit"), set per execute_batch
         self._engine = "host"
         self._jit = None        # lazy JitEngine (jit_engine.py)
-        # per-key write counters; the metadata-server op count stays 0
-        # (Clover's, not ported)
+        # Clover: per-key version counters + metadata-server op count
         self.versions: dict[int, int] = {}
         self.ms_ops = 0
         self.reconfig_log: list[dict] = []
@@ -404,6 +526,8 @@ class DinomoCluster:
         if not kn.available or not kn.alive:
             kn.stats.refused += 1
             return None, 0.0, False
+        if self.variant.name == "clover":
+            return self._clover_read(kn, key)
         kn.stats.ops += 1
         kn.stats.reads += 1
         replicated = (self.variant.selective_replication
@@ -458,6 +582,8 @@ class DinomoCluster:
         if not kn.available or not kn.alive:
             kn.stats.refused += 1
             return 0.0, False
+        if self.variant.name == "clover":
+            return self._clover_write(kn, key, value, delete, req_id)
         kn.stats.ops += 1
         kn.stats.writes += 1
         self._seq += 1
@@ -490,6 +616,48 @@ class DinomoCluster:
             kn._segcache_put(key, ptr, length)
             kn.cache.fill_after_write(key, ptr, length, segment_cached=True)
         self.versions[key] = self.versions.get(key, 0) + 1
+        kn.stats.rts += rts
+        return rts, True
+
+    # ----- Clover request paths (shared everything, version chains) -------
+    def _clover_read(self, kn: KVSNode, key: int):
+        kn.stats.ops += 1
+        kn.stats.reads += 1
+        cur = self.versions.get(key, 0)
+        cached = kn.cache.lookup(key)
+        rts = 0.0
+        if cached is None:
+            self.ms_ops += 1            # two-sided RPC to metadata server
+            rts += 1.0                  # (modeled as 1 RT-equivalent + MS load)
+        ptr, _probes = self.pool.index_lookup(key)
+        if ptr is None:
+            kn.stats.rts += rts
+            return None, rts, True
+        stale = 0 if cached is None else max(cur - cached, 0)
+        # walk the version chain from the cached cursor: header + value
+        rts += 2.0 + stale
+        kn.cache.fill(key, cur)
+        value, _ = self.pool.read_value(ptr)
+        kn.stats.rts += rts
+        return value, rts, True
+
+    def _clover_write(self, kn: KVSNode, key: int, value, delete: bool,
+                      req_id: int = -1):
+        kn.stats.ops += 1
+        kn.stats.writes += 1
+        length = 0 if delete else self.value_bytes
+        logical_key = -key - 1 if delete else key
+        res = self.pool.log_write(kn.name, logical_key,
+                                  None if delete else value, length,
+                                  req_id=req_id, token=kn.fence_token)
+        if isinstance(res, FencedWrite):
+            kn.stats.refused += 1
+            return 0.0, False
+        ptr, _ = res
+        self.pool.merge_all(kn.name)    # Clover updates metadata in place
+        rts = 2.0                       # out-of-place append + link/CAS
+        self.versions[key] = self.versions.get(key, 0) + 1
+        kn.cache.fill(key, self.versions[key])
         kn.stats.rts += rts
         return rts, True
 
@@ -544,12 +712,25 @@ class DinomoCluster:
         out_values: list | None = [None] * n if collect_values else None
         if n == 0 or not self.kns:
             return BatchResult(0, 0, {}, keys[:0], out_values)
-        if self.variant.architecture == "shared_everything" or \
-                not all(isinstance(k.cache, ArrayDAC)
-                        for k in self.kns.values()):
-            # reference caches have no vectorized plane (nor does a
-            # shared-everything DAC variant): run the fused scalar loop
-            # (same per-op semantics, minus the per-call overhead)
+        if self.variant.architecture == "shared_everything":
+            if all(isinstance(k.cache, ArrayCloverCache)
+                   for k in self.kns.values()) \
+                    and not self.pool.indirect \
+                    and not self.pool.merge_backlog \
+                    and all(not s[-1].entries
+                            for s in self.pool.segments.values()):
+                # clover merges per write, so the batched plane assumes
+                # (and every batch re-establishes) empty active logs
+                return self._execute_batch_clover(kinds, keys, value,
+                                                  values, blocked_kns,
+                                                  out_values, req_ids)
+            return self._execute_batch_fused(kinds, keys, value, values,
+                                             blocked_kns, out_values,
+                                             req_ids)
+        if not all(isinstance(k.cache, (ArrayDAC, ArrayStaticCache))
+                   for k in self.kns.values()):
+            # reference caches have no vectorized plane: run the fused
+            # scalar loop (same per-op semantics, minus driver overhead)
             return self._execute_batch_fused(kinds, keys, value, values,
                                              blocked_kns, out_values,
                                              req_ids)
@@ -959,7 +1140,8 @@ class DinomoCluster:
         declines: the int32 guards, a short window)."""
         kn, cache = w.kn, w.cache
         is_dac = w.is_dac
-        planner = plan_dac_window if is_dac else None
+        planner = plan_dac_window if is_dac else \
+            (plan_static_window if w.is_static else None)
         collect = out_values is not None
         start = 0
         n_all = full.size
@@ -1018,10 +1200,6 @@ class DinomoCluster:
         kind-gather, split into maximal same-class runs, apply
         vectorizable runs in bulk (re-validated against the live cache
         at run boundaries), drop to the exact scalar op otherwise."""
-        if not is_dac:
-            raise NotImplementedError(NOT_PORTED_2B.format(
-                what="static cache's replay (_hit_run_static, "
-                     "_write_run_generic)"))
         t0_wall = perf_counter()
         cls = np.where(sops == 0, cache.kind[skeys],
                        np.where(sops == 1, np.int8(3), np.int8(4)))
@@ -1042,14 +1220,29 @@ class DinomoCluster:
                 span_l = span.tolist()
                 keys_l = skeys.tolist()
             if c == 2:
-                self._vh_run(kn, cache, span_l[s:e], keys_l[s:e],
-                             probe_map, dkeys, dbuckets, out_values)
+                if is_dac:
+                    self._vh_run(kn, cache, span_l[s:e], keys_l[s:e],
+                                 probe_map, dkeys, dbuckets, out_values)
+                else:
+                    self._hit_run_static(kn, cache, span_l[s:e],
+                                         keys_l[s:e], c, probe_map,
+                                         dkeys, dbuckets, out_values)
             elif c == 1:
-                self._sc_run(kn, cache, span_l[s:e], keys_l[s:e],
-                             probe_map, dkeys, dbuckets, out_values)
+                if is_dac:
+                    self._sc_run(kn, cache, span_l[s:e], keys_l[s:e],
+                                 probe_map, dkeys, dbuckets, out_values)
+                else:
+                    self._hit_run_static(kn, cache, span_l[s:e],
+                                         keys_l[s:e], c, probe_map,
+                                         dkeys, dbuckets, out_values)
             elif c >= 3:
-                self._write_run(kn, cache, span_l[s:e], keys_l[s:e],
-                                c == 4, plan, out_values)
+                if is_dac:
+                    self._write_run(kn, cache, span_l[s:e], keys_l[s:e],
+                                    c == 4, plan, out_values)
+                else:
+                    self._write_run_generic(kn, cache, span_l[s:e],
+                                            keys_l[s:e], c == 4, plan,
+                                            out_values)
             else:
                 # predicted misses: exact scalar ops
                 for p_, k in zip(span_l[s:e], keys_l[s:e]):
@@ -1535,6 +1728,75 @@ class DinomoCluster:
         cs.demotions += demos
         cs.evictions += evics
 
+    def _hit_run_static(self, kn, cache, run_pos, run_keys, kd, probe_map,
+                        dkeys, dbuckets, out_values) -> None:
+        """A run of predicted static-cache hits (value or shortcut):
+        each hit is a recency bump (+1 RT for shortcuts), re-validated
+        per op; mispredictions take the exact scalar path."""
+        kindarr = cache.kind
+        heap = self.pool.heap_val
+        st = kn.stats
+        stp = cache.stamp
+        ptr_l = cache.ptr
+        clock = cache._clock
+        collect = out_values is not None
+        hits = 0
+        for i in range(len(run_keys)):
+            k = run_keys[i]
+            if kindarr[k] != kd:
+                cache._clock = clock
+                self._scalar_read_dac(kn, cache, k, run_pos[i],
+                                      probe_map, dkeys, dbuckets,
+                                      out_values)
+                clock = cache._clock
+                continue
+            stp[k] = clock
+            clock += 1
+            hits += 1
+            if collect:
+                out_values[run_pos[i]] = heap[ptr_l[k]]
+        cache._clock = clock
+        st.ops += hits
+        st.reads += hits
+        if kd == 2:
+            cache.stats.value_hits += hits
+        else:
+            cache.stats.shortcut_hits += hits
+            st.rts += float(hits)          # one-sided pointer chase each
+
+    def _write_run_generic(self, kn, cache, run_pos, run_keys, delete,
+                           plan, out_values) -> None:
+        """A run of same-KN writes against a non-DAC cache: staged log
+        plane + segcache update + the library fill per op."""
+        st = kn.stats
+        nrun = len(run_pos)
+        st.ops += nrun
+        st.writes += nrun
+        wrank_l = plan.wrank_l
+        rts_l = plan.rts_l
+        ptrs_l = plan.ptrs_l
+        segd = kn.segcache
+        rts = 0.0
+        if delete:
+            for p_, k in zip(run_pos, run_keys):
+                rts += rts_l[wrank_l[p_]]
+                cache.invalidate(k)
+                segd.pop(k, None)
+            st.rts += rts
+            return
+        segcap = kn.segcache_cap
+        vb = self.value_bytes
+        for p_, k in zip(run_pos, run_keys):
+            r = wrank_l[p_]
+            ptr = ptrs_l[r]
+            rts += rts_l[r]
+            segd[k] = (ptr, vb)
+            segd.move_to_end(k)
+            while len(segd) > segcap:
+                segd.popitem(last=False)
+            cache.fill_after_write(k, ptr, vb, segment_cached=True)
+        st.rts += rts
+
     def _exec_rep_op(self, p, kinds, keys, kn_ids, names, plan, dkeys,
                      out_values) -> None:
         """One replicated-key op at its exact global position (the
@@ -1587,6 +1849,229 @@ class DinomoCluster:
         sp = pos[order]
         bounds = np.nonzero(np.diff(ids[order]))[0] + 1
         yield from np.split(sp, bounds)
+
+    def _execute_batch_clover(self, kinds, keys, value, values,
+                              blocked_kns, out_values,
+                              req_ids=None) -> "BatchResult":
+        """The batched Clover plane (shared-everything, version-chain
+        cache): client routing draws the rng per op exactly as the
+        scalar path, version-counter checks and shortcut fills run
+        against the ArrayCloverCache, and the per-write merge-all
+        (Clover updates metadata in place) is staged -- superseded
+        pointers invalidate eagerly at their op position through a
+        pending-index overlay, the CLHT bucket updates land once at
+        batch end via the planned insert_batch (plan_merge_window ->
+        apply_merge_plan, scalar replay past a plan's self-truncation
+        point). Requires (and leaves)
+        empty active logs; statistics are op-for-op identical to the
+        per-op path (property-tested)."""
+        # shared-everything: every KN serves (and stamps) any key, so
+        # there is no ownership partition for the sanitizer to enforce
+        with sanitize.management():
+            return self._execute_batch_clover_at(
+                kinds, keys, value, values, blocked_kns, out_values,
+                req_ids)
+
+    def _execute_batch_clover_at(self, kinds, keys, value, values,
+                                 blocked_kns, out_values,
+                                 req_ids=None) -> "BatchResult":
+        pool = self.pool
+        versions = self.versions
+        heap = pool.heap_val
+        heap_len = pool.heap_len
+        heap_seg = pool.heap_seg
+        gc = pool.gc
+        kns = self.kns
+        names = [n for n, k in kns.items() if k.alive]
+        n = keys.shape[0]
+        if not names:
+            return BatchResult(0, 0, {}, keys[:0], out_values)
+        choice = self.rng.choice
+        kn_names = [choice(names) for _ in range(n)]
+        blocked = set(blocked_kns)
+        ptr0, _probes = pool.index_lookup_batch(keys)
+        if not kinds.any():
+            res = self._clover_read_batch(keys, kn_names, names, blocked,
+                                          ptr0, out_values)
+            if res is not None:
+                return res
+        ptr0_l = ptr0.tolist()
+        keys_l = keys.tolist()
+        kinds_l = kinds.tolist()
+        vb = self.value_bytes
+        cap = pool.segment_capacity
+        collect = out_values is not None
+        pend: dict[int, int] = {}      # key -> latest in-batch ptr (-1 del)
+        wrote: set[str] = set()
+        per_kn: dict[str, int] = {}
+        exec_idx: list[int] = []
+        writes = 0
+        ms = 0
+        vbump = 0                      # index.version bumps the per-op
+        v0 = pool.index.version        # sequence would have made
+        for i in range(n):
+            nm = kn_names[i]
+            if nm in blocked:
+                continue
+            k = keys_l[i]
+            kn = kns[nm]
+            exec_idx.append(i)
+            per_kn[nm] = per_kn.get(nm, 0) + 1
+            st = kn.stats
+            if not kn.available:
+                st.refused += 1
+                if kinds_l[i]:
+                    writes += 1
+                continue
+            cache = kn.cache
+            if kinds_l[i] == 0:
+                # ---- _clover_read, staged index ----
+                st.ops += 1
+                st.reads += 1
+                cur = versions.get(k, 0)
+                cached = cache.lookup(k)
+                rts = 0.0
+                if cached is None:
+                    ms += 1            # two-sided RPC to metadata server
+                    rts = 1.0
+                p_ = pend.get(k, ptr0_l[i])
+                if p_ < 0:
+                    st.rts += rts
+                    continue
+                stale = cur - cached \
+                    if cached is not None and cur > cached else 0
+                # walk the version chain from the cached cursor
+                rts += 2.0 + stale
+                with sanitize.owned(kn.name):
+                    cache.fill(k, cur)
+                if collect:
+                    out_values[i] = heap[p_]
+                st.rts += rts
+                continue
+            # ---- _clover_write + staged merge-all ----
+            writes += 1
+            delete = kinds_l[i] == 2
+            st.ops += 1
+            st.writes += 1
+            length = 0 if delete else vb
+            ptr = len(heap)
+            heap.append(None if delete
+                        else self._value_at(i, value, values))
+            heap_len.append(length)
+            seg = pool.new_segment(nm)
+            seg.entries.append((-k - 1 if delete else k, ptr))
+            seg.sealed.append(True)
+            rid = -1 if req_ids is None else int(req_ids[i])
+            seg.reqs.append(rid)
+            seg.gens.append(pool.fence.get(nm, 0))
+            if rid >= 0:
+                pool.req_index[rid] = ptr
+            seg.valid = 1
+            seg.merged_upto = 1
+            heap_seg.append(seg)
+            wrote.add(nm)
+            gc.entries_merged += 1     # Clover merges each write in place
+            old = pend.get(k)
+            if old is None:
+                old = ptr0_l[i]
+            if delete:
+                seg.valid -= 1         # tombstone consumes its own entry
+                if old >= 0:
+                    vbump += 1
+                    pool._invalidate_ptr(old)
+                pend[k] = -1
+            else:
+                vbump += 1
+                if old >= 0 and old != ptr:
+                    pool._invalidate_ptr(old)
+                pend[k] = ptr
+            versions[k] = versions.get(k, 0) + 1
+            with sanitize.owned(kn.name):
+                cache.fill(k, versions[k])
+            st.rts += 2.0              # out-of-place append + link/CAS
+        # land the final index state (grouped bucket update); superseded
+        # pointers were invalidated at their op positions above
+        if pend:
+            ins = [(k, p) for k, p in pend.items() if p >= 0]
+            if ins:
+                ka = np.fromiter((k for k, _ in ins), np.int64, len(ins))
+                pa = np.fromiter((p for _, p in ins), np.int64, len(ins))
+                pool.index.insert_batch(ka, pa)
+            for k, p in pend.items():
+                if p < 0:
+                    pool.index.delete(k)
+            # align the version counter with the per-op merge cadence
+            pool.index.version = v0 + vbump
+        for nm in wrote:
+            pool.segments[nm] = [pool.new_segment(nm)]
+        self.ms_ops += ms
+        idx = np.asarray(exec_idx, dtype=np.int64)
+        return BatchResult(len(exec_idx), writes, per_kn, keys[idx],
+                           out_values)
+
+    def _clover_read_batch(self, keys, kn_names, names, blocked, ptr0,
+                           out_values) -> "BatchResult | None":
+        """Planned read-only Clover batch: each KN's slice of the batch
+        is planned as one bulk cache transition (plan_clover_reads) and
+        applied through ArrayCloverCache.apply_plan.  Returns None when
+        any KN's plan could evict (the per-op loop then runs instead);
+        nothing is mutated until every plan is in hand."""
+        kns = self.kns
+        versions = self.versions
+        n = keys.shape[0]
+        keys_l = keys.tolist()
+        vget = versions.get
+        vers = np.fromiter((vget(k, 0) for k in keys_l), np.int64, n)
+        found = ptr0 >= 0
+        idx = {nm: j for j, nm in enumerate(names)}
+        kn_ids = np.fromiter(map(idx.__getitem__, kn_names), np.int64, n)
+        bl = np.zeros(len(names), bool)
+        un = np.zeros(len(names), bool)
+        for j, nm in enumerate(names):
+            bl[j] = nm in blocked
+            un[j] = not kns[nm].available
+        execm = ~bl[kn_ids]
+        live = execm & ~un[kn_ids]
+        plans = []
+        for j, nm in enumerate(names):
+            grp = np.flatnonzero(live & (kn_ids == j))
+            if not grp.size:
+                plans.append((nm, grp, None))
+                continue
+            wp = plan_clover_reads(kns[nm].cache, keys[grp], vers[grp],
+                                   found[grp])
+            if wp is None:
+                return None
+            plans.append((nm, grp, wp))
+        ms = 0
+        per_kn: dict[str, int] = {}
+        for j, nm in enumerate(names):
+            cnt = int(execm[kn_ids == j].sum())
+            if cnt:
+                per_kn[nm] = cnt
+        for nm, grp, wp in plans:
+            kn = kns[nm]
+            st = kn.stats
+            refused = int((execm & un[kn_ids] & (kn_ids == idx[nm]))
+                          .sum())
+            st.refused += refused
+            if wp is None:
+                continue
+            with sanitize.owned(nm):
+                kn.cache.apply_plan(wp)
+            st.ops += int(grp.size)
+            st.reads += int(grp.size)
+            st.rts += wp.rts
+            ms += wp.misses
+            if out_values is not None:
+                heap = self.pool.heap_val
+                for p_, pt in zip(grp.tolist(), ptr0[grp].tolist()):
+                    if pt >= 0:
+                        out_values[p_] = heap[pt]
+        self.ms_ops += ms
+        eidx = np.flatnonzero(execm)
+        return BatchResult(int(eidx.size), 0, per_kn, keys[eidx],
+                           out_values)
 
     def _execute_batch_fused(self, kinds, keys, value, values, blocked_kns,
                              out_values, req_ids=None):
@@ -1652,28 +2137,37 @@ class DinomoCluster:
         """Bulk-load the dataset (untimed, as in the paper's load phase).
         ``warm=True`` reproduces the load-through-KN effect: under OP the
         owner inserted every key it owns, so it holds a shortcut for
-        free. Where the per-key fills provably make no room (empty
+        free; under shared-everything each key was handled by one
+        arbitrary KN. Where the per-key fills provably make no room (empty
         ArrayDACs, each owner's keys ascending and all fitting as
         shortcuts, no indirection slot), the warm-up runs in bulk, one
-        ``warm_load`` an owner, to the same end state; otherwise it runs
-        key by key, as the reference."""
+        ``warm_load`` an owner, to the same end state; otherwise (and for
+        the baselines' caches) it runs key by key, as the reference."""
         items = list(items)
         self.pool.bulk_load((k, v, self.value_bytes) for k, v in items)
-        if not warm:
-            return
-        keys = [k for k, _ in items]
+        if warm:
+            self._warm([k for k, _ in items])
+
+    def _warm(self, keys) -> None:
+        """The warm-up of ``load(warm=True)`` over ``keys``, loaded."""
         with sanitize.management():     # warm load fills any KN's cache
             if not self._warm_bulk(keys):
                 self._warm_per_key(keys)
 
     def _warm_per_key(self, keys) -> None:
+        names = list(self.kns)
         for k in keys:
             ptr, _ = self.pool.index_lookup(k)
             if ptr is None:
                 continue
-            owner = self.ownership.primary(k)
-            self.kns[owner].cache.fill_after_write(
-                k, ptr, self.value_bytes, segment_cached=False)
+            if self.variant.name == "clover":
+                kn = self.kns[names[stable_hash(("load", k))
+                                    % len(names)]]
+                kn.cache.fill(k, self.versions.get(k, 0))
+            else:
+                owner = self.ownership.primary(k)
+                self.kns[owner].cache.fill_after_write(
+                    k, ptr, self.value_bytes, segment_cached=False)
 
     def _warm_bulk(self, keys) -> bool:
         """The per-key warm-up in bulk, or False (nothing touched) where

@@ -25,6 +25,12 @@ KN's cache is its DRAM); the device work of that path is the
 cache_transition kernel, the planner's twin. While ``core.jit_engine``
 keeps a copy of it on the device, its ``_dirty`` ``SlotRecord`` notes
 every slot host code writes, so the next upload moves only those.
+
+``StaticCache`` and ``ArrayStaticCache`` are the Fig. 3 static-split
+baselines (shortcut-only, value-only, ``static:<f>``; ``dinomo-s`` runs
+the first), the per-op oracle and the array-backed cache the batched
+plane plans (``core.transition.plan_static_window``). A static cache
+never enters the compiled engine, so it records no slots.
 """
 
 from __future__ import annotations
@@ -822,3 +828,308 @@ class ArrayDAC:
                        else CNT_HIST_MAX] -= 1
         # inherits access count (paper Sec. 4)
         self._insert_value(key, p, ln, count=cnt)
+
+
+class ArrayStaticCache:
+    """Array-backed StaticCache: the batched data plane's cache for the
+    Fig. 3 static-split baselines (shortcut-only, value-only, static:f).
+
+    Same policy as ``StaticCache``, decision-for-decision (property
+    tested): entries live in dense per-key vectors -- kind (0 absent /
+    1 shortcut / 2 value), pointer, length, recency stamp -- so a batch
+    classifies with one gather and runs of hits apply in bulk. Each
+    side keeps its own lazy LRU heap: argmin (stamp, key) over a side
+    equals that side's OrderedDict order (stamps are monotone and hits
+    move-to-end)."""
+
+    KIND_NONE, KIND_SHORTCUT, KIND_VALUE = 0, 1, 2
+
+    def __init__(self, capacity_bytes: int, value_fraction: float,
+                 initial_keys: int = 1024):
+        self.value_cap = int(capacity_bytes * value_fraction)
+        self.shortcut_cap = capacity_bytes - self.value_cap
+        self.value_used = 0
+        self.shortcut_used = 0
+        self.stats = CacheStats()
+        n = max(initial_keys, 8)
+        self.kind = np.zeros(n, np.int8)
+        self.ptr = np.full(n, -1, np.int64)
+        self.length = np.zeros(n, np.int64)
+        self.stamp = np.zeros(n, np.int64)
+        self._clock = 1
+        self._vlru: list[tuple[int, int]] = []   # lazy heap (stamp, key)
+        self._slru: list[tuple[int, int]] = []
+        self._nvals = 0
+        self._nshort = 0
+
+    def _ensure(self, key: int) -> None:
+        n = self.kind.shape[0]
+        if key < n:
+            return
+        m = max(2 * n, key + 1)
+        self.kind = np.concatenate([self.kind, np.zeros(m - n, np.int8)])
+        self.ptr = np.concatenate([self.ptr, np.full(m - n, -1, np.int64)])
+        self.length = np.concatenate([self.length,
+                                      np.zeros(m - n, np.int64)])
+        self.stamp = np.concatenate([self.stamp,
+                                     np.zeros(m - n, np.int64)])
+
+    # ----- public per-op API (mirrors StaticCache) --------------------------
+    def lookup(self, key: int):
+        self._ensure(key)
+        kd = self.kind[key]
+        if kd == self.KIND_VALUE:
+            self.stamp[key] = self._clock
+            self._clock += 1
+            self.stats.value_hits += 1
+            return ("value", self.ptr[key], self.length[key])
+        if kd == self.KIND_SHORTCUT:
+            self.stamp[key] = self._clock
+            self._clock += 1
+            self.stats.shortcut_hits += 1
+            return ("shortcut", self.ptr[key], self.length[key])
+        self.stats.misses += 1
+        return None
+
+    def note_miss_rts(self, rts: float) -> None:  # interface parity
+        pass
+
+    def _pop_side(self, heap, kd):
+        """Pop the least-recently-used live key of one side."""
+        live = self._nvals if kd == self.KIND_VALUE else self._nshort
+        if len(heap) > 4 * live + 64:
+            self._compact(kd)
+            heap = self._vlru if kd == self.KIND_VALUE else self._slru
+        while heap:
+            st, k = heapq.heappop(heap)
+            if self.kind[k] != kd:
+                continue                          # stale record: drop
+            cur = self.stamp[k]
+            if cur != st:
+                heapq.heappush(heap, (cur, k))    # refresh
+                continue
+            return k
+        return None
+
+    def _compact(self, kd) -> None:
+        ks = np.flatnonzero(self.kind == kd)
+        heap = list(zip(self.stamp[ks].tolist(), ks.tolist()))
+        heapq.heapify(heap)
+        if kd == self.KIND_VALUE:
+            self._vlru = heap
+        else:
+            self._slru = heap
+
+    def fill_after_miss(self, key: int, ptr: int, length: int) -> None:
+        self._ensure(key)
+        vb = VALUE_OVERHEAD_BYTES + length
+        if vb <= self.value_cap:
+            while self.value_used + vb > self.value_cap and self._nvals:
+                v = self._pop_side(self._vlru, self.KIND_VALUE)
+                if v is None:
+                    break
+                self.kind[v] = self.KIND_NONE
+                self.value_used -= VALUE_OVERHEAD_BYTES + self.length[v]
+                self._nvals -= 1
+                self.stats.evictions += 1
+            if self.value_used + vb <= self.value_cap:
+                self.kind[key] = self.KIND_VALUE
+                self.ptr[key] = ptr
+                self.length[key] = length
+                self.stamp[key] = self._clock
+                heapq.heappush(self._vlru, (self._clock, key))
+                self._clock += 1
+                self.value_used += vb
+                self._nvals += 1
+                return
+        while self.shortcut_used + SHORTCUT_BYTES > self.shortcut_cap \
+                and self._nshort:
+            v = self._pop_side(self._slru, self.KIND_SHORTCUT)
+            if v is None:
+                break
+            self.kind[v] = self.KIND_NONE
+            self.shortcut_used -= SHORTCUT_BYTES
+            self._nshort -= 1
+            self.stats.evictions += 1
+        if self.shortcut_used + SHORTCUT_BYTES <= self.shortcut_cap:
+            self.kind[key] = self.KIND_SHORTCUT
+            self.ptr[key] = ptr
+            self.length[key] = length
+            self.stamp[key] = self._clock
+            heapq.heappush(self._slru, (self._clock, key))
+            self._clock += 1
+            self.shortcut_used += SHORTCUT_BYTES
+            self._nshort += 1
+
+    def fill_after_write(self, key: int, ptr: int, length: int,
+                         segment_cached: bool) -> None:
+        self.invalidate(key)
+        self.fill_after_miss(key, ptr, length)
+
+    def invalidate(self, key: int) -> None:
+        self._ensure(key)
+        kd = self.kind[key]
+        if kd == self.KIND_VALUE:
+            self.value_used -= VALUE_OVERHEAD_BYTES + self.length[key]
+            self._nvals -= 1
+        elif kd == self.KIND_SHORTCUT:
+            self.shortcut_used -= SHORTCUT_BYTES
+            self._nshort -= 1
+        self.kind[key] = self.KIND_NONE
+
+    def demote_to_shortcut(self, key: int) -> None:
+        self._ensure(key)
+        if self.kind[key] == self.KIND_VALUE:
+            p, ln = self.ptr[key], self.length[key]
+            self.kind[key] = self.KIND_NONE
+            self.value_used -= VALUE_OVERHEAD_BYTES + ln
+            self._nvals -= 1
+            self.fill_after_miss(key, p, ln)
+
+    def update_pointer(self, key: int, ptr: int, length: int) -> None:
+        self._ensure(key)
+        if self.kind[key] != self.KIND_NONE:
+            # StaticCache.update_pointer does not re-account bytes
+            self.ptr[key] = ptr
+            self.length[key] = length
+
+    def clear(self) -> None:
+        self.kind[:] = 0
+        self.stamp[:] = 0
+        self._vlru.clear()
+        self._slru.clear()
+        self.value_used = self.shortcut_used = 0
+        self._nvals = self._nshort = 0
+
+    def __contains__(self, key: int) -> bool:
+        return key < self.kind.shape[0] and self.kind[key] != 0
+
+    def bulk_value_hits(self, keys: np.ndarray) -> None:
+        """A run of value hits: recency = clock at the key's last
+        position in the run, exactly what per-op lookups do."""
+        n = keys.shape[0]
+        c0 = self._clock
+        if n > 24:
+            u, ridx = np.unique(keys[::-1], return_index=True)
+            self.stamp[u] = c0 + (n - 1 - ridx)
+        else:
+            stp = self.stamp
+            for i, k in enumerate(keys.tolist()):
+                stp[k] = c0 + i
+        self._clock += n
+        self.stats.value_hits += n
+
+    def apply_plan(self, plan) -> None:
+        """Apply one planned window in bulk (see
+        core.transition.plan_static_window): deduplicated last-wins
+        scatters, per-side eviction victims disjoint from the window's
+        keys, clock-ascending per-side LRU records."""
+        kind = self.kind
+        if plan.vvic:
+            kind[np.asarray(plan.vvic, np.int64)] = self.KIND_NONE
+        if plan.svic:
+            kind[np.asarray(plan.svic, np.int64)] = self.KIND_NONE
+        kind[plan.kk_keys] = plan.kk_kind
+        if plan.fill_keys.size:
+            self.ptr[plan.fill_keys] = plan.fill_ptr
+            self.length[plan.fill_keys] = plan.fill_len
+        if plan.stp_keys.size:
+            self.stamp[plan.stp_keys] = plan.stp_vals
+        self._clock += plan.clock_delta
+        if plan.vlru_records:
+            self._vlru.extend(plan.vlru_records)
+        if plan.slru_records:
+            self._slru.extend(plan.slru_records)
+        self.value_used = plan.vused_final
+        self.shortcut_used = plan.sused_final
+        self._nvals = plan.nvals_final
+        self._nshort = plan.nshort_final
+        s = self.stats
+        s.value_hits += plan.value_hits
+        s.shortcut_hits += plan.shortcut_hits
+        s.misses += plan.misses
+        s.evictions += plan.evictions
+
+
+class StaticCache:
+    """Fig. 3 baselines: reserve ``value_fraction`` of capacity for values
+    and the rest for shortcuts; LRU eviction on both sides.
+    value_fraction=1.0 -> value-only; 0.0 -> shortcut-only."""
+
+    def __init__(self, capacity_bytes: int, value_fraction: float):
+        self.value_cap = int(capacity_bytes * value_fraction)
+        self.shortcut_cap = capacity_bytes - self.value_cap
+        self.value_used = 0
+        self.shortcut_used = 0
+        self.values: OrderedDict[int, _Entry] = OrderedDict()
+        self.shortcuts: OrderedDict[int, _Entry] = OrderedDict()
+        self.stats = CacheStats()
+
+    def lookup(self, key: int):
+        ent = self.values.get(key)
+        if ent is not None:
+            self.values.move_to_end(key)
+            self.stats.value_hits += 1
+            return ("value", ent.ptr, ent.length)
+        ent = self.shortcuts.get(key)
+        if ent is not None:
+            self.shortcuts.move_to_end(key)
+            self.stats.shortcut_hits += 1
+            return ("shortcut", ent.ptr, ent.length)
+        self.stats.misses += 1
+        return None
+
+    def note_miss_rts(self, rts: float) -> None:  # interface parity
+        pass
+
+    def fill_after_miss(self, key: int, ptr: int, length: int) -> None:
+        vb = DAC.value_bytes(length)
+        if vb <= self.value_cap:
+            while self.value_used + vb > self.value_cap and self.values:
+                _, old = self.values.popitem(last=False)
+                self.value_used -= DAC.value_bytes(old.length)
+                self.stats.evictions += 1
+            if self.value_used + vb <= self.value_cap:
+                self.values[key] = _Entry(ptr, length)
+                self.value_used += vb
+                return
+        while self.shortcut_used + SHORTCUT_BYTES > self.shortcut_cap \
+                and self.shortcuts:
+            self.shortcuts.popitem(last=False)
+            self.shortcut_used -= SHORTCUT_BYTES
+            self.stats.evictions += 1
+        if self.shortcut_used + SHORTCUT_BYTES <= self.shortcut_cap:
+            self.shortcuts[key] = _Entry(ptr, length)
+            self.shortcut_used += SHORTCUT_BYTES
+
+    def fill_after_write(self, key: int, ptr: int, length: int,
+                         segment_cached: bool) -> None:
+        self.invalidate(key)
+        self.fill_after_miss(key, ptr, length)
+
+    def invalidate(self, key: int) -> None:
+        ent = self.values.pop(key, None)
+        if ent is not None:
+            self.value_used -= DAC.value_bytes(ent.length)
+        ent = self.shortcuts.pop(key, None)
+        if ent is not None:
+            self.shortcut_used -= SHORTCUT_BYTES
+
+    def demote_to_shortcut(self, key: int) -> None:
+        ent = self.values.pop(key, None)
+        if ent is not None:
+            self.value_used -= DAC.value_bytes(ent.length)
+            self.fill_after_miss(key, ent.ptr, ent.length)
+
+    def update_pointer(self, key: int, ptr: int, length: int) -> None:
+        ent = self.values.get(key) or self.shortcuts.get(key)
+        if ent is not None:
+            ent.ptr, ent.length = ptr, length
+
+    def clear(self) -> None:
+        self.values.clear()
+        self.shortcuts.clear()
+        self.value_used = self.shortcut_used = 0
+
+    def __contains__(self, key: int) -> bool:
+        return key in self.values or key in self.shortcuts

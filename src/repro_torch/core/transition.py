@@ -35,9 +35,12 @@ device twin's gather (``kernels.cache_transition.ops.gather_window``)
 calls too: the ``cache_transition`` kernel runs the planner's
 structural space machine on those vectors.
 
-The merge plane's planner (``plan_merge_window``, the DPM pool's
-planned merge) is copied at the end of this module. The static-split
-planner and the Clover read plan of the reference are not ported yet.
+The static-split planner (``plan_static_window``: the same contract over
+an ``ArrayStaticCache``, no counts and no promotions), the merge plane's
+planner (``plan_merge_window``, the DPM pool's planned merge) and the
+Clover read plan (``plan_clover_reads``: a read-only batch's slice of one
+Clover KN, planned only where it cannot evict) are copied from the
+reference too.
 """
 
 from __future__ import annotations
@@ -119,6 +122,23 @@ class DacWindowPlan:
         "seg_puts", "seg_replay", "out_vals",
         # the port's own: read by the cache_transition twin's gather
         "include_refills", "to_val",
+    )
+
+
+class StaticWindowPlan:
+    """One ArrayStaticCache window's bulk transition decisions."""
+
+    __slots__ = (
+        "kk_keys", "kk_kind",
+        "fill_keys", "fill_ptr", "fill_len",
+        "stp_keys", "stp_vals",
+        "vlru_records", "slru_records",
+        "vvic", "svic",                          # per-side eviction keys
+        "clock_delta", "vused_final", "sused_final",
+        "nvals_final", "nshort_final",
+        "value_hits", "shortcut_hits", "misses", "evictions",
+        "ops", "reads", "writes", "rts", "ema_rts",
+        "seg_puts", "seg_replay", "out_vals",
     )
 
 
@@ -1008,6 +1028,259 @@ def _collect_values(cache, pool, keys_l, opk, pos, miss, res_kind,
     return out
 
 
+def plan_static_window(cache, kn, keys, opk, pos, wplan, probe_map,
+                       dkeys, dbuckets, pool, value_bytes, collect):
+    """Plan one ArrayStaticCache window (fig. 3 static-split planes).
+
+    Simpler machine than DAC: no counts, no promotions; each fill's
+    side is statically determined by its size vs the side capacity, and
+    each side evicts its own LRU tail.  Exact under the same victim
+    conditions (frozen victim queue untouched by the window)."""
+    m = keys.shape[0]
+    if m < MIN_PLAN_OPS:
+        return None
+    ovh = VALUE_OVERHEAD_BYTES
+    sb = SHORTCUT_BYTES
+    vcap = cache.value_cap
+    scap = cache.shortcut_cap
+    kind_a = cache.kind
+    len_a = cache.length
+    segd = kn.segcache
+    kd = kind_a[keys].astype(np.int64)
+    is_rd = opk == 0
+    is_wr = opk == 1
+    is_dl = opk == 2
+    keys_l = keys.tolist()
+
+    # repeated pure hits keep their entry class in the static planes
+    # (no promotions), so only groups with writes/deletes or an absent
+    # first kind need the exact evolution loop
+    dup_idx, _, _ = _dup_split(keys, opk, kd, (0,))
+    seg_dead: set = set()
+    res_cache: dict = {}
+    if dup_idx is not None:
+        kd = kd.copy()
+        kd_l = kd.tolist()
+        plen_l = np.where(kd == 0, 0, len_a[keys]).tolist()
+        state: dict = {}
+        for i, o in zip(dup_idx.tolist(), opk[dup_idx].tolist()):
+            k = keys_l[i]
+            st = state.get(k)
+            if st is None:
+                st = [kd_l[i], plen_l[i]]
+            else:
+                kd_l[i], plen_l[i] = st
+            if o == 0:
+                if st[0] == 0:
+                    r = _resolve_miss(k, int(pos[i]), segd, seg_dead,
+                                      probe_map, dkeys, dbuckets, pool)
+                    res_cache[i] = r
+                    if r[0]:
+                        st[0] = 2 if r[2] + ovh <= vcap else 1
+                        st[1] = r[2]
+            elif o == 1:
+                st[0] = 2 if value_bytes + ovh <= vcap else 1
+                st[1] = value_bytes
+                seg_dead.discard(k)
+            else:
+                st[0], st[1] = 0, 0
+                seg_dead.add(k)
+            state[k] = st
+        kd = np.asarray(kd_l, np.int64)
+        plen = np.asarray(plen_l, np.int64)
+    else:
+        plen = np.where(kd == 0, 0, len_a[keys])
+
+    vhit = is_rd & (kd == 2)
+    shit = is_rd & (kd == 1)
+    miss = is_rd & (kd == 0)
+    n_miss = int(miss.sum())
+    res_kind = res_ptr = res_len = res_probes = None
+    if n_miss:
+        if len(segd) + int(is_wr.sum()) > kn.segcache_cap:
+            for i in np.flatnonzero(miss).tolist():
+                if keys_l[i] in segd:
+                    return None
+        res_kind = np.zeros(m, np.int64)
+        res_ptr = np.full(m, -1, np.int64)
+        res_len = np.zeros(m, np.int64)
+        res_probes = np.zeros(m, np.float64)
+        for i in np.flatnonzero(miss).tolist():
+            r = res_cache.get(i)
+            if r is None:
+                r = _resolve_miss(keys_l[i], int(pos[i]), segd, seg_dead,
+                                  probe_map, dkeys, dbuckets, pool)
+            res_kind[i], res_ptr[i], res_len[i], res_probes[i] = r
+        fillm = miss & (res_kind > 0)
+    else:
+        fillm = np.zeros(m, bool)
+
+    # fill sides (static decision per op)
+    fills = is_wr | fillm
+    fill_len_op = np.where(is_wr, value_bytes, res_len
+                           if n_miss else 0)
+    fill_vb = fill_len_op + ovh
+    fill_val = fills & (fill_vb <= vcap)
+    fill_sc = fills & ~fill_val
+    # degenerate shortcut side that cannot hold one entry: the library
+    # path silently skips the insert; replay those windows.
+    if fill_sc.any() and sb > scap:
+        return None
+
+    # per-side byte trajectories (invalidate prior, then insert)
+    pvb = plen + ovh
+    dv = np.zeros(m, np.int64)
+    ds = np.zeros(m, np.int64)
+    remk = (is_wr | is_dl)
+    sel = remk & (kd == 2)
+    dv[sel] -= pvb[sel]
+    ds[remk & (kd == 1)] -= sb
+    dv[fill_val] += fill_vb[fill_val]
+    ds[fill_sc] += sb
+    Av = cache.value_used + np.cumsum(dv)
+    As = cache.shortcut_used + np.cumsum(ds)
+
+    vvic_l: list = []
+    svic_l: list = []
+    for side, (traj, side_cap, side_kind) in enumerate(
+            ((Av, vcap, 2), (As, scap, 1))):
+        demand = int(traj.max()) - side_cap
+        if demand <= 0:
+            continue
+        pool_keys = np.flatnonzero(kind_a == side_kind)
+        if pool_keys.size == 0:
+            return None
+        vst = cache.stamp[pool_keys]
+        gb = (len_a[pool_keys] + ovh) if side_kind == 2 else None
+        order = np.argsort(vst, kind="stable")
+        vic = pool_keys[order]
+        if side_kind == 2:
+            freed = np.cumsum(gb[order])
+        else:
+            freed = sb * np.arange(1, vic.size + 1, dtype=np.int64)
+        t = int(np.searchsorted(freed, demand, side="left")) + 1
+        if t > vic.size:
+            return None
+        vic = vic[:t]
+        if np.isin(vic, keys).any():
+            return None
+        if side_kind == 2:
+            vvic_l = vic.tolist()
+        else:
+            svic_l = vic.tolist()
+    # NOTE: per-op eviction interleaving does not matter here: each
+    # side's victims are consumed in frozen LRU order and eviction
+    # frees monotonically accumulate; verifying final demand per side
+    # is enough because side trajectories are independent and each
+    # insert's while-loop stops exactly at its cumulative demand.
+
+    plan = StaticWindowPlan()
+    post_kind = np.where(fill_val, 2,
+                         np.where(fill_sc, 1,
+                                  np.where(is_dl, 0, kd))) \
+        .astype(np.int8)
+    last = _last_occurrence(keys)
+    plan.kk_keys = keys[last]
+    plan.kk_kind = post_kind[last]
+    fidx = np.flatnonzero(fills)
+    if fidx.size:
+        fptr = np.empty(fidx.size, np.int64)
+        wsub = is_wr[fidx]
+        if wsub.any():
+            fptr[wsub] = wplan.ptrs[wplan.wrank[pos[fidx[wsub]]]]
+        if (~wsub).any():
+            fptr[~wsub] = res_ptr[fidx[~wsub]]
+        flast = _last_occurrence(keys[fidx])
+        plan.fill_keys = keys[fidx][flast]
+        plan.fill_ptr = fptr[flast]
+        plan.fill_len = fill_len_op[fidx][flast]
+    else:
+        plan.fill_keys = np.empty(0, np.int64)
+        plan.fill_ptr = np.empty(0, np.int64)
+        plan.fill_len = np.empty(0, np.int64)
+
+    bump = vhit | shit | fills
+    bump_idx = np.flatnonzero(bump)
+    clocks = cache._clock + np.arange(bump_idx.size, dtype=np.int64)
+    plan.clock_delta = int(bump_idx.size)
+    if bump_idx.size:
+        blast = _last_occurrence(keys[bump_idx])
+        plan.stp_keys = keys[bump_idx][blast]
+        plan.stp_vals = clocks[blast]
+    else:
+        plan.stp_keys = np.empty(0, np.int64)
+        plan.stp_vals = np.empty(0, np.int64)
+    vrec = fill_val[bump_idx] if bump_idx.size else None
+    srec = fill_sc[bump_idx] if bump_idx.size else None
+    plan.vlru_records = list(zip(clocks[vrec].tolist(),
+                                 keys[bump_idx][vrec].tolist())) \
+        if vrec is not None else []
+    plan.slru_records = list(zip(clocks[srec].tolist(),
+                                 keys[bump_idx][srec].tolist())) \
+        if srec is not None else []
+    plan.vvic = vvic_l
+    plan.svic = svic_l
+    plan.vused_final = int(Av[-1]) - (int((len_a[vvic_l] + ovh).sum())
+                                      if vvic_l else 0)
+    plan.sused_final = int(As[-1]) - sb * len(svic_l)
+    # per-op transitions telescope across repeated keys (see DAC plan)
+    pk2 = post_kind == 2
+    pk1 = post_kind == 1
+    dnv = (int((pk2 & (kd != 2)).sum())
+           - int(((kd == 2) & ~pk2).sum()) - len(vvic_l))
+    dns = (int((pk1 & (kd != 1)).sum())
+           - int(((kd == 1) & ~pk1).sum()) - len(svic_l))
+    plan.nvals_final = cache._nvals + dnv
+    plan.nshort_final = cache._nshort + dns
+
+    plan.value_hits = int(vhit.sum())
+    plan.shortcut_hits = int(shit.sum())
+    plan.misses = n_miss
+    plan.evictions = len(vvic_l) + len(svic_l)
+    plan.ops = m
+    plan.reads = int(is_rd.sum())
+    plan.writes = m - plan.reads
+    rts = float(plan.shortcut_hits)
+    if n_miss:
+        found = miss & (res_kind == 1)
+        rts += float(res_probes[miss].sum()) + float(found.sum())
+    plan.ema_rts = []
+    wd = np.flatnonzero(remk)
+    if wd.size:
+        rts += float(wplan.rts[wplan.wrank[pos[wd]]].sum())
+    plan.rts = rts
+
+    # segcache effects: writes put, deletes pop.  Put/pop order per
+    # key (and pop/trim interleaving) matters, so any window with
+    # deletes replays its segcache sequence per op; pure-put windows
+    # use the LRU invariant (final state = most recent cap puts).
+    has_dl = bool(is_dl.any())
+    wsel = np.flatnonzero(is_wr)
+    if has_dl:
+        seq = []
+        for i in np.flatnonzero(remk).tolist():
+            if opk[i] == 2:
+                seq.append((keys_l[i], None))
+            else:
+                seq.append((keys_l[i],
+                            int(wplan.ptrs[wplan.wrank[pos[i]]])))
+        plan.seg_replay = seq
+        plan.seg_puts = None
+    else:
+        plan.seg_replay = None
+        if wsel.size:
+            plan.seg_puts = (keys[wsel].tolist(),
+                             wplan.ptrs[wplan.wrank[pos[wsel]]]
+                             .tolist())
+        else:
+            plan.seg_puts = None
+
+    plan.out_vals = _collect_values(
+        cache, pool, keys_l, opk, pos, miss, res_kind, res_ptr,
+        wplan, m) if collect else None
+    return plan
+
+
 # ===========================================================================
 # Planned merge plane: the staged DPM-processor merge path
 # (DPMPool.merge_entries_batch -> NumpyCLHT inserts) as a plan/apply
@@ -1253,4 +1526,93 @@ def plan_merge_window(index, keys, ptrs, indirect_keys=None,
     # duplicate chains included), unchanged re-inserts excluded
     plan.inv_ptrs = old[(old >= 0) & (old != ptrs)]
     plan.live_keys = uk
+    return plan
+
+
+class CloverReadPlan:
+    """One Clover KN's planned read-batch cache transitions."""
+
+    __slots__ = ("fill_keys", "fill_ver", "stp_keys", "stp_vals",
+                 "lru_records", "clock_delta", "n_final",
+                 "shortcut_hits", "misses", "rts", "out_ptr", "hit")
+
+
+def plan_clover_reads(cache, keys, cur_vers, found):
+    """Plan one Clover KN's slice of a read-only batch.
+
+    keys: the KN's read keys in op order; cur_vers: each key's version
+    counter; found: whether the index resolves the key.  Returns a
+    CloverReadPlan, or None when the batch could evict (the planned
+    fill set would overflow cap_entries -- the per-op path then keeps
+    its exact LRU eviction semantics).
+
+    Exact per the per-op path: every read of a resolvable key fills
+    (key, cur); a key is a hit from its first fill on, with staleness
+    cur - cached version; membership never shrinks because the plan
+    guarantees no eviction."""
+    m = keys.shape[0]
+    if m < MIN_PLAN_OPS:
+        return None
+    cache._ensure(int(keys.max()))
+    present0 = cache.present[keys]
+    ver0 = cache.ver[keys]
+    order = np.argsort(keys, kind="stable")
+    sk = keys[order]
+    first_s = np.ones(m, bool)
+    first_s[1:] = sk[1:] != sk[:-1]
+    fo = np.zeros(m, bool)
+    fo[order[first_s]] = True
+    # group-level membership/fill facts propagate to later occurrences
+    gid = np.cumsum(first_s) - 1
+    g_pres = present0[order[first_s]]
+    g_found = found[order[first_s]]
+    newly = int((g_found & ~g_pres).sum())
+    if cache._n + newly > cache.cap_entries:
+        return None                       # evictions possible: replay
+    op_gpres = np.empty(m, bool)
+    op_gpres[order] = g_pres[gid]
+    op_gfound = np.empty(m, bool)
+    op_gfound[order] = g_found[gid]
+    hit = np.where(fo, present0, op_gpres | op_gfound)
+    # cached version at op time: later touches of a filled key read the
+    # version the first fill wrote (= its own cur; versions are frozen
+    # in a read-only batch)
+    cached = np.where(~fo & op_gfound, cur_vers, ver0)
+    stale = np.where(hit & (cur_vers > cached), cur_vers - cached, 0)
+    rts = (np.where(hit, 0.0, 1.0)
+           + np.where(found, 2.0 + stale, 0.0))
+    plan = CloverReadPlan()
+    bump = hit.astype(np.int64) + found
+    clocks = cache._clock + np.cumsum(bump) - 1   # clock after op's
+    plan.clock_delta = int(bump.sum())            # last bump
+    fsel = np.flatnonzero(found)
+    if fsel.size:
+        flast = _last_occurrence(keys[fsel])
+        plan.fill_keys = keys[fsel][flast]
+        plan.fill_ver = cur_vers[fsel][flast]
+        # fill records are the per-key last fill clocks; every fill
+        # pushes in the per-op path, one valid record per key suffices
+        fclk = clocks[fsel][flast]
+        ordrec = np.argsort(fclk, kind="stable")
+        plan.lru_records = list(zip(fclk[ordrec].tolist(),
+                                    plan.fill_keys[ordrec].tolist()))
+    else:
+        plan.fill_keys = np.empty(0, np.int64)
+        plan.fill_ver = np.empty(0, np.int64)
+        plan.lru_records = []
+    # recency: last bump per key (hits without fills also refresh)
+    bsel = np.flatnonzero(hit | (found > 0))
+    if bsel.size:
+        blast = _last_occurrence(keys[bsel])
+        plan.stp_keys = keys[bsel][blast]
+        plan.stp_vals = clocks[bsel][blast]
+    else:
+        plan.stp_keys = np.empty(0, np.int64)
+        plan.stp_vals = np.empty(0, np.int64)
+    plan.n_final = cache._n + newly
+    plan.shortcut_hits = int(hit.sum())
+    plan.misses = m - plan.shortcut_hits
+    plan.rts = float(rts.sum())
+    plan.hit = hit
+    plan.out_ptr = None
     return plan

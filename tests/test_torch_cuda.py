@@ -1036,6 +1036,66 @@ def test_cluster_on_the_card_equals_its_cpu_twin(dev, monkeypatch):
     assert _build.launches["clht_probe"] - n0 == len(on_card)
 
 
+@pytest.mark.parametrize("variant", ["dinomo-s", "clover"])
+def test_baseline_on_the_card_equals_its_cpu_twin(dev, monkeypatch,
+                                                  variant):
+    """The baselines as the dinomo case above: a cluster whose pool reads
+    its index on the card and its CPU twin, through mixed YCSB batches
+    (with deletes and inserts), a read-only batch, a KN added and one
+    failed: every BatchResult and the whole state equal after each batch,
+    the card's index copy equal to the host index row for row, and every
+    kernel-A launch equal to clht_probe_ref. Clover reads the index for
+    every op of every batch, so kernel A launches once a batch."""
+    from torch_cluster_cases import mirror_equals_host
+    checked = []
+    real = probe_ops.clht_probe
+
+    def checking(*args):
+        out = real(*args)
+        want = tp.clht_probe_ref(*args)
+        checked.append((args[0].is_cuda, torch.equal(out[0], want[0])
+                        and torch.equal(out[1], want[1])))
+        return out
+
+    monkeypatch.setattr(probe_ops, "clht_probe", checking)
+    kw = dict(num_kns=4, cache_bytes=int(6000 * 1024 * 0.03),
+              value_bytes=1024, num_buckets=1 << 12, segment_capacity=64)
+    card = tcl.DinomoCluster(tcl.VARIANTS[variant], device=dev, **kw)
+    host = tcl.DinomoCluster(tcl.VARIANTS[variant], device="cpu", **kw)
+    for c in (card, host):
+        c.load(((k, f"v{k}") for k in range(6000)), warm=True)
+    n0 = _build.launches["clht_probe"]
+    batches = 0
+    mixes = ["write_heavy_update", "write_heavy_insert", "read_only",
+             "read_mostly_update"]
+    for step, mix in enumerate(mixes):
+        kinds, keys = Workload(6000, zipf=0.99, mix=mix,
+                               seed=step).ops_arrays(3000)
+        kinds = kinds.copy()
+        kinds[(kinds == 1) & (np.arange(kinds.size) % 9 == 0)] = 2
+        got = [batch_result(c.execute_batch(kinds, keys,
+                                            values=lambda i: f"w{i}",
+                                            collect_values=True))
+               for c in (card, host)]
+        assert got[0] == got[1]
+        batches += 1
+        for c in (card, host):
+            c.advance_merge(1 << 20)
+        if step == 1:
+            for c in (card, host):
+                c.add_kn()
+        if step == 2:
+            for c in (card, host):
+                c.fail_kn("kn2")
+        assert cluster_state(card) == cluster_state(host)
+        mirror_equals_host(card.pool)
+    on_card = [ok for cuda, ok in checked if cuda]
+    assert on_card and all(ok for _, ok in checked)
+    assert _build.launches["clht_probe"] - n0 == len(on_card)
+    if variant == "clover":
+        assert len(on_card) >= batches
+
+
 # ------------------------------------------ kernel E, the batch executor
 from repro_torch.kernels import batch_executor as tbe  # noqa: E402
 

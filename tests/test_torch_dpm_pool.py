@@ -31,6 +31,7 @@ from repro_torch.core import faults as tf  # noqa: E402
 from repro_torch.core import log as tl  # noqa: E402
 from repro_torch.core import sanitize as ts  # noqa: E402
 from repro_torch.core import transition as tt  # noqa: E402
+from torch_cluster_cases import mirror_equals_host  # noqa: E402
 
 IMPLS = {"ref": (jd, jf), "port": (td, tf)}
 
@@ -146,18 +147,6 @@ class Twin:
         for g, h in zip(got, host):
             np.testing.assert_array_equal(g[plain], h[plain])
         mirror_equals_host(self.port)
-
-
-def mirror_equals_host(pool):
-    """The pool's packed card copy holds the host index row for row."""
-    t = pool.sync_index()
-    ix = pool.index
-    lines = t.lines.cpu().numpy()
-    np.testing.assert_array_equal(lines[:, :3], ix.keys)
-    np.testing.assert_array_equal(lines[:, 3:6], ix.ptrs)
-    np.testing.assert_array_equal(lines[:, 6], ix.nxt)
-    assert int(t.overflow_head) == ix.overflow_head
-    assert t.num_buckets == ix.num_buckets
 
 
 def read_keys(space):
