@@ -103,7 +103,34 @@ and times kernel E on the largest window held (a KN window over 2^21
 slots), beside the host engine's time for that window, on a window that
 consumes victims from both trees and on the four KNs' first windows in
 one launch; then the gather, scatter and guard kernels that move a
-resident state's changed slots.
+resident state's changed slots. Then the planes around the cluster:
+
+  timed      the paper's Fig. 6 timeline (benchmarks/fig6_elasticity.py:
+             YCSB write_heavy_update at zipf 0.5, 8e6/7 ops/s offered,
+             8e6 for t in [30, 230] of 300 simulated s, dt 2, 2,000
+             sampled ops a step, the M-node's policy) through
+             TimedSimulation on three copies of the cluster phase's pool
+             as loaded: dinomo by the host engine, dinomo by engine="jit"
+             in lockstep with it (their newest TimePoints, statistics and
+             reconfiguration records equal after every step, their
+             snapshots after every join and removal), dinomo-n (the
+             figure's contrast); joins and removals clear the
+             participants' caches, whose reads then miss through kernel A,
+             and block them for their outage (blocked_kns on the jit
+             path); every kernel-A launch held to clht_probe_ref, the
+             first kernel-E launch of each KN after each membership change
+             to fused_window_ref; the written keys read back equal between
+             the dinomo legs and to the pool's host walk, integrity on all
+             three; then the open-loop request plane on the host leg at
+             0.9x (poisson, bursty) and 1.5x of the estimated capacity,
+             with bench_latency.py's gates
+  scenarios  the scenario harness: run_suite's and run_overload's smoke
+             rows on the card and on the CPU, equal; the full profile's
+             composed rows (dinomo, dinomo-n, clover), zombie and
+             overload on dinomo on the card, every violation list empty
+             but composed on dinomo's, which holds exactly the
+             reference's own post-recovery fault; kernel A every Clover
+             batch, each launch held to clht_probe_ref
 
 Then it runs qwen1.5-0.5b at its published widths (24 layers, d_model 1024, 16
 heads, vocab 151,936; random bf16 weights from a seeded generator):
@@ -173,8 +200,12 @@ from repro_torch.core.cluster import (DINOMO, VARIANTS,  # noqa: E402
 from repro_torch.core.dac import (SHORTCUT_BYTES,  # noqa: E402
                                   VALUE_OVERHEAD_BYTES)
 from repro_torch.core.dpm_pool import DPMPool  # noqa: E402
+from repro_torch.core import scenarios as scen  # noqa: E402
 from repro_torch.core.mnode import PolicyConfig  # noqa: E402
-from repro_torch.core.netmodel import DEFAULT_MODEL  # noqa: E402
+from repro_torch.core.netmodel import (DEFAULT_MODEL,  # noqa: E402
+                                       ArrivalProcess)
+from repro_torch.core.requestplane import RequestPlaneConfig  # noqa: E402
+from repro_torch.core.simulate import TimedSimulation  # noqa: E402
 from repro_torch.core.transition import (ENGINE_WALL,  # noqa: E402
                                          MERGE_PLAN_STATS, PLAN_STATS,
                                          plan_dac_window,
@@ -256,6 +287,34 @@ CLUSTER_TWIN_BATCHES = 2        # the first batches of each mix
 # cluster phase's streams, then read_only batches
 BASELINES = ("dinomo-s", "clover")
 BASELINE_READ_BATCHES = 2
+# the timed phase: the paper's Fig. 6 timeline (benchmarks/
+# fig6_elasticity.py:24-41: YCSB write_heavy_update at zipf 0.5, 8e6/7
+# ops/s, 8e6 over t in [30, 230], 300 simulated s at dt 2, 2,000 sampled
+# ops a step, the 32 GB dataset's reorganization, the M-node's policy)
+# over the cluster phase's dataset (2^21 keys loaded warm, 4 KNs, caches
+# CACHE_FRAC of the data, segments of 512), then the open-loop request
+# plane at bench_latency.py's near- and past-saturation points
+TIMED_DURATION = 300.0
+TIMED_DT = 2.0
+TIMED_SAMPLE_OPS = 2000
+TIMED_DATASET_BYTES = 32e9
+TIMED_LOW, TIMED_HIGH = 8e6 / 7, 8e6
+TIMED_BURST = (30.0, TIMED_DURATION - 70.0)
+TIMED_ZIPF = 0.5
+TIMED_MIX = "write_heavy_update"
+TIMED_POLICY = {"grace_period_s": 30.0, "epoch_s": 10.0, "max_kns": 8,
+                "min_kns": 2}
+TIMED_LEGS = (("host", "dinomo", None), ("jit", "dinomo", "jit"),
+              ("dinomo-n", "dinomo-n", None))
+OPEN_LOOP_S = 2.0
+OPEN_LOOP_POINTS = ((0.9, "poisson"), (0.9, "bursty"), (1.5, "poisson"))
+# the scenarios phase: the reference's full-profile rows run on the card
+# (benchmarks/bench_scenarios.py without --smoke); composed on dinomo
+# ends with the reference's own post-recovery fault (ROADMAP Queue 3)
+FULL_ROWS = (("composed", "dinomo"), ("composed", "dinomo-n"),
+             ("composed", "clover"), ("zombie", "dinomo"))
+REFERENCE_FAULT = ("composed", "dinomo",
+                   "post-recovery: index key 7326: dead value row ")
 ARCH = "qwen1.5-0.5b"
 PREFILL_B, PREFILL_S, PREFILL_REPS = 4, 2048, 3
 SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 8, 256, 128, 64
@@ -520,6 +579,39 @@ def uncounted():
         yield
     finally:
         _build.launches.update(saved)
+
+
+@contextlib.contextmanager
+def held_probes(what: str):
+    """Hold every kernel-A launch made inside the block to clht_probe_ref
+    on the same lines, bucket ids and keys, bit for bit, as the launch
+    returns (before the chain walk or the next index sync writes into
+    them). Yields a dict whose ``checked`` counts the launches held and
+    ``s`` the checks' seconds (for the caller to leave out of its time);
+    calls that launch nothing (the plain version, on CPU tensors) are
+    left alone."""
+    real = probe_ops.clht_probe
+    m = {"checked": 0, "s": 0.0}
+
+    def wrapper(*args):
+        launched = _build.launches["clht_probe"]
+        out = real(*args)
+        if _build.launches["clht_probe"] != launched:
+            t0 = time.perf_counter()
+            want_p, want_f = probe.clht_probe_ref(*args)
+            if not (torch.equal(out[0], want_p)
+                    and torch.equal(out[1], want_f)):
+                raise AssertionError(f"{what}: a kernel-A launch disagrees "
+                                     f"with clht_probe_ref")
+            m["checked"] += 1
+            m["s"] += time.perf_counter() - t0
+        return out
+
+    probe_ops.clht_probe = wrapper
+    try:
+        yield m
+    finally:
+        probe_ops.clht_probe = real
 
 
 def probe_batch(table, keys: np.ndarray):
@@ -1760,17 +1852,18 @@ class Smoke:
               "launches": {k: v for k, v in counts.items() if v}})
 
     def _cluster_at(self, n: int, reference_cache: bool, variant=DINOMO,
-                    pool=None):
+                    pool=None, policy=None):
         """The phase's cluster over ``n`` keys on the card, loaded warm
         (the values v{key}); given ``pool``, a copy of such a cluster's
         pool as loaded, it takes that pool and warms its caches
-        (torch_cluster_cases.loaded_like) instead of loading."""
+        (torch_cluster_cases.loaded_like) instead of loading. ``policy``:
+        the M-node's PolicyConfig (default: one that never acts)."""
         c = DinomoCluster(variant, num_kns=CLUSTER_KNS,
                           cache_bytes=int(n * VALUE_BYTES * CACHE_FRAC),
                           value_bytes=VALUE_BYTES, num_buckets=n,
                           segment_capacity=CLUSTER_SEGMENT,
-                          policy=PolicyConfig(grace_period_s=1e9,
-                                              epoch_s=1e9),
+                          policy=policy or PolicyConfig(grace_period_s=1e9,
+                                                        epoch_s=1e9),
                           reference_cache=reference_cache, device=self.dev)
         if pool is None:
             c.load(((k, f"v{k}") for k in range(n)), warm=True)
@@ -2064,8 +2157,7 @@ class Smoke:
         n = 1 << CLUSTER_KEYS_LOG2
         t_phase = time.perf_counter()
         _build.reset_counts()
-        blob = self.loaded_pool
-        del self.loaded_pool
+        blob = self.loaded_pool          # the timed phase deletes it
         # ops, kernel-A launches held, and each (variant, mix)'s ops/s
         # and RTs an op
         out = {"ops": 0, "checked": 0, "mix": {}}
@@ -2336,6 +2428,437 @@ class Smoke:
         return {"keys": n, "batches": batches, "equal": True,
                 "aggregate": {k: float(v) for k, v in got[0][6].items()},
                 "ms_ops": got[0][8]}
+
+    # ------------------------------------------- the planes around the cluster
+    def timed(self) -> None:
+        """The paper's Fig. 6 timeline (auto-scaling under a bursty load,
+        benchmarks/fig6_elasticity.py) through the port's TimedSimulation
+        on the cluster phase's dataset: three legs, each a cluster taking
+        its own copy of that phase's pool as loaded (unpickled from the
+        bytes it kept; 4 KNs, caches CACHE_FRAC of the data, segments of
+        CLUSTER_SEGMENT) under the figure's policy (TIMED_POLICY):
+        dinomo by the host engine, dinomo by engine="jit" (kernel E) in
+        lockstep with it, one step of each at a time, and dinomo-n (the
+        figure's contrast: a physical reorganization of the 32 GB dataset
+        at every membership change). TIMED_DURATION simulated seconds at
+        TIMED_DT, TIMED_SAMPLE_OPS sampled ops a step of YCSB
+        write_heavy_update at zipf 0.5, 8e6/7 ops/s offered, 8e6 inside
+        TIMED_BURST. After every join and removal the participants' caches
+        are cleared and their outage windows block them for the next
+        steps (blocked_kns, on the jit path too); their reads then miss
+        and go through kernel A.
+
+        After every step the dinomo legs' newest TimePoints are equal
+        field for field, and so are their aggregate_stats() and
+        reconfiguration records; after every join or removal their
+        cluster_snapshots. Both make a join and a removal. Every kernel-A
+        launch equals clht_probe_ref on its inputs, and the first
+        kernel-E launch of each KN after each membership change
+        fused_window_ref. Then every key written in the timeline and 2^12
+        unwritten ones read through batch_read, equal between the dinomo
+        legs and to the pool's host walk (index, indirection, heap) after
+        merge_all; verify_integrity() empty on every leg. Last, the
+        open-loop request plane on the host leg (run_open_loop over
+        OPEN_LOOP_S s at OPEN_LOOP_POINTS of estimated_capacity): no shed
+        or failed request ID applied, integrity empty, and past
+        saturation something shed and the admitted p999 within
+        admitted_latency_bound (bench_latency.py's gates)."""
+        n = 1 << CLUSTER_KEYS_LOG2
+        t_phase = time.perf_counter()
+        _build.reset_counts()
+        blob = self.loaded_pool
+        del self.loaded_pool
+        sims, written = {}, []
+        for leg, variant, engine in TIMED_LEGS:
+            t0 = time.perf_counter()
+            c = self._cluster_at(n, False, VARIANTS[variant],
+                                 pool=pickle.loads(blob),
+                                 policy=PolicyConfig(**TIMED_POLICY))
+            wl = Workload(n, zipf=TIMED_ZIPF, mix=TIMED_MIX, seed=SEED)
+            sample = wl.timed_batched
+            if leg == "host":
+                def sample(t, rng, k, _wl=wl):
+                    kinds, keys = _wl.timed_batched(t, rng, k)
+                    written.append(keys[kinds != 0])
+                    return kinds, keys
+            sims[leg] = TimedSimulation(
+                c, sample, dt=TIMED_DT, sample_ops=TIMED_SAMPLE_OPS,
+                seed=SEED, dataset_bytes=TIMED_DATASET_BYTES, engine=engine)
+            emit({"phase": "timed_load", "leg": leg, "variant": variant,
+                  "seconds": time.perf_counter() - t0})
+        del blob
+        # the three clusters' loaded objects live to the end of the phase:
+        # out of the collector's walks, as bench_dataplane.py's timed
+        # loop keeps them (gc.disable there)
+        gc.collect()
+        gc.freeze()
+        reconfigs = []
+        # per leg: the steps timed and their seconds (a profiled step is
+        # left out), execute_batch's and the DPM merges' seconds inside
+        # them, ENGINE_WALL's
+        legs = {leg: {"steps": 0, "s": 0.0, "execute_batch_s": 0.0,
+                      "merge_s": 0.0, "wall": self._zero_wall()}
+                for leg in sims}
+        for leg, sim in sims.items():
+            self._timed_reconfigs(sim, leg, reconfigs)
+            self._timed_batches(sim.c, legs[leg])
+        host, jit = sims["host"].c, sims["jit"].c
+        run = {"e_checked": 0, "window_case": None, "held_s": 0.0}
+        first: set = set()          # KNs whose first launch was held
+        gcs = {"s": 0.0, "collections": [0, 0, 0]}
+        # profiled: the second step after the first join (the step right
+        # after it is blocked by the participants' outage)
+        steps, profile_at = 0, None
+        from torch.profiler import ProfilerActivity as act, profile
+        with held_probes("timed") as probes:
+            while sims["host"].now < TIMED_DURATION:
+                nrec = len(host.reconfig_log)
+                for leg, sim in sims.items():
+                    t = legs[leg]
+                    merge0 = sim.c.pool.merge_wall_s
+                    with contextlib.ExitStack() as stack:
+                        g = stack.enter_context(gc_meter())
+                        if leg == "jit":
+                            stack.enter_context(
+                                self._held_windows(sim.c, run, first))
+                        prof = stack.enter_context(profile(
+                            activities=[act.CPU, act.CUDA])) \
+                            if steps == profile_at and leg != "dinomo-n" \
+                            else None
+                        wall0, held0 = dict(ENGINE_WALL), run["held_s"]
+                        eb0, probe0 = t["execute_batch_s"], probes["s"]
+                        _, s = synced(lambda: sim.run(sim.now + TIMED_DT,
+                                                      self._timed_offered))
+                    # the held checks' seconds are no part of the path:
+                    # kernel E's sit inside the jit engine's dispatch
+                    held_e = run["held_s"] - held0
+                    held = held_e + probes["s"] - probe0
+                    s -= held
+                    ENGINE_WALL["jit_dispatch"] -= held_e
+                    t["execute_batch_s"] -= held
+                    if prof is not None:
+                        t["execute_batch_s"] = eb0
+                        emit({"profile": f"timed {leg} leg, the step at "
+                                         f"t={sim.now - TIMED_DT}, the "
+                                         f"second after the first join",
+                              **device_summary(prof, s)})
+                        continue
+                    t["steps"] += 1
+                    t["s"] += s
+                    t["merge_s"] += sim.c.pool.merge_wall_s - merge0
+                    for k, v in ENGINE_WALL.items():
+                        t["wall"][k] += v - wall0[k]
+                    gcs["s"] += g["s"]
+                    gcs["collections"] = [a + b for a, b in zip(
+                        gcs["collections"], g["collections"])]
+                steps += 1
+                a, b = sims["host"], sims["jit"]
+                if dataclasses.astuple(a.trace[-1]) != \
+                        dataclasses.astuple(b.trace[-1]) or \
+                        host.aggregate_stats() != jit.aggregate_stats() or \
+                        host.reconfig_log != jit.reconfig_log:
+                    raise AssertionError(f"timed: the host and jit legs "
+                                         f"part at t={a.trace[-1].t}")
+                for rec in host.reconfig_log[nrec:]:
+                    self._cluster_equal(host, jit, f"the timeline's "
+                                        f"{rec['event']} of {rec['node']}")
+                    first.clear()   # hold each KN's next launch again
+                    if len(host.reconfig_log) == 1:
+                        profile_at = steps + 1
+            events = {leg: [r["event"] for r in sim.c.reconfig_log]
+                      for leg, sim in sims.items()}
+            for leg in ("host", "jit"):
+                if "add" not in events[leg] or "remove" not in events[leg]:
+                    raise AssertionError(f"timed ({leg}): the timeline made "
+                                         f"no join or no removal: "
+                                         f"{events[leg]}")
+            emit({"phase": "timed_timeline", "steps": steps,
+                  "simulated_s": TIMED_DURATION,
+                  "sampled_ops_per_s": {
+                      leg: t["steps"] * TIMED_SAMPLE_OPS / t["s"]
+                      for leg, t in legs.items()},
+                  "steps_timed": {leg: t["steps"] for leg, t in
+                                  legs.items()},
+                  "seconds": {leg: t["s"] for leg, t in legs.items()},
+                  "execute_batch_s": {leg: t["execute_batch_s"]
+                                      for leg, t in legs.items()},
+                  "merge_s": {leg: t["merge_s"] for leg, t in
+                              legs.items()},
+                  "held_check_s_excluded": run["held_s"] + probes["s"],
+                  "gc_s": gcs["s"], "gc_collections": gcs["collections"],
+                  "kns_over_time": {
+                      leg: self._kn_changes(sim.trace)
+                      for leg, sim in sims.items()},
+                  "reconfigs_by_leg": events,
+                  "burst_min_tput": {
+                      leg: min(p.throughput for p in sims[leg].trace
+                               if 40.0 <= p.t <= TIMED_DURATION - 75.0)
+                      for leg in ("host", "dinomo-n")},
+                  "engine_wall_s": {
+                      leg: {k: v for k, v in t["wall"].items() if v}
+                      for leg, t in legs.items()},
+                  "jit": jit._jit.counts,
+                  "kernel_e_launches": _build.launches["fused_window"],
+                  "kernel_e_first_launches_equal_to_plain":
+                  run["e_checked"],
+                  "kernel_a_launches": _build.launches["clht_probe"]})
+            for rec in reconfigs:
+                emit({"phase": "timed_reconfig", **rec})
+            self._timed_read_back(sims, written)
+            for leg, sim in sims.items():
+                problems = sim.c.pool.verify_integrity()
+                if problems:
+                    raise AssertionError(f"timed ({leg}): verify_integrity:"
+                                         f" {problems[:4]}")
+            for frac, kind in OPEN_LOOP_POINTS:
+                self._open_loop(sims["host"], frac, kind)
+            checked = probes["checked"]
+        gc.unfreeze()
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        if counts["clht_probe"] != checked or not checked:
+            raise AssertionError(f"timed: kernel A launched "
+                                 f"{counts['clht_probe']} times, {checked} "
+                                 f"held to its plain version")
+        if not counts["fused_window"] or not run["e_checked"]:
+            raise AssertionError("timed: no kernel-E launch, or none held")
+        self.tally("timed", counts)
+        emit({"phase": "timed", "seconds": time.perf_counter() - t_phase,
+              "kernel_a_launches_equal_to_plain": checked,
+              "kernel_e_launches_equal_to_plain": run["e_checked"],
+              "launches": {k: v for k, v in counts.items() if v}})
+
+    @staticmethod
+    def _timed_offered(t: float) -> float:
+        """Fig. 6's offered load: TIMED_HIGH inside TIMED_BURST, else
+        TIMED_LOW."""
+        lo, hi = TIMED_BURST
+        return TIMED_HIGH if lo <= t <= hi else TIMED_LOW
+
+    @staticmethod
+    def _kn_changes(trace) -> list:
+        """(t, KNs) at the start and at each change of the KN count."""
+        out = []
+        for p in trace:
+            if not out or out[-1][1] != p.num_kns:
+                out.append((p.t, p.num_kns))
+        return out
+
+    @staticmethod
+    def _timed_batches(c, tally: dict) -> None:
+        """Add the host seconds of each of ``c``'s execute_batch calls
+        (synchronized: the pool's index reads and the jit engine's
+        scatter-backs end in copies to the host) to
+        ``tally["execute_batch_s"]``."""
+        real = c.execute_batch
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                tally["execute_batch_s"] += time.perf_counter() - t0
+
+        c.execute_batch = timed
+
+    @staticmethod
+    def _timed_reconfigs(sim, leg: str, out: list) -> None:
+        """Time each reconfiguration the M-node's decisions make (the
+        synchronous merge and handoff on the host, the cleared caches
+        leaving the card) into ``out``, with its record."""
+        real = sim._apply
+
+        def apply(action):
+            n0 = len(sim.c.reconfig_log)
+            t0 = time.perf_counter()
+            real(action)
+            torch.cuda.synchronize()
+            if len(sim.c.reconfig_log) > n0:
+                rec = sim.c.reconfig_log[-1]
+                out.append({"leg": leg, "t": sim.now, "event": rec["event"],
+                            "node": rec["node"],
+                            "seconds": time.perf_counter() - t0,
+                            "merged_entries": rec["merged_entries"],
+                            "participants": rec["participants"],
+                            "moved_fraction": rec["moved_fraction"],
+                            "kns": len(sim.c.kns)})
+
+        sim._apply = apply
+
+    def _timed_read_back(self, sims, written) -> None:
+        """Every key written in the timeline (whether its op ran or its
+        owner was blocked) and 2^12 never written, read through batch_read
+        on both dinomo legs after merge_all: equal between the legs and to
+        the pool's host walk (the index, the indirection table for a
+        replicated key, the heap)."""
+        keys = np.unique(np.concatenate(written))
+        never = np.setdiff1d(np.arange(1 << 13, dtype=np.int64), keys)
+        keys = np.concatenate([keys, never[:1 << 12]])
+        got = {}
+        for leg in ("host", "jit"):
+            c = sims[leg].c
+            t0 = time.perf_counter()
+            c.pool.merge_all()
+            vals, _ = c.batch_read(keys)
+            pool = c.pool
+            ptrs = pool.index.lookup_batch(keys)[0]
+            want = [pool.read_value(pool.indirect.get(k, p))[0]
+                    if p >= 0 else None
+                    for k, p in zip(keys.tolist(), ptrs.tolist())]
+            if vals != want:
+                bad = next(i for i, (v, w) in enumerate(zip(vals, want))
+                           if v != w)
+                raise AssertionError(f"timed ({leg}): key {keys[bad]} read "
+                                     f"{vals[bad]!r}, the host walk "
+                                     f"{want[bad]!r}")
+            got[leg] = vals
+            emit({"phase": "timed_read_back", "leg": leg,
+                  "keys": int(keys.size),
+                  "written_keys": int(keys.size - min(never.size, 1 << 12)),
+                  "seconds": time.perf_counter() - t0, "equal": True})
+        if got["host"] != got["jit"]:
+            raise AssertionError("timed: the dinomo legs read back apart")
+
+    def _open_loop(self, sim, frac: float, kind: str) -> None:
+        """One open-loop run on ``sim`` (OPEN_LOOP_S s of ``kind``
+        arrivals at ``frac`` of the alive KNs' estimated capacity, the
+        request plane's defaults) and bench_latency.py's gates."""
+        cfg = RequestPlaneConfig()
+        alive = len(sim._alive_kns())
+        cap = scen.estimated_capacity(sim.model, alive, TIMED_MIX)
+        res, s = synced(lambda: sim.run_open_loop(
+            OPEN_LOOP_S, ArrivalProcess(rate=frac * cap, kind=kind),
+            config=cfg))
+        pool = sim.c.pool
+        never = [op.req_id for op in res.records
+                 if op.kind != 0 and op.status in ("shed", "failed")
+                 and not op.dispatched_ever]
+        leaked = [r for r in never if pool.req_applied(r)]
+        problems = pool.verify_integrity()
+        pct = res.percentiles()
+        cnt = res.counters
+        bound = scen.admitted_latency_bound(cfg)
+        row = {"phase": "timed_open_loop", "load_frac": frac,
+               "arrival": kind, "kns": alive, "capacity_est": cap,
+               "offered_rate": res.offered_rate, "goodput": res.goodput(),
+               **pct, "offered": cnt["offered"],
+               "completed": cnt["completed"], "shed": cnt["shed"],
+               "failed": cnt["failed"], "retries": cnt["retries"],
+               "dedup_hits": cnt["dedup_hits"],
+               "queue_expired": cnt["queue_expired"],
+               "executed": cnt["executed"], "latency_bound": bound,
+               "exactly_once_leaks": len(leaked), "seconds": s}
+        emit(row)
+        if leaked or problems or not cnt["completed"]:
+            raise AssertionError(f"timed open loop {frac}x {kind}: "
+                                 f"{len(leaked)} shed or failed request IDs "
+                                 f"applied, integrity {problems[:4]}, "
+                                 f"{cnt['completed']} completed")
+        if frac >= 1.5 and kind == "poisson" and (
+                not cnt["shed"] or pct["p999"] is None
+                or pct["p999"] > bound):
+            raise AssertionError(f"timed open loop {frac}x: shed "
+                                 f"{cnt['shed']}, admitted p999 "
+                                 f"{pct['p999']} against {bound}")
+
+    def scenarios(self) -> None:
+        """The scenario harness (core/scenarios.py) on the card. Every row
+        of run_suite's smoke profile (SCENARIOS x BENCH_VARIANTS, the
+        fence scenarios for dinomo and dinomo-n) and run_overload(smoke)
+        for dinomo and clover, on the card and again on the CPU in this
+        process: each pair's row(), events, phases and gates equal (the
+        CPU tests hold the CPU path to the reference). Then the full
+        profile on the card alone (ScenarioConfig(), as
+        benchmarks/bench_scenarios.py runs it): FULL_ROWS and
+        run_overload for dinomo. Every row's violations empty, but
+        composed on dinomo, which holds exactly the reference's own fault
+        (REFERENCE_FAULT); the zombie's stale writes all fenced and its
+        history linearizable; the overload's gates passed. Every kernel-A
+        launch (every Clover batch, every miss read after a membership
+        change) equals clht_probe_ref on its inputs."""
+        t_phase = time.perf_counter()
+        _build.reset_counts()
+        over_variants = ("dinomo", "clover")
+        with held_probes("scenarios") as probes:
+            t0 = time.perf_counter()
+            card = scen.run_suite(seed=SEED, smoke=True, device=self.dev)
+            card_over = [scen.run_overload(variant=v, seed=SEED, smoke=True,
+                                           device=self.dev)
+                         for v in over_variants]
+            smoke_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = scen.run_suite(seed=SEED, smoke=True, device="cpu")
+            cpu_over = [scen.run_overload(variant=v, seed=SEED, smoke=True,
+                                          device="cpu")
+                        for v in over_variants]
+            cpu_s = time.perf_counter() - t0
+            for a, b in zip(card, cpu, strict=True):
+                if a.row() != b.row() or a.events != b.events:
+                    raise AssertionError(f"scenarios: {a.scenario} on "
+                                         f"{a.variant} parts between the "
+                                         f"card and the CPU")
+                if a.violations:
+                    raise AssertionError(f"scenarios: {a.scenario} on "
+                                         f"{a.variant}: {a.violations}")
+            for a, b in zip(card_over, cpu_over, strict=True):
+                if a.row() != b.row() or not a.passed:
+                    raise AssertionError(f"scenarios: the smoke overload on "
+                                         f"{a.variant} parts between the "
+                                         f"card and the CPU, or failed a "
+                                         f"gate: {a.gates}")
+            emit({"phase": "scenarios_smoke", "rows": len(card),
+                  "overload_rows": len(card_over),
+                  "card_equal_to_cpu": True, "card_s": smoke_s,
+                  "cpu_s": cpu_s,
+                  "kernel_a_launches": _build.launches["clht_probe"]})
+            full = []
+            for scenario, variant in FULL_ROWS:
+                t0 = time.perf_counter()
+                r = scen.run_scenario(scenario, variant, seed=SEED,
+                                      device=self.dev)
+                full.append(r)
+                emit({"phase": "scenarios_full", "seconds":
+                      time.perf_counter() - t0,
+                      **{k: v for k, v in r.row().items()
+                         if k not in ("recovery",)}})
+            t0 = time.perf_counter()
+            over = scen.run_overload(variant="dinomo", seed=SEED,
+                                     device=self.dev)
+            emit({"phase": "scenarios_full_overload",
+                  "seconds": time.perf_counter() - t0, **over.row()})
+            checked = probes["checked"]
+        for r in full:
+            want = []
+            if (r.scenario, r.variant) == REFERENCE_FAULT[:2]:
+                want = [v for v in r.violations
+                        if v.startswith(REFERENCE_FAULT[2])]
+                if len(want) != 1:
+                    raise AssertionError(f"scenarios: composed on dinomo "
+                                         f"lost the reference's fault: "
+                                         f"{r.violations}")
+            if r.violations != want:
+                raise AssertionError(f"scenarios: {r.scenario} on "
+                                     f"{r.variant}: {r.violations}")
+            if r.scenario == "zombie" and not (
+                    r.extra["zombie_fenced"] == r.extra["zombie_attempts"]
+                    and r.extra["linearizable"]):
+                raise AssertionError(f"scenarios: zombie {r.extra}")
+        if not over.passed:
+            raise AssertionError(f"scenarios: the full overload failed: "
+                                 f"{over.gates} {over.violations}")
+        torch.cuda.synchronize()
+        counts = dict(_build.launches)
+        if counts["clht_probe"] != checked or not checked:
+            raise AssertionError(f"scenarios: kernel A launched "
+                                 f"{counts['clht_probe']} times, {checked} "
+                                 f"held to its plain version")
+        self.tally("scenarios", counts)
+        emit({"phase": "scenarios", "seconds": time.perf_counter() - t_phase,
+              "smoke_rows_equal_to_cpu": len(card) + len(card_over),
+              "full_rows": len(full) + 1,
+              "reference_fault": REFERENCE_FAULT[2],
+              "kernel_a_launches_equal_to_plain": checked,
+              "launches": {k: v for k, v in counts.items() if v}})
 
     def time_transition(self) -> list[dict]:
         """Kernel 4 on a 512-op window of the KN path that consumed
@@ -3533,6 +4056,10 @@ def main() -> int:
     smoke.cluster_variants()
     kernels += smoke.time_fused_window()
     del smoke.window_case, smoke.held_jobs
+    torch.cuda.empty_cache()
+    smoke.timed()
+    torch.cuda.empty_cache()
+    smoke.scenarios()
     torch.cuda.empty_cache()
     smoke.prefill()
     srv = smoke.serve_paged()

@@ -2,8 +2,11 @@
 host engine for the DAC variants (cluster.py), the DPM pool
 (dpm_pool.py) over the CLHT index (clht.py) and the log segment and
 value heap (log.py), the KN caches (dac.py), ownership (ownership.py,
-hashring.py), the M-node policy (mnode.py) and the cost model
-(netmodel.py).
+hashring.py), the M-node policy (mnode.py), the cost model and arrival
+processes (netmodel.py), and the planes around the cluster: the timed
+simulation (simulate.py), the open-loop request plane
+(requestplane.py), the scenario harness (scenarios.py) and the
+linearizability checker (linearizability.py).
 
 The exports below load on first use: the kernels import ``core.clht``,
 and the cluster imports the kernels through its pool."""
@@ -13,8 +16,13 @@ import importlib
 _EXPORTS = {
     "cluster": ("DinomoCluster", "VariantConfig", "BatchResult", "DINOMO",
                 "DINOMO_S", "DINOMO_N", "CLOVER", "VARIANTS"),
+    "linearizability": ("Op", "check_history", "check_key_history"),
     "mnode": ("Action", "EpochStats", "PolicyConfig", "PolicyEngine"),
-    "netmodel": ("NetModel", "DEFAULT_MODEL"),
+    "netmodel": ("NetModel", "DEFAULT_MODEL", "ArrivalProcess",
+                 "PhasedArrival"),
+    "requestplane": ("OpRecord", "RequestPlane", "RequestPlaneConfig",
+                     "RequestPlaneResult"),
+    "simulate": ("TimedSimulation",),
 }
 _HOME = {name: mod for mod, names in _EXPORTS.items() for name in names}
 __all__ = list(_HOME)

@@ -170,9 +170,9 @@ class SlowSpec:
 class FaultPlane:
     """Deterministic fault injector.
 
-    Attach to a pool (``pool.faults = plane``) to arm crash points; the
-    network faults perturb the reference's timed simulation, which is
-    not ported yet.  All randomness comes from the seeded generator,
+    Attach to a pool (``pool.faults = plane``) to arm crash points, and
+    to a :class:`~repro_torch.core.simulate.TimedSimulation` to perturb
+    failure detection.  All randomness comes from the seeded generator,
     so a (seed, workload) pair replays the same faults."""
 
     def __init__(self, seed: int = 0, drop_flush_rt_rate: float = 0.0,

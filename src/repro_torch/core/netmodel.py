@@ -6,7 +6,10 @@ counts and byte volumes into throughput and latency the way the paper's
 InfiniBand testbed would (FDR ConnectX-3 at 56 Gbps a port, 3 us
 one-sided verbs, Optane DC at 32 GB/s read and 11.2 GB/s write, DPM merge
 throughput scaling with DPM threads, 8 KN threads). The open-loop
-arrival processes of the request plane are not ported yet.
+arrival processes of the request plane (``ArrivalProcess``,
+``PhasedArrival``) are ported too, draw for draw:
+tests/test_torch_requestplane.py holds their arrays and the generators'
+states after each call to the reference's.
 """
 
 from __future__ import annotations
@@ -14,6 +17,10 @@ from __future__ import annotations
 import dataclasses
 import warnings
 
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
 class NetModel:
     """Cost model parameters. All rates per second, sizes in bytes."""
 
@@ -159,6 +166,122 @@ class NetModel:
         return self.request_latency(rts_per_op,
                                     queue_depth=max(queue_factor, 1.0) - 1.0,
                                     two_sided_rts=two_sided_rts)
+
+
+
+# --------------------------------------------------------------------------
+# Open-loop arrival processes (the offered-load side of the request
+# plane).  A closed-loop client waits for each response before issuing
+# the next request and therefore cannot overload the service; real
+# traffic does not wait.  Both processes are seeded-deterministic.
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ArrivalProcess:
+    """Poisson or bursty (two-state modulated Poisson) arrivals.
+
+    ``kind="poisson"``: exponential inter-arrivals at ``rate``.
+    ``kind="bursty"``: an on/off modulated Poisson process -- bursts of
+    mean length ``burst_s`` arrive at ``rate * burst_factor``, separated
+    by quiet periods whose length keeps the long-run mean at ``rate``
+    (so a bursty process is load-comparable to a Poisson one)."""
+
+    rate: float                      # long-run mean ops/s
+    kind: str = "poisson"            # "poisson" | "bursty"
+    burst_factor: float = 4.0        # peak rate multiplier inside a burst
+    burst_s: float = 0.2             # mean burst duration
+
+    def __post_init__(self):
+        if self.kind not in ("poisson", "bursty"):
+            raise ValueError(f"unknown arrival kind {self.kind!r}")
+        if self.kind == "bursty" and self.burst_factor <= 1.0:
+            raise ValueError("burst_factor must exceed 1.0")
+
+    def _phase_rate(self, t: float) -> float:
+        """Instantaneous rate at time ``t`` (deterministic phase
+        schedule: bursts tile the timeline so every seed sees the same
+        on/off windows and runs stay replayable)."""
+        if self.kind == "poisson":
+            return self.rate
+        # duty cycle keeping the long-run mean at `rate`:
+        #   on_frac * burst_factor + (1 - on_frac) * low = 1, low = 0.1
+        low = 0.1
+        on_frac = (1.0 - low) / (self.burst_factor - low)
+        period = self.burst_s / max(on_frac, 1e-9)
+        in_burst = (t % period) < self.burst_s
+        return self.rate * (self.burst_factor if in_burst else low)
+
+    def arrivals(self, rng: np.random.Generator, t0: float,
+                 t1: float) -> np.ndarray:
+        """Arrival timestamps in [t0, t1), sorted ascending.  Sampled by
+        thinning against the max phase rate, so Poisson statistics hold
+        within each phase."""
+        peak = self.rate * (self.burst_factor
+                            if self.kind == "bursty" else 1.0)
+        if peak <= 0.0 or t1 <= t0:
+            return np.empty(0, np.float64)
+        n = rng.poisson(peak * (t1 - t0))
+        if n == 0:
+            return np.empty(0, np.float64)
+        ts = np.sort(t0 + rng.random(n) * (t1 - t0))
+        if self.kind == "poisson":
+            return ts
+        keep = rng.random(n) < np.array(
+            [self._phase_rate(t) / peak for t in ts.tolist()])
+        return ts[keep]
+
+    def scaled(self, factor: float) -> "ArrivalProcess":
+        """The same process at ``rate * factor`` (the request plane's
+        op-scaling: utilization is rate/capacity, so scaling both by the
+        same factor preserves queueing behavior)."""
+        return dataclasses.replace(self, rate=self.rate * factor)
+
+
+@dataclasses.dataclass(frozen=True)
+class PhasedArrival:
+    """A piecewise arrival schedule: ``phases`` is a tuple of
+    (duration_s, ArrivalProcess) segments laid end to end from ``t0``;
+    past the last segment the final process keeps running.  Lets one
+    open-loop run carry queue backlog across load phases (baseline ->
+    overload -> recovery), which is exactly what graceful-degradation
+    SLOs measure."""
+
+    phases: tuple
+    t0: float = 0.0
+
+    @property
+    def rate(self) -> float:
+        tot = sum(d for d, _ in self.phases)
+        if tot <= 0.0:
+            return 0.0
+        return sum(d * p.rate for d, p in self.phases) / tot
+
+    def phase_at(self, t: float) -> ArrivalProcess:
+        rel = t - self.t0
+        for d, p in self.phases:
+            if rel < d:
+                return p
+            rel -= d
+        return self.phases[-1][1]
+
+    def arrivals(self, rng: np.random.Generator, t0: float,
+                 t1: float) -> np.ndarray:
+        out = []
+        edge = self.t0
+        for i, (d, p) in enumerate(self.phases):
+            lo, hi = edge, edge + d
+            if i == len(self.phases) - 1:
+                hi = max(hi, t1)
+            a, b = max(t0, lo), min(t1, hi)
+            if b > a:
+                out.append(p.arrivals(rng, a, b))
+            edge += d
+        if not out:
+            return np.empty(0, np.float64)
+        return np.concatenate(out)
+
+    def scaled(self, factor: float) -> "PhasedArrival":
+        return PhasedArrival(tuple((d, p.scaled(factor))
+                                   for d, p in self.phases), self.t0)
 
 
 DEFAULT_MODEL = NetModel()

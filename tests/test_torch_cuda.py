@@ -1332,3 +1332,69 @@ def test_guard_maxima_at_the_edges(dev, nslots):
         want = tbe.guard_maxima_ref(arrs[0], arrs[1], arrs[4], arrs[3],
                                     nslots)
         assert np.array_equal(got, want), (edge, got, want)
+
+
+# ------------------------------------------- the planes around the cluster
+import dataclasses  # noqa: E402
+
+from repro_torch.core import scenarios as tscen  # noqa: E402
+from repro_torch.core.mnode import PolicyConfig  # noqa: E402
+from repro_torch.core.simulate import TimedSimulation  # noqa: E402
+
+
+@pytest.mark.parametrize("scenario,variant", [("crash", "dinomo"),
+                                              ("composed", "clover"),
+                                              ("zombie", "dinomo")])
+def test_smoke_scenario_on_the_card_equals_the_cpu(dev, scenario, variant):
+    """A smoke-profile scenario row and its events on the card equal the
+    CPU's (which the CPU tests hold to the reference); clover probes the
+    index through kernel A every batch."""
+    n0 = _build.launches["clht_probe"]
+    card = tscen.run_scenario(scenario, variant, seed=0, smoke=True,
+                              device=dev)
+    launched = _build.launches["clht_probe"] - n0
+    cpu = tscen.run_scenario(scenario, variant, seed=0, smoke=True,
+                             device="cpu")
+    assert card.row() == cpu.row() and card.events == cpu.events
+    assert card.violations == []
+    assert launched > 0 or variant != "clover"
+
+
+def test_timed_simulation_jit_on_the_card_equals_the_host_engine(dev):
+    """TimedSimulation with engine="jit" on the card step for step equal
+    to the host engine on the card through joins and removals, whose
+    outages reach execute_batch as blocked KNs, and an injected failure:
+    every TimePoint, event, outage and the whole state but the caches'
+    lazy-heap records."""
+    sims = []
+    for engine in ("jit", "host"):
+        c = tcl.DinomoCluster(
+            num_kns=4, cache_bytes=1 << 19, value_bytes=1024,
+            num_buckets=1 << 13, segment_capacity=256, device=dev,
+            policy=PolicyConfig(grace_period_s=10.0, epoch_s=5.0,
+                                max_kns=8))
+        c.load(((k, f"v{k}") for k in range(3000)), warm=True)
+        w = Workload(3000, zipf=0.99, mix="write_heavy_update", seed=5)
+        sims.append(TimedSimulation(c, w.timed_batched, dt=1.0,
+                                    sample_ops=600, engine=engine))
+    blocked = []
+    real = sims[0].c.execute_batch
+
+    def noting(*args, **kwargs):
+        blocked.append(bool(kwargs.get("blocked_kns")))
+        return real(*args, **kwargs)
+
+    sims[0].c.execute_batch = noting
+    for sim in sims:
+        sim.run(30.0, lambda t: 6e6 if 8 <= t <= 18 else 2e5)
+        sim.inject_failure(sorted(sim.c.kns)[1])
+        sim.run(36.0, lambda t: 2e5)
+    jit, host = sims
+    events = [r["event"] for r in jit.c.reconfig_log]
+    assert "add" in events and "remove" in events and any(blocked)
+    assert [dataclasses.astuple(p) for p in jit.trace] == \
+        [dataclasses.astuple(p) for p in host.trace]
+    assert (jit.event_log, jit.outages) == (host.event_log, host.outages)
+    assert cluster_state(jit.c, heaps=False) == \
+        cluster_state(host.c, heaps=False)
+    assert jit.c._jit.counts["launches"] > 0

@@ -17,6 +17,7 @@ from repro_torch.core import clht as tc  # noqa: E402
 from repro_torch.core import log as tl  # noqa: E402
 from repro_torch import device, state  # noqa: E402
 from repro_torch.core import DinomoCluster  # noqa: E402
+from repro_torch.core import scenarios  # noqa: E402
 from repro_torch.core.dpm_pool import DPMPool  # noqa: E402
 from repro_torch.kernels import cache_transition as tct  # noqa: E402
 from repro_torch.kvcache import paged_store  # noqa: E402
@@ -47,6 +48,12 @@ CLUSTER_SLICE = ("core/cluster.py", "core/ownership.py", "core/mnode.py",
 JIT_SLICE = ("core/jit_engine.py", "kernels/batch_executor/__init__.py",
              "kernels/batch_executor/ops.py",
              "kernels/batch_executor/ref.py")
+# the modules of the planes around the cluster (the timed simulation,
+# the request plane, the scenario harness, the linearizability checker),
+# which the scan must reach as well
+PLANES_SLICE = ("core/linearizability.py", "core/requestplane.py",
+                "core/simulate.py", "core/scenarios.py",
+                "core/netmodel.py", "data/ycsb.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the one environment variable the port reads: the ownership sanitizer's
 # switch, the reference's own (it chooses no device)
@@ -88,6 +95,11 @@ def test_the_scan_reaches_the_cluster_slice():
 
 def test_the_scan_reaches_the_jit_slice():
     for name in JIT_SLICE:
+        assert PORT / name in PORT_FILES, name
+
+
+def test_the_scan_reaches_the_planes_slice():
+    for name in PLANES_SLICE:
         assert PORT / name in PORT_FILES, name
 
 
@@ -135,6 +147,9 @@ def test_every_kernel_package_has_ref_and_parity_test():
     lambda: DPMPool(),
     lambda: DPMPool(num_buckets=8, device="cuda"),
     lambda: DinomoCluster(num_kns=1, num_buckets=8),
+    lambda: scenarios.run_scenario("crash", "dinomo", smoke=True),
+    lambda: scenarios.run_overload(smoke=True),
+    lambda: scenarios.run_suite(smoke=True),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
