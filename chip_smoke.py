@@ -2,7 +2,9 @@
 """Drive the PyTorch port's paths on one NVIDIA H100: the DPM data plane,
 one KN's planned DAC windows over it, the DPM pool with its planned merge,
 the cluster over that pool by its host and compiled batch engines, the
-paged LLM serving path and the SSM family's prefill and recurrent decode.
+paged LLM serving path, the dense, MoE and VLM families at head dim 128
+with the dense-cache decode, and the SSM family's prefill and recurrent
+decode.
 
 Run from the repository root with no arguments:
 
@@ -146,8 +148,38 @@ heads, vocab 151,936; random bf16 weights from a seeded generator):
                through paged_decode_attention) against prefill's
                (flash_attention)
 
-and times both attention kernels at the main path's shapes. Last,
-mamba2-2.7b at its published widths (64 layers, d_model 2560, 80 SSD
+and times both attention kernels at the main path's shapes. Then the
+attention families at head dim 128 (random bf16 weights from a seeded
+generator; each model freed before the next is made):
+
+  prefill_llama       llama3.2-3b at its published widths (28 layers,
+                      d_model 3072, 24 heads over 8 kv heads of 128, vocab
+                      128,256): build_model(CONFIG).prefill of 4 x 2048
+                      (flash_attention at D = 128, 28 launches a call, each
+                      layer's held to mha_ref), kernel 5 timed at layer 0's
+                      views beside scaled_dot_product_attention
+  dense_decode_llama  launch.steps.serve_step's three dense-cache decodes
+                      (v1, v2, v3) at batch 4 from a 256-token prefill_step,
+                      64 steps each on v1's greedy tokens: the three within
+                      2e-2 of max |logit| at every step, each within 5e-2
+                      of forward's logits; one profiled step each
+  serve_llama         PagedServer(cfg=CONFIG): 4 requests of 128 tokens
+                      sharing 64, a worker added after the second, 32
+                      greedy steps each (paged_decode_attention at group 3,
+                      one stacked launch a layer); the server against
+                      prefill on a 128-token prompt; kernel 6 timed
+  moe_olmoe           olmoe-1b-7b at its published widths (16 layers,
+                      d_model 2048, 16 heads of 128, 64 experts top-8):
+                      prefill 4 x 2048 (16 launches a call, each held),
+                      each layer's expert loads and choices dropped at
+                      capacity; serve_step v3 for 32 greedy steps at batch 4
+                      (capacity 1 an expert, as the reference computes it)
+  widths_d128         internlm2-20b, nemotron-4-15b, chameleon-34b and
+                      granite-moe-1b-a400m at their published widths cut to
+                      2 layers: one prefill of 1 x 2048 each, every kernel-5
+                      launch held to mha_ref
+
+Last, mamba2-2.7b at its published widths (64 layers, d_model 2560, 80 SSD
 heads of 64, state 128, vocab 50,280, tied embeddings; random bf16
 weights from a seeded generator):
 
@@ -321,6 +353,25 @@ SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 8, 256, 128, 64
 PAGE_SIZE, NUM_PAGES = 8, 4096
 RECONFIG_AFTER = 4          # requests admitted before w2 joins
 DECODE_B, DECODE_CTX = 64, 2048     # kernel 6 at a batched decode shape
+# the attention families at head dim 128: llama3.2-3b (dense, 24 heads over
+# 8 kv heads) and olmoe-1b-7b (MoE, 64 experts top-8) at their published
+# widths, and four more configs cut to WIDTH_LAYERS layers
+LLAMA = "llama3.2-3b"
+OLMOE = "olmoe-1b-7b"
+# the paged server at llama's widths: fewer and shorter requests than the
+# qwen serve cell (it admits token by token, about 70 ms a token)
+LLAMA_REQUESTS, LLAMA_PROMPT, LLAMA_SHARED = 4, 128, 64
+LLAMA_DECODE_STEPS, LLAMA_RECONFIG_AFTER, LLAMA_NUM_PAGES = 32, 2, 256
+# the dense-cache decodes (steps.serve_step, optimized False / "v2" / "v3")
+DENSE_B, DENSE_PROMPT, DENSE_STEPS = 4, 256, 64
+DENSE_IMPLS = (False, "v2", "v3")
+# max |diff| / max |logit| between two decode implementations fed the same
+# tokens: the reference's own bar (tests/test_perf_variants.py)
+DECODE_IMPL_TOL = 2e-2
+MOE_DECODE_STEPS = 32
+WIDTH_ARCHS = ("internlm2-20b", "nemotron-4-15b", "chameleon-34b",
+               "granite-moe-1b-a400m")
+WIDTH_LAYERS, WIDTH_SEQ = 2, 2048
 SSM_ARCH = "mamba2-2.7b"
 SSM_B, SSM_S, SSM_REPS = 4, 2048, 3     # prefill prompts x tokens, calls
 SSM_CHUNK = 64
@@ -3257,7 +3308,13 @@ class Smoke:
                 (1, 4, 4, 64, 64, 32, True, torch.float32),
                 (2, 8, 2, 128, 128, 64, True, torch.bfloat16),
                 (1, 4, 1, 32, 128, 32, False, torch.float32),
-                (1, 2, 2, 256, 256, 16, True, torch.float32)]:
+                (1, 2, 2, 256, 256, 16, True, torch.float32),
+                # D = 128: causal group 3, non-causal Sq != Sk, ragged
+                # Sq = 200 at group 8, and the f32 kernel
+                (2, 6, 2, 256, 256, 128, True, torch.bfloat16),
+                (1, 6, 2, 100, 300, 128, False, torch.bfloat16),
+                (1, 8, 1, 200, 200, 128, True, torch.bfloat16),
+                (1, 6, 2, 200, 200, 128, True, torch.float32)]:
             q, k, v = (rand(shape, dt) for shape in
                        ((b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d)))
             err = close_err([("flash_attention.out",
@@ -3268,7 +3325,10 @@ class Smoke:
         for b, h, kh, d, ps, npages, p, dt in [
                 (2, 8, 2, 32, 16, 12, 4, torch.float32),
                 (1, 4, 4, 64, 8, 20, 6, torch.float32),
-                (2, 4, 2, 16, 16, 8, 2, torch.bfloat16)]:
+                (2, 4, 2, 16, 16, 8, 2, torch.bfloat16),
+                # D = 128: groups 3 and 6 (head_block 1 and 2)
+                (2, 24, 8, 128, 8, 40, 6, torch.float32),
+                (1, 12, 2, 128, 16, 30, 5, torch.bfloat16)]:
             q, kp, vp = (rand(shape, dt) for shape in
                          ((b, h, d), (npages, ps, kh, d), (npages, ps, kh, d)))
             tables = [torch.from_numpy(x).to(dev)
@@ -3307,72 +3367,101 @@ class Smoke:
     def prefill(self) -> None:
         """qwen1.5-0.5b's prefill at its published widths: B x S tokens
         through 24 layers, one flash_attention launch per layer."""
-        cfg = get_config(ARCH)
+        _, _, out, qkv = self._prefill("prefill", get_config(ARCH), PREFILL_B,
+                                       PREFILL_S, PREFILL_REPS)
+        self.path_err["flash_attention"] = out["flash_attention_vs_plain"]
+        self.prefill_qkv = qkv
+        emit(out)
+
+    def _prefill(self, phase: str, cfg, batch: int, seq: int, reps: int):
+        """``build_model(cfg).prefill`` of ``batch`` x ``seq`` seeded
+        tokens on random weights from SEED: a warm-up call (cuBLAS, the
+        caches), then ``reps`` timed calls counted from 0, one
+        flash_attention launch a layer each; the logits and KV shapes
+        checked. Then kernel 5 on the inputs prefill gives it (every
+        layer's q, k, v in model layout (B, S, H, D), read through
+        transposed strides) held against mha_ref, uncounted. Returns
+        (params, tokens, the phase's line, layer 0's (q, k, v))."""
         model = build_model(cfg)
         t0 = time.perf_counter()
         params = model.init(SEED)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         gen = torch.Generator(device=self.dev).manual_seed(SEED)
-        tokens = torch.randint(0, cfg.vocab_size, (PREFILL_B, PREFILL_S),
+        tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
                                generator=gen, device=self.dev)
         synced(model.prefill, params, tokens)     # warm-up: cuBLAS, caches
         torch.cuda.reset_peak_memory_stats()
         # set every count to 0 just before the main path
         _build.reset_counts()
         secs = []
-        for _ in range(PREFILL_REPS):
+        for _ in range(reps):
             (logits, kv), sec = synced(model.prefill, params, tokens)
             secs.append(sec)
         launches = _build.launches["flash_attention"]
-        if launches != cfg.num_layers * PREFILL_REPS:
-            raise AssertionError(f"prefill launched flash_attention "
+        if launches != cfg.num_layers * reps:
+            raise AssertionError(f"{phase}: prefill launched flash_attention "
                                  f"{launches} times, not one per layer")
-        kv_shape = (cfg.num_layers, PREFILL_B, PREFILL_S, cfg.num_kv_heads,
-                    cfg.hd)
-        if tuple(logits.shape) != (PREFILL_B, cfg.vocab_size) or \
+        kv_shape = (cfg.num_layers, batch, seq, cfg.num_kv_heads, cfg.hd)
+        if tuple(logits.shape) != (batch, cfg.vocab_size) or \
                 logits.dtype != torch.float32 or \
                 not bool(torch.isfinite(logits).all()):
-            raise AssertionError("prefill: logits of the wrong shape, type "
+            raise AssertionError(f"{phase}: logits of the wrong shape, type "
                                  "or not finite")
         for name in ("k", "v"):
             if tuple(kv[name].shape) != kv_shape or \
                     not bool(torch.isfinite(kv[name]).all()):
-                raise AssertionError(f"prefill: {name} cache wrong or not "
+                raise AssertionError(f"{phase}: {name} cache wrong or not "
                                      "finite")
-        self.tally("prefill", dict(_build.launches))
-        # kernel 5 on the inputs prefill gives it: every layer's q, k, v
-        # in model layout (B, S, H, D), read through transposed strides
+        self.tally(phase, dict(_build.launches))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del logits, kv
         with uncounted(), recorded(transformer, "attention") as calls:
             model.prefill(params, tokens)
         tol = TOL[torch.bfloat16]["flash_attention"]
-        self.path_err["flash_attention"] = max(close_err(
-            [(f"flash_attention.layer{li}", out, flash.mha_ref(
+        err = max(close_err(
+            [(f"{phase}.flash_attention.layer{li}", out, flash.mha_ref(
                 *(t.transpose(1, 2) for t in args)).transpose(1, 2))],
             tol) for li, (args, out) in enumerate(calls))
-        self.prefill_qkv = calls[0][0]
+        qkv = calls[0][0]
         del calls
         sec = sorted(secs)[len(secs) // 2]
-        emit({"phase": "prefill", "arch": ARCH, "params": cfg.param_count(),
-              "init_s": init_s, "batch": PREFILL_B, "seq": PREFILL_S,
-              "seconds": secs, "tokens_per_s": PREFILL_B * PREFILL_S / sec,
-              "flash_attention_launches": launches,
-              "launches_per_call": launches // PREFILL_REPS,
-              "flash_attention_vs_plain": self.path_err["flash_attention"],
-              "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30})
+        return params, tokens, {
+            "phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+            "head_dim": cfg.hd, "params": cfg.param_count(),
+            "init_s": init_s, "batch": batch, "seq": seq, "seconds": secs,
+            "tokens_per_s": batch * seq / sec,
+            "flash_attention_launches": launches,
+            "launches_per_call": launches // reps,
+            "flash_attention_vs_plain": err, "peak_device_gib": peak}, qkv
 
     # --------------------------------------------------------- 10. serve
     def serve_paged(self) -> PagedServer:
         """PagedServer at qwen1.5-0.5b's widths: 8 prompts sharing a
         prefix, a worker added mid-flight, greedy decode."""
-        cfg = get_config(ARCH)
-        srv = PagedServer(cfg=cfg, page_size=PAGE_SIZE, num_pages=NUM_PAGES,
+        srv, out = self._serve("serve_paged", get_config(ARCH),
+                               SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS,
+                               RECONFIG_AFTER, NUM_PAGES)
+        emit({"phase": "serve", **out})
+        self.path_err["paged_decode_attention"], self.decode_args = \
+            self._decode_step_held(srv, "serve")
+        return srv
+
+    def _serve(self, phase: str, cfg, requests: int, prompt_len: int,
+               shared_len: int, decode_steps: int, reconfig_after: int,
+               num_pages: int):
+        """PagedServer(cfg=cfg) with random weights from SEED: ``requests``
+        prompts of ``prompt_len`` tokens sharing ``shared_len``, w2 added
+        after ``reconfig_after`` of them (uncounted: reconfigure), then
+        ``decode_steps`` greedy steps each; launches counted from 0.
+        Returns (the server, the phase's line without its name)."""
+        srv = PagedServer(cfg=cfg, page_size=PAGE_SIZE, num_pages=num_pages,
                           workers=("w0", "w1"), seed=SEED)
         g = np.random.default_rng(SEED)
-        shared = g.integers(0, cfg.vocab_size, SHARED).tolist()
+        shared = g.integers(0, cfg.vocab_size, shared_len).tolist()
         prompts = [shared + g.integers(0, cfg.vocab_size,
-                                       PROMPT - SHARED).tolist()
-                   for _ in range(SERVE_REQUESTS)]
+                                       prompt_len - shared_len).tolist()
+                   for _ in range(requests)]
         # set every count to 0 just before the main path
         _build.reset_counts()
         sids, admit_s, decode_s = [], 0.0, 0.0
@@ -3381,54 +3470,62 @@ class Smoke:
             admit_s += sec
             sids.append(sid)
             if logits is None or not bool(torch.isfinite(logits).all()):
-                raise AssertionError(f"request {r}: no finite logits")
-            if r + 1 == RECONFIG_AFTER:
+                raise AssertionError(f"{phase}: request {r}: no finite "
+                                     "logits")
+            if r + 1 == reconfig_after:
                 with uncounted():
                     reconfig = self.reconfigure(srv, sids[0])
         admitted = srv.stats["tokens"]
         decoded = []
         for sid in sids:
-            out, sec = synced(srv.decode, sid, DECODE_STEPS)
+            out, sec = synced(srv.decode, sid, decode_steps)
             decode_s += sec
             decoded.append(out)
         counts = dict(_build.launches)
-        if srv.stats["prefix_hits"] != SERVE_REQUESTS - 1:
-            raise AssertionError(f"prefix hits {srv.stats['prefix_hits']}, "
-                                 f"expected {SERVE_REQUESTS - 1}")
+        if srv.stats["prefix_hits"] != requests - 1:
+            raise AssertionError(f"{phase}: prefix hits "
+                                 f"{srv.stats['prefix_hits']}, expected "
+                                 f"{requests - 1}")
         if counts["paged_decode_attention"] == 0:
-            raise AssertionError("the server never launched "
+            raise AssertionError(f"{phase}: the server never launched "
                                  "paged_decode_attention")
-        if any(srv.ctl.sequences[s].length != PROMPT + DECODE_STEPS
+        if any(srv.ctl.sequences[s].length != prompt_len + decode_steps
                for s in sids) or any(not 0 <= t < cfg.vocab_size
                                      for out in decoded for t in out):
-            raise AssertionError("a sequence has the wrong length or token")
-        self.tally("serve_paged", counts)
+            raise AssertionError(f"{phase}: a sequence has the wrong length "
+                                 "or token")
+        self.tally(phase, counts)
         total = srv.stats["tokens"]
-        emit({"phase": "serve", "arch": ARCH, "requests": SERVE_REQUESTS,
-              "prompt": PROMPT, "shared_prefix": SHARED,
-              "decode_steps": DECODE_STEPS, **srv.stats,
-              "admit_tokens": admitted, "admit_s": admit_s,
-              "decode_tokens": total - admitted, "decode_s": decode_s,
-              "tokens_per_s": total / (admit_s + decode_s),
-              "decode_tokens_per_s": (total - admitted) / decode_s,
-              "reconfig": reconfig, "workers": srv.ctl.workers,
-              "local_copy_ratio": {w: srv.ctl.local_copy_ratio(w)
-                                   for w in srv.ctl.workers},
-              "pages_used": NUM_PAGES - len(srv.ctl.free),
-              "launches": {k: counts[k] for k in
-                           ("flash_attention", "paged_decode_attention")}})
-        # kernel 6 on the inputs the server gives it: one more decode
-        # step of the last request, one launch a layer over the owners'
-        # stacked tables, each owner's row held against the plain version
-        # on that row alone
+        return srv, {
+            "arch": cfg.name, "requests": requests, "prompt": prompt_len,
+            "shared_prefix": shared_len, "decode_steps": decode_steps,
+            **srv.stats, "admit_tokens": admitted, "admit_s": admit_s,
+            "decode_tokens": total - admitted, "decode_s": decode_s,
+            "tokens_per_s": total / (admit_s + decode_s),
+            "decode_tokens_per_s": (total - admitted) / decode_s,
+            "reconfig": reconfig, "workers": srv.ctl.workers,
+            "local_copy_ratio": {w: srv.ctl.local_copy_ratio(w)
+                                 for w in srv.ctl.workers},
+            "pages_used": num_pages - len(srv.ctl.free),
+            "launches": {k: counts[k] for k in
+                         ("flash_attention", "paged_decode_attention")}}
+
+    def _decode_step_held(self, srv: PagedServer, what: str):
+        """Kernel 6 on the inputs the server gives it: one more decode
+        step of the last request (uncounted), one launch a layer over the
+        owners' stacked tables, each owner's row held against the plain
+        version on that row alone. Returns (max |diff|, the last launch's
+        arguments)."""
+        sid = max(srv.tokens)
         with uncounted(), recorded(paged_store,
                                    "paged_decode_partial") as calls:
-            srv.decode(sids[-1], 1)
-        if len(calls) != cfg.num_layers:
-            raise AssertionError(f"one decode step launched kernel 6 "
+            srv.decode(sid, 1)
+        if len(calls) != srv.cfg.num_layers:
+            raise AssertionError(f"{what}: one decode step launched kernel 6 "
                                  f"{len(calls)} times, not once a layer")
-        self.path_err["paged_decode_attention"] = close_err(
-            [(f"paged_decode_attention.step{i}.row{r}.{o}", x[r:r + 1], y)
+        err = close_err(
+            [(f"{what}.paged_decode_attention.step{i}.row{r}.{o}",
+              x[r:r + 1], y)
              for i, (args, out) in enumerate(calls)
              for r in range(args[0].shape[0])
              for o, x, y in zip("acc m l".split(), out,
@@ -3437,12 +3534,13 @@ class Smoke:
                                     *args[1:3],
                                     *(a[r:r + 1] for a in args[3:])))],
             TOL[torch.float32]["paged_decode_attention"])
-        self.decode_args = calls[-1][0]
-        emit({"check": "paged_decode_attention on one decode step",
-              "launches": len(calls), "owners": self.decode_args[0].shape[0],
-              "slots": self.decode_args[3].shape[1],
-              "max_abs_err": self.path_err["paged_decode_attention"]})
-        return srv
+        args = calls[-1][0]
+        emit({"check": f"paged_decode_attention on one decode step ({what})",
+              "launches": len(calls), "owners": args[0].shape[0],
+              "slots": args[3].shape[1], "heads": args[0].shape[1],
+              "kv_heads": args[1].shape[2], "head_dim": args[0].shape[2],
+              "max_abs_err": err})
+        return err, args
 
     def reconfigure(self, srv: PagedServer, sid: int) -> dict:
         """Add w2 mid-flight. Every layer's decode_over_owners call in
@@ -3494,28 +3592,29 @@ class Smoke:
                                  f"{out['logits_rel_diff']} of max |logit|")
         return out
 
+
     # --------------------------------------------------- 11. equivalence
-    def equivalence(self, srv: PagedServer) -> None:
-        """One 256-token prompt through the server (token by token,
+    def equivalence(self, srv: PagedServer, tokens: int = PROMPT,
+                    phase: str = "equivalence") -> None:
+        """One prompt of ``tokens`` through the server (token by token,
         kernel 6) against prefill's last-token logits (kernel 5)."""
         g = np.random.default_rng(SEED + 1)
-        prompt = g.integers(0, srv.cfg.vocab_size, PROMPT).tolist()
+        prompt = g.integers(0, srv.cfg.vocab_size, tokens).tolist()
         hits = srv.stats["prefix_hits"]
         _, paged = srv.admit(prompt)
         if srv.stats["prefix_hits"] != hits:
-            raise AssertionError("the equivalence prompt hit the prefix "
-                                 "cache")
+            raise AssertionError(f"{phase}: the prompt hit the prefix cache")
         dense, _ = srv.model.prefill(
             srv.params, torch.tensor([prompt], device=self.dev))
         rel = rel_diff(paged, dense[0])
         same = int(paged.argmax()) == int(dense[0].argmax())
-        emit({"phase": "equivalence", "tokens": PROMPT,
+        emit({"phase": phase, "arch": srv.cfg.name, "tokens": tokens,
               "max_abs_diff": float((paged - dense[0]).abs().max()),
               "max_abs_logit": float(dense[0].abs().max()),
               "rel_diff": rel, "tolerance": LOGIT_TOL, "top1_same": same})
         if rel > LOGIT_TOL:
-            raise AssertionError(f"server and prefill logits differ by "
-                                 f"{rel} of max |logit|")
+            raise AssertionError(f"{phase}: server and prefill logits differ "
+                                 f"by {rel} of max |logit|")
 
     def profile_decode(self, srv: PagedServer) -> None:
         """torch.profiler over one decode step of one served sequence."""
@@ -3523,7 +3622,8 @@ class Smoke:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, wall = synced(srv.decode, 0, 1)
-        emit({"profile": "one decode step (24 layers)",
+        emit({"profile": f"one decode step ({srv.cfg.num_layers} layers, "
+                         f"{srv.cfg.name})",
               **device_summary(prof, wall)})
 
     # ---------------------------------------------------- 12. time 5, 6
@@ -3641,6 +3741,265 @@ class Smoke:
               "inputs": f"{DECODE_B} x {DECODE_CTX} batched decode",
               "before": BEFORE})
         return rows
+
+    # ----------------------------------------- 12b. the families at D = 128
+    def prefill_llama(self) -> dict:
+        """llama3.2-3b's prefill at its published widths (28 layers,
+        d_model 3072, 24 heads over 8 kv heads of 128): kernel 5 at D = 128
+        with GQA group 3, 28 launches a call, each layer's launch held to
+        mha_ref; then kernel 5 timed at layer 0's views beside mha_ref and
+        scaled_dot_product_attention. Returns the kernels line's row."""
+        cfg = get_config(LLAMA)
+        params, tokens, out, qkv = self._prefill(
+            "prefill_llama", cfg, PREFILL_B, PREFILL_S, PREFILL_REPS)
+        emit(out)
+        self.llama_params = params
+        q, k, v = qkv                          # (B, S, H|KH, D) views
+        b, s, h, d = q.shape
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        flops = 2 * b * h * d * s * (s + 1)
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        row = self._timed(
+            "flash_attention", "flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:81",
+            ("out",), lambda: (flash.attention(q, k, v, causal=True),),
+            lambda: (flash.mha_ref(qt, kt, vt).transpose(1, 2),),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True),
+            nbytes, REPS, plain_reps=3, flops=flops, peak=BF16_FLOPS,
+            extra={"shape": [b, s, h, d], "kv_heads": k.shape[2],
+                   "gflop": flops / 1e9, "bytes": nbytes},
+            compare=lambda pairs: close_err(
+                pairs, TOL[torch.bfloat16]["flash_attention"]),
+            label="flash_attention_d128")
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 out["flash_attention_vs_plain"])
+        row.update(head_dim=d, inputs=f"{LLAMA} prefill's layer-0 views, "
+                   f"{(b, s, h, d)} over {k.shape[2]} kv heads")
+        emit({"flash_attention_d128": {
+            "ms": row["ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "sdpa_ms": row["library_ms"],
+            "plain_ms": row["plain_ms"],
+            "share_of_bound": row["bound_ms"] / row["ms"],
+            "share_of_prefill_call": cfg.num_layers * row["ms"]
+            / (out["batch"] * out["seq"] / out["tokens_per_s"] * 1e3)}})
+        del q, k, v, qt, kt, vt, qkv, tokens
+        return row
+
+    def dense_decode_llama(self) -> None:
+        """steps.serve_step with the three dense-cache decodes (v1, v2,
+        v3) at batch DENSE_B from one cache that prefill_step filled with a
+        DENSE_PROMPT-token prompt: v1 decodes DENSE_STEPS greedy tokens,
+        v2 and v3 take v1's tokens (so that one near-tie cannot part the
+        sequences), and every step's logits of the three agree within
+        DECODE_IMPL_TOL of max |logit|; each against forward's logits on
+        the whole sequence within LOGIT_TOL. Then one profiled step each."""
+        from torch.profiler import ProfilerActivity, profile
+        cfg = get_config(LLAMA)
+        params = self.llama_params
+        g = np.random.default_rng(SEED + 4)
+        prompt = torch.from_numpy(g.integers(
+            0, cfg.vocab_size, (DENSE_B, DENSE_PROMPT))).to(self.dev)
+        total = DENSE_PROMPT + DENSE_STEPS
+        _build.reset_counts()
+        (first, kv), prefill_s = synced(steps.prefill_step, params, prompt,
+                                        cfg)
+        caches = {}
+        for impl in DENSE_IMPLS:
+            c = steps.init_cache(cfg, DENSE_B, total + 1, impl)
+            for name in ("k", "v"):
+                dst = c[name].transpose(2, 3) if impl else c[name]
+                dst[:, :, :DENSE_PROMPT] = kv[name]
+            caches[impl] = c
+        del kv
+        toks = torch.empty((DENSE_B, DENSE_STEPS + 1), dtype=torch.int64,
+                           device=self.dev)
+        toks[:, 0] = first.argmax(-1)
+        logits = {impl: [] for impl in DENSE_IMPLS}
+        secs = {}
+        for impl in DENSE_IMPLS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DENSE_STEPS):
+                out, caches[impl] = steps.serve_step(
+                    params, caches[impl], toks[:, i], DENSE_PROMPT + i, cfg,
+                    optimized=impl)
+                if impl is False:
+                    toks[:, i + 1] = out.argmax(-1)
+                logits[impl].append(out)
+            torch.cuda.synchronize()
+            secs[impl] = time.perf_counter() - t0
+        self.tally("dense_decode_llama", dict(_build.launches))
+        name = {False: "v1", "v2": "v2", "v3": "v3"}
+        agree = {name[impl]: max(rel_diff(a, b) for a, b in zip(
+            logits[impl], logits[False])) for impl in DENSE_IMPLS[1:]}
+        with uncounted():
+            full = transformer.forward(
+                params, torch.cat([prompt, toks[:, :DENSE_STEPS]], 1),
+                cfg)[0][:, DENSE_PROMPT:]
+        vs_forward = {name[impl]: rel_diff(torch.stack(logits[impl], 1),
+                                           full) for impl in DENSE_IMPLS}
+        top1 = {name[impl]: float((torch.stack(logits[impl], 1).argmax(-1)
+                                   == full.argmax(-1)).float().mean())
+                for impl in DENSE_IMPLS}
+        del full, logits
+        step = {}
+        for impl in DENSE_IMPLS:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _, wall = synced(steps.serve_step, params, caches[impl],
+                                 toks[:, DENSE_STEPS], total, cfg, impl)
+            summary = device_summary(prof, wall)
+            step[name[impl]] = {k: summary[k] for k in (
+                "wall_ms", "device_busy_ms", "device_busy_share", "launches")}
+        del caches
+        torch.cuda.empty_cache()
+        emit({"phase": "dense_decode_llama", "arch": LLAMA, "batch": DENSE_B,
+              "prompt": DENSE_PROMPT, "steps": DENSE_STEPS,
+              "prefill_s": prefill_s,
+              "seconds": {name[i]: secs[i] for i in DENSE_IMPLS},
+              "tokens_per_s": {name[i]: DENSE_B * DENSE_STEPS / secs[i]
+                               for i in DENSE_IMPLS},
+              "rel_diff_vs_v1": agree, "impl_tolerance": DECODE_IMPL_TOL,
+              "rel_diff_vs_forward": vs_forward, "top1_vs_forward": top1,
+              "tolerance": LOGIT_TOL, "profiled_step": step,
+              "distinct_tokens": int(torch.unique(toks).numel())})
+        if max(agree.values()) > DECODE_IMPL_TOL:
+            raise AssertionError(f"dense decode implementations differ: "
+                                 f"{agree}")
+        if max(vs_forward.values()) > LOGIT_TOL:
+            raise AssertionError(f"dense decode and forward differ: "
+                                 f"{vs_forward}")
+        if not 0 <= int(toks.min()) <= int(toks.max()) < cfg.vocab_size:
+            raise AssertionError("dense decode: a token out of range")
+
+    def serve_llama(self) -> list[dict]:
+        """PagedServer at llama3.2-3b's widths (kernel 6 at D = 128, group
+        3: one stacked launch a layer), a worker joining mid-flight, the
+        server against prefill on one prompt, a profile of one step, and
+        kernel 6 timed on one decode step's last stacked launch. Returns
+        the kernels line's row."""
+        srv, out = self._serve("serve_llama", get_config(LLAMA),
+                               LLAMA_REQUESTS, LLAMA_PROMPT, LLAMA_SHARED,
+                               LLAMA_DECODE_STEPS, LLAMA_RECONFIG_AFTER,
+                               LLAMA_NUM_PAGES)
+        emit({"phase": "serve_llama", **out})
+        err, args = self._decode_step_held(srv, "serve_llama")
+        self.profile_decode(srv)
+        self.equivalence(srv, LLAMA_PROMPT, "equivalence_llama")
+        qd, kp, vp, pt, pos, lens = args
+        h, d = qd.shape[1], qd.shape[2]
+        kh, ps = kp.shape[2], kp.shape[1]
+        valid = ((pos[:, :, None] + torch.arange(ps, device=self.dev))
+                 < lens[:, None, None]) & (pt >= 0)[:, :, None]
+        tokens = int(valid.sum())
+        row = self._timed(
+            "paged_decode_attention", "paged_decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:85",
+            ("acc", "m", "l"),
+            lambda: decode.paged_decode_attention(qd, kp, vp, pt, pos, lens),
+            lambda: decode.paged_decode_ref(qd, kp, vp, pt, pos, lens),
+            None, self._decode_bytes(qd, kp, pt, tokens), REPS,
+            flops=4 * tokens * h * d, peak=F32_FLOPS,
+            extra={"owners": qd.shape[0], "slots": pt.shape[1],
+                   "tokens": tokens, "heads": h, "kv_heads": kh,
+                   "head_block": decode.head_block(h // kh)},
+            compare=lambda pairs: close_err(
+                pairs, TOL[torch.float32]["paged_decode_attention"]),
+            label="paged_decode_attention_group3")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row.update(head_dim=d, group=h // kh,
+                   inputs=f"{LLAMA} server, one decode step's last layer")
+        del srv, args, qd, kp, vp
+        torch.cuda.empty_cache()
+        return row
+
+    def moe_olmoe(self) -> None:
+        """olmoe-1b-7b at its published widths (16 layers, d_model 2048, 16
+        heads of 128, 64 experts top-8): prefill of PREFILL_B x PREFILL_S
+        (16 kernel-5 launches a call, each held to mha_ref), each layer's
+        expert loads and the choices dropped at capacity; then
+        serve_step v3 for MOE_DECODE_STEPS greedy steps at batch PREFILL_B
+        from that prefill's cache, with decode's capacity (1 at batch 4:
+        the reference's semantics, mirrored) and its drops."""
+        cfg = get_config(OLMOE)
+        params, tokens, out, _ = self._prefill(
+            "moe_olmoe", cfg, PREFILL_B, PREFILL_S, PREFILL_REPS)
+        t, k, e = PREFILL_B * PREFILL_S, cfg.experts_per_token, \
+            cfg.num_experts
+        with uncounted(), recorded(transformer, "moe_ff") as calls:
+            logits, kv = steps.prefill_step(params, tokens, cfg)
+        loads = torch.stack([aux["expert_load"] for _, (_, aux) in calls])
+        del calls
+        cap = max(int(t * k / e * cfg.moe_capacity_factor), 1)
+        dropped = (loads * t * k).round().sub(cap).clamp(min=0).sum(1)
+        out.update(capacity=cap, dropped_per_layer=dropped.tolist(),
+                   dropped_share=float(dropped.sum()) / (cfg.num_layers * t
+                                                        * k),
+                   expert_load_layer0=loads[0].tolist(),
+                   expert_load_min_max=[float(loads.min()),
+                                        float(loads.max())])
+        emit(out)
+        # decode: v3 from the prefill's cache
+        cache = steps.init_cache(cfg, PREFILL_B, PREFILL_S + MOE_DECODE_STEPS,
+                                 "v3")
+        for name in ("k", "v"):
+            cache[name].transpose(2, 3)[:, :, :PREFILL_S] = kv[name]
+        del kv
+        tok = logits.argmax(-1)
+        _build.reset_counts()
+        decoded = []
+        with recorded(transformer, "moe_ff") as calls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(MOE_DECODE_STEPS):
+                logits, cache = steps.serve_step(params, cache, tok,
+                                                 PREFILL_S + i, cfg,
+                                                 optimized="v3")
+                tok = logits.argmax(-1)
+                decoded.append(tok)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        self.tally("moe_olmoe_decode", dict(_build.launches))
+        dec_cap = max(int(PREFILL_B * k / e * cfg.moe_capacity_factor), 1)
+        dec_loads = torch.stack([aux["expert_load"] for _, (_, aux) in calls])
+        del calls
+        dec_dropped = float((dec_loads * PREFILL_B * k).round().sub(dec_cap)
+                            .clamp(min=0).sum())
+        decoded = torch.stack(decoded, 1)
+        if not bool(torch.isfinite(logits).all()) or not bool(
+                ((decoded >= 0) & (decoded < cfg.vocab_size)).all()):
+            raise AssertionError("moe decode: non-finite logits or a token "
+                                 "out of range")
+        emit({"phase": "moe_olmoe_decode", "arch": OLMOE, "impl": "v3",
+              "batch": PREFILL_B, "context": PREFILL_S,
+              "steps": MOE_DECODE_STEPS, "seconds": sec,
+              "step_ms": sec / MOE_DECODE_STEPS * 1e3,
+              "tokens_per_s": PREFILL_B * MOE_DECODE_STEPS / sec,
+              "capacity_per_expert": dec_cap,
+              "choices": MOE_DECODE_STEPS * cfg.num_layers * PREFILL_B * k,
+              "dropped_choices": dec_dropped,
+              "distinct_tokens": int(torch.unique(decoded).numel())})
+        del params, cache, tokens, logits
+        torch.cuda.empty_cache()
+
+    def widths_d128(self) -> None:
+        """internlm2-20b, nemotron-4-15b, chameleon-34b (D = 128, GQA
+        groups 6, 6 and 8; nemotron's squared-ReLU MLP and 256 K vocab)
+        and granite-moe-1b-a400m (MoE at D = 64) at their published widths
+        cut to WIDTH_LAYERS layers: one prefill of 1 x WIDTH_SEQ, every
+        kernel-5 launch held to mha_ref."""
+        for arch in WIDTH_ARCHS:
+            cfg = get_config(arch).replace(num_layers=WIDTH_LAYERS)
+            params, _, out, _ = self._prefill(
+                f"widths_d128.{arch}", cfg, 1, WIDTH_SEQ, 1)
+            out.update(phase="widths_d128", cut=f"{WIDTH_LAYERS} of "
+                       f"{get_config(arch).num_layers} layers",
+                       group=cfg.num_heads // cfg.num_kv_heads,
+                       mlp=cfg.mlp, vocab=cfg.vocab_size, family=cfg.family)
+            emit(out)
+            del params
+            torch.cuda.empty_cache()
 
     # ------------------------------------------------- 13. check kernel 7
     def check_ssd(self) -> None:
@@ -4066,8 +4425,15 @@ def main() -> int:
     kernels += smoke.time_attention()
     smoke.profile_decode(srv)
     smoke.equivalence(srv)
-    del srv
+    del srv, smoke.prefill_qkv, smoke.decode_args
     torch.cuda.empty_cache()
+    kernels.append(smoke.prefill_llama())
+    smoke.dense_decode_llama()
+    del smoke.llama_params
+    torch.cuda.empty_cache()
+    kernels.append(smoke.serve_llama())
+    smoke.moe_olmoe()
+    smoke.widths_d128()
     smoke.check_ssd()
     smoke.ssm_prefill()
     smoke.ssm_decode()

@@ -1,13 +1,28 @@
 """Model configs of the port. ``get_config(name)`` returns the published
 config, ``get_smoke_config(name)`` a reduced one of the same family.
-The port carries the configs it runs so far: qwen1.5-0.5b (dense) and
-mamba2-2.7b (ssm)."""
+The port carries the configs of the families it runs: the dense, MoE and
+VLM decoders and the pure SSM (``ARCHS``); zamba2-1.2b (hybrid) and
+seamless-m4t-medium (encdec) wait for ROADMAP Queue 2 item 6."""
 
 from importlib import import_module
 
 from .base import ModelConfig
 
-ALIASES = {"qwen1.5-0.5b": "qwen1_5_0_5b", "mamba2-2.7b": "mamba2_2_7b"}
+ARCHS = [
+    "chameleon_34b", "olmoe_1b_7b", "granite_moe_1b_a400m", "llama3_2_3b",
+    "internlm2_20b", "qwen1_5_0_5b", "nemotron_4_15b", "mamba2_2_7b",
+]
+# canonical ids as assigned (dashes/dots) -> module names
+ALIASES = {
+    "chameleon-34b": "chameleon_34b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "llama3.2-3b": "llama3_2_3b",
+    "internlm2-20b": "internlm2_20b",
+    "qwen1.5-0.5b": "qwen1_5_0_5b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "mamba2-2.7b": "mamba2_2_7b",
+}
 
 
 def _module(name: str):

@@ -85,3 +85,12 @@ class ModelConfig:
         else:
             n = self.num_layers * (per_attn + per_mlp)
         return n + emb
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top-k experts only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        full_mlp = self.num_layers * self.num_experts * 3 * d * ff
+        act_mlp = self.num_layers * self.experts_per_token * 3 * d * ff
+        return self.param_count() - full_mlp + act_mlp

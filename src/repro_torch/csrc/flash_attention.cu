@@ -13,11 +13,13 @@
 // mask the tiles past the block's last query are never loaded, and the
 // blocks of the latest queries, which do the most work, run first.
 //
-// Bound on an H100 SXM: operations. At the main path's shapes (4 x 16
-// heads x 2048 x 64, bf16, causal) the scores and P.V take
+// Bound on an H100 SXM: operations. At qwen1.5-0.5b's prefill shapes (4 x
+// 16 heads x 2048 x 64, bf16, causal) the scores and P.V take
 // 2*B*H*D*S*(S+1) floating-point operations, 34.4 GFLOP, 0.0348 ms at
 // the 989 TFLOP/s of the bf16 tensor cores, against 67 MB of q, k, v and
-// out (0.020 ms). Two kernels, chosen by the input type:
+// out (0.020 ms); at llama3.2-3b's (4 x 24 heads over 8 x 2048 x 128)
+// 103.1 GFLOP, 0.104 ms, against 134 MB (0.040 ms). Head dims 16, 32, 64
+// and 128. Two kernels, chosen by the input type:
 //
 // - bf16 (the model's type), built for Hopper (sm_90a):
 //   * a block owns 128 query rows of one (batch, head): two consumer
@@ -28,13 +30,19 @@
 //     products of tile j. The tensor maps are built on the host over the
 //     caller's strided 4-D views (D, S, heads, batch; the outer three
 //     ordered by stride), with the swizzle that matches a row's bytes
-//     (128 B at D = 64, 64 B at 32, 32 B at 16). Rows past the end of
-//     the sequence arrive as zeros;
+//     (128 B at D = 64, 64 B at 32, 32 B at 16). At D = 128 a row's 256
+//     bytes are two 128-byte swizzle atoms, more than one box may hold:
+//     each tile is loaded as two boxes of 64 columns into two halves
+//     (64 rows x 128 B each), and both count toward the stage's
+//     transaction bytes. Rows past the end of the sequence arrive as
+//     zeros;
 //   * S = Q.K^T runs as wgmma m64n64k16 with Q and K read from the
-//     swizzled tiles (K-major descriptors); O += P.V as wgmma m64nDk16
-//     with P from registers (the S accumulator's layout, repacked to bf16
-//     pairs, is the A operand's) and V read in its natural (keys, D)
-//     layout through a transposed (MN-major) descriptor: no transpose
+//     swizzled tiles (K-major descriptors; at D = 128 the k-steps 4-7
+//     start in the second half); O += P.V as wgmma m64nDk16 with P from
+//     registers (the S accumulator's layout, repacked to bf16 pairs, is
+//     the A operand's) and V read in its natural (keys, D) layout through
+//     a transposed (MN-major) descriptor, whose leading byte offset steps
+//     from the first 64 columns to the second at D = 128: no transpose
 //     through shared memory;
 //   * the softmax runs on the f32 accumulators with exp2f and
 //     scale*log2(e) folded in; only the tile on a warpgroup's diagonal
@@ -44,18 +52,20 @@
 //   * P is rounded to bf16 for P.V, where the TPU kernel keeps it in f32:
 //     the output moves by about 2^-9 of its size, inside the 2.5e-2 that
 //     bf16 outputs are held to (the row sums l use the f32 p);
-//   * a consumer waits for each product before it goes on. At 92
-//     registers a thread two blocks (four consumer warpgroups) share an
+//   * a consumer waits for each product before it goes on. At D = 64, 92
+//     registers a thread, two blocks (four consumer warpgroups) share an
 //     SM, and one warpgroup's softmax runs under the others' products. A
 //     consumer that also ran its own next softmax under P.V needs a
-//     second P fragment, fits one block an SM, and was slower.
+//     second P fragment, fits one block an SM, and was slower. At D = 128
+//     the O accumulator is 64 f32 a thread and a block takes 96 KB of
+//     shared memory (Q 32, K and V 2 x 16 each).
 //   Measured on an H100 SXM at 700 W (chip_smoke.py, PERF.md): 0.109 ms
 //   at the main path's shape, against 0.453 ms for the mma.sync kernel
 //   this design replaced and 0.105 ms for PyTorch's SDPA; 32 % of the
 //   bound.
 // - f32 (the tests' sweep): one thread per query row, f32 FMAs on the
 //   CUDA cores (67 TFLOP/s), the exact arithmetic of the TPU kernel up to
-//   the order of sums.
+//   the order of sums. At D = 128 its 2 x 128 accumulators spill.
 //
 // Inputs keep their caller's layout: q, k and v are read through their
 // (batch, head, position) strides and out written through its own, with
@@ -267,19 +277,30 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The bytes of a row inside one swizzle atom: a whole bf16 row of D <= 64
+// elements (128, 64 or 32 bytes), or one 64-column half of a row of 128.
+template <int D>
+constexpr int kAtomRow = (D > 64 ? 64 : D) * 2;
+// The bytes of one 64-row tile's half (the whole tile at D <= 64).
+template <int D>
+constexpr int kHalf = kWgBK * kAtomRow<D>;
+
 // Shared-memory matrix descriptors for wgmma over tiles that TMA wrote
-// with the swizzle of a D-element bf16 row (D * 2 bytes: 128, 64 or 32),
-// rows packed at that pitch and every tile 1024-byte aligned. An 8-row
-// group spans 8 * D * 2 bytes (SBO). K-major (Q, K: the reduction runs
-// along the row) ignores LBO; MN-major (V: the reduction runs down the
-// rows) reads one swizzle atom across N = D, so LBO is never used either
-// and is given the group stride too.
+// with the swizzle of an atom row (128 B at D = 64 and 128, 64 B at 32,
+// 32 B at 16), rows packed at that pitch and every half 1024-byte
+// aligned. An 8-row group spans 8 atom rows (SBO). K-major (Q, K: the
+// reduction runs along the row) ignores LBO: a k-step of 16 columns lies
+// in one atom. MN-major (V: the reduction runs down the rows) reads N = D
+// across the row: one atom at D <= 64, where LBO is never used and is
+// given the group stride too; two at D = 128, where LBO is the offset
+// from the first half to the second.
 template <int D>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t kLayout = D == 64 ? 1 : (D == 32 ? 2 : 3);
-  constexpr uint64_t kGroup = 8 * D * 2;
+  constexpr uint64_t kLayout = D >= 64 ? 1 : (D == 32 ? 2 : 3);
+  constexpr uint64_t kGroup = 8 * kAtomRow<D>;
+  constexpr uint64_t kLead = D > 64 ? kHalf<D> : kGroup;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         ((kGroup >> 4) << 16) | ((kGroup >> 4) << 32) | (kLayout << 62);
+         ((kLead >> 4) << 16) | ((kGroup >> 4) << 32) | (kLayout << 62);
 }
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory,
 // both K-major
@@ -374,11 +395,52 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 
+// D[64 x 128] += A[64 x 16] . B[16 x 128], A in registers, B in shared
+// memory MN-major (transposed): two swizzle atoms across N, LBO apart
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (D == 64)
+  if constexpr (D == 128)
+    wgmma_rs_n128(d, a, db);
+  else if constexpr (D == 64)
     wgmma_rs_n64(d, a, db);
   else if constexpr (D == 32)
     wgmma_rs_n32(d, a, db);
@@ -389,6 +451,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
 template <int D>
 struct WgLayout {
   static constexpr int kTile = kWgBK * D * 2;  // bytes of 64 bf16 rows
+  // a tile's halves of 64 columns, kHalf<D> bytes apart (1 at D <= 64)
+  static constexpr int kHalves = D > 64 ? 2 : 1;
   static constexpr int kQ = 0;                 // two 64-row tiles
   static constexpr int kK = 2 * kTile;
   static constexpr int kV = kK + kStages * kTile;
@@ -405,9 +469,10 @@ struct MapOrder {
   int s, h, b;
 };
 
-__device__ __forceinline__ void tile_coords(const MapOrder& o, int s, int h,
-                                            int b, int (&c)[4]) {
-  c[0] = 0;
+__device__ __forceinline__ void tile_coords(const MapOrder& o, int col,
+                                            int s, int h, int b,
+                                            int (&c)[4]) {
+  c[0] = col;
   c[1 + o.s] = s;
   c[1 + o.h] = h;
   c[1 + o.b] = b;
@@ -456,23 +521,27 @@ __global__ void __launch_bounds__(kWgThreads)
     // producer: one thread keeps the ring full
     if (lane == 0) {
       int c[4];
+      // each barrier expects a whole tile's bytes: every half adds its own
       mbar_expect_tx(q_full, 2 * L::kTile);
-      for (int r = 0; r < 2; ++r) {
-        tile_coords(q_order, q0 + r * kWgRows, h, b, c);
-        tma_load_4d(base + L::kQ + r * L::kTile, &q_map, q_full, c[0], c[1],
-                    c[2], c[3]);
-      }
+      for (int r = 0; r < 2; ++r)
+        for (int hf = 0; hf < L::kHalves; ++hf) {
+          tile_coords(q_order, 64 * hf, q0 + r * kWgRows, h, b, c);
+          tma_load_4d(base + L::kQ + r * L::kTile + hf * kHalf<D>, &q_map,
+                      q_full, c[0], c[1], c[2], c[3]);
+        }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
         // the first round finds every stage free
         mbar_wait(empty + 8 * s, ((j / kStages) & 1) ^ 1);
-        tile_coords(kv_order, j * kWgBK, kvh, b, c);
         mbar_expect_tx(k_full + 8 * s, L::kTile);
-        tma_load_4d(base + L::kK + s * L::kTile, &k_map, k_full + 8 * s,
-                    c[0], c[1], c[2], c[3]);
         mbar_expect_tx(v_full + 8 * s, L::kTile);
-        tma_load_4d(base + L::kV + s * L::kTile, &v_map, v_full + 8 * s,
-                    c[0], c[1], c[2], c[3]);
+        for (int hf = 0; hf < L::kHalves; ++hf) {
+          tile_coords(kv_order, 64 * hf, j * kWgBK, kvh, b, c);
+          tma_load_4d(base + L::kK + s * L::kTile + hf * kHalf<D>, &k_map,
+                      k_full + 8 * s, c[0], c[1], c[2], c[3]);
+          tma_load_4d(base + L::kV + s * L::kTile + hf * kHalf<D>, &v_map,
+                      v_full + 8 * s, c[0], c[1], c[2], c[3]);
+        }
       }
     }
     return;
@@ -508,8 +577,12 @@ __global__ void __launch_bounds__(kWgThreads)
     mbar_wait(k_full + 8 * s, parity);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)   // 16 dims = 32 bytes a step
-      wgmma_ss_n64(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      // 16 dims = 32 bytes a step inside an atom; at D = 128 steps 4-7
+      // read the second half
+      const int step = (kk / 4) * (kHalf<D> >> 4) + (kk % 4) * 2;
+      wgmma_ss_n64(sc, q_desc + step, k_desc + step, kk > 0);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -562,8 +635,8 @@ __global__ void __launch_bounds__(kWgThreads)
     mbar_wait(v_full + 8 * s, parity);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)   // 16 keys = 16 rows of V a step
-      wgmma_rs<D>(o, pa[kk], v_desc + kk * (16 * D * 2 >> 4));
+    for (int kk = 0; kk < 4; ++kk)   // 16 keys = 16 atom rows of V a step
+      wgmma_rs<D>(o, pa[kk], v_desc + kk * (16 * kAtomRow<D> >> 4));
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -612,8 +685,8 @@ EncodeTiled encoder() {
 }
 
 // A tensor map over the bf16 view (D, S, heads, batch) of ``ptr`` with
-// element strides ``st``, loading boxes of D x ``rows`` positions of one
-// head. The outer three dims are ordered by stride (the model layout's
+// element strides ``st``, loading boxes of min(D, 64) columns x ``rows``
+// positions of one head (a row of 128 takes two boxes). The outer three dims are ordered by stride (the model layout's
 // views have a head stride below the position stride), and ``order``
 // says where each landed. False if the encoder refuses it.
 bool make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int d,
@@ -630,7 +703,7 @@ bool make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int d,
     }
   cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), 0, 0, 0};
   cuuint64_t bytes[3];
-  cuuint32_t box[4] = {static_cast<cuuint32_t>(d), 1, 1, 1};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(d > 64 ? 64 : d), 1, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   int where[3];
   for (int i = 0; i < 3; ++i) {
@@ -641,7 +714,7 @@ bool make_map(CUtensorMap* map, MapOrder* order, const void* ptr, int d,
   }
   *order = MapOrder{where[0], where[1], where[2]};
   const CUtensorMapSwizzle swizzle =
-      d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+      d >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
               : (d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                          : CU_TENSOR_MAP_SWIZZLE_32B);
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
@@ -720,6 +793,9 @@ cudaError_t dispatch_d(int64_t d, const void* q, const void* k, const void* v,
     case 64:
       return launch<T, 64>(q, k, v, out, batch, heads, group, sq, sk, qs, ks,
                            vs, os, scale, causal, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, out, batch, heads, group, sq, sk, qs,
+                            ks, vs, os, scale, causal, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -1,7 +1,8 @@
 """Kernel 5, prefill attention: multi-head / grouped-query attention with
 an online softmax in f32 and the causal mask of the reference's Pallas
 kernel (``csrc/flash_attention.cu``: bf16 inputs through TMA and wgmma
-on the tensor cores, f32 inputs on the CUDA cores).
+on the tensor cores, f32 inputs on the CUDA cores), for head dims 16, 32,
+64 and 128 (at 128 each tile is loaded as two 64-column halves).
 
 CPU tensors run the plain version in ref.py; CUDA tensors run the kernel.
 A causal call with Sq != Sk raises on both: there the reference's kernel
@@ -18,7 +19,7 @@ from .. import _build
 from .ref import mha_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64)
+HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _check(q, k, v, causal):

@@ -34,13 +34,16 @@ from ..kvcache.paged_store import (PagedKVController, decode_over_owners,
                                    owner_partials, pool_append, pool_init,
                                    stack_owners)
 from ..kvcache.prefix_cache import PrefixCache
-from ..models.layers import mlp, qkv_proj, rmsnorm, unembed
+from ..models.layers import qkv_proj, rmsnorm, unembed
 from ..models.model_zoo import build_model
+from ..models.transformer import FAMILIES, feed_forward, self_partial
 
 
 class PagedServer:
     """Functional server over the paged pool: OP + DAC + prefix sharing
-    on a transformer with random weights made from ``seed``.
+    on a transformer (dense, MoE or VLM; the MoE feed-forward runs on the
+    token alone, as in the reference) with random weights made from
+    ``seed``.
 
     ``cfg`` defaults to the smoke config of ``arch``, as in the
     reference; ``device`` is the card unless ``device="cpu"``. The pool
@@ -50,6 +53,9 @@ class PagedServer:
                  num_pages: int = 4096, workers=("w0", "w1"),
                  seed: int = 0, cfg=None, device=None):
         self.cfg = cfg or get_smoke_config(arch)
+        if self.cfg.family not in FAMILIES:
+            raise ValueError(f"paged serving takes the attention families "
+                             f"{FAMILIES}, not {self.cfg.family!r}")
         self.device = resolve_device(device)
         self.model = build_model(self.cfg)
         self.params = self.model.init(seed, self.device)
@@ -64,19 +70,6 @@ class PagedServer:
                       "prefix_tokens_reused": 0}
 
     # ------------------------------------------------------------------
-    def _self_partial(self, q, k_new, v_new):
-        """Flash partial for the just-produced token's own KV.
-        q: (1, H, D); k_new, v_new: (KH, D)."""
-        h, d = q.shape[1], q.shape[2]
-        kh = k_new.shape[0]
-        group = h // kh
-        qr = q.float().reshape(1, kh, group, d)
-        s = torch.einsum("bkgd,kd->bkg", qr, k_new.float()) * (d ** -0.5)
-        m = s.reshape(1, h)
-        l = torch.ones((1, h), dtype=torch.float32, device=q.device)
-        acc = v_new.float()[:, None, :].expand(kh, group, d).reshape(1, h, d)
-        return acc, m, l
-
     def _embed(self, tok: int) -> torch.Tensor:
         return self.params["embed"][torch.tensor([[tok]],
                                                  device=self.device)]
@@ -107,12 +100,12 @@ class PagedServer:
             k0, v0 = k[0, 0], v[0, 0]
             new_k.append(k0)
             new_v.append(v0)
-            parts = [self._self_partial(q[:, 0], k0, v0)]
+            parts = [self_partial(q[:, 0], k0[None], v0[None])]
             if stacked is not None:
                 parts += owner_partials(q[:, 0], self.pool, li, stacked)
             att = normalize(*merge_partials(parts)).to(h.dtype)  # (1, H, D)
             h = h + att.reshape(1, 1, -1) @ lp["attn"]["wo"]
-            h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
+            h = h + feed_forward(lp, h, cfg)[0]
         pool_append(self.pool, pid, off, torch.stack(new_k),
                     torch.stack(new_v))
         self.tokens[sid].append(tok)
@@ -164,7 +157,7 @@ class PagedServer:
             att = decode_over_owners(q[:, 0], self.pool, li, tables,
                                      [seq.length])
             h = h + att.reshape(1, 1, -1) @ lp["attn"]["wo"]
-            h = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
+            h = h + feed_forward(lp, h, cfg)[0]
         return self._head(h)
 
     # ------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Shared model layers: norms, rotary embeddings, attention, MLPs.
+"""Shared model layers: norms, rotary embeddings, attention (full
+sequence, and one decode token against a dense KV cache), MLPs.
 
 Functional, as in the reference: parameters are plain dicts of tensors,
 weights stored (d_in, d_out) so a layer is ``x @ w``; every layer is
@@ -13,6 +14,7 @@ import torch
 from ..kernels.flash_attention.ops import attention
 
 PARAM_DTYPE = torch.bfloat16
+NEG_INF = -1e30             # the reference's mask value
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -89,6 +91,75 @@ def attention_block(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     out = attention(q, k, v, causal=causal)
     b, s, _, _ = out.shape
     return out.reshape(b, s, -1) @ p["wo"]
+
+
+def check_pos(pos, slots: int) -> int:
+    """``pos`` as an int inside a cache of ``slots`` positions: the
+    reference's ``dynamic_update_slice`` clamps a write past the end, the
+    port raises."""
+    pos = int(pos)
+    if not 0 <= pos < slots:
+        raise ValueError(f"position {pos} outside the cache's {slots} "
+                         "slots")
+    return pos
+
+
+def decode_scores(q: torch.Tensor, k_cache: torch.Tensor, length):
+    """q: (B, H, D); k_cache: (B, KH, S, D); length: an int, () or (B,)
+    tensor. The scaled scores (B, KH, G, S) in f32 with the positions at
+    or past ``length`` set to NEG_INF, and that mask (B, S).
+
+    The reference's einsums run over the cache's type with f32
+    accumulation (``preferred_element_type``): here both operands go to
+    f32 (bf16 products are exact there), q first rounded to the cache's
+    type, as in the reference."""
+    b, h, d = q.shape
+    kh = k_cache.shape[1]
+    qr = q.to(k_cache.dtype).float().reshape(b, kh, h // kh, d)
+    s = torch.einsum("bkgd,bksd->bkgs", qr, k_cache.float()) * d ** -0.5
+    pos = torch.arange(k_cache.shape[2], device=q.device)
+    valid = pos[None, :] < torch.as_tensor(length,
+                                           device=q.device).reshape(-1, 1)
+    return torch.where(valid[:, None, None, :], s, NEG_INF), valid
+
+
+def decode_attention_khmajor(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, length) -> torch.Tensor:
+    """One-token decode against a KH-major dense cache (B, KH, S, D) over
+    the positions below ``length``. Returns (B, H, D) in q's type; the
+    softmax weights are rounded to the values' type for P.V, as in the
+    reference."""
+    b, h, d = q.shape
+    s, _ = decode_scores(q, k_cache, length)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_dense(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, length) -> torch.Tensor:
+    """One-token decode against a dense KV cache. q: (B, H, D); caches:
+    (B, Smax, KH, D), read through their (B, KH, S, D) views, no copy;
+    length: an int, () or (B,) tensor."""
+    return decode_attention_khmajor(q, k_cache.transpose(1, 2),
+                                    v_cache.transpose(1, 2), length)
+
+
+def attention_decode(p: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, pos):
+    """x: (B, 1, d); caches (B, Smax, KH, D). Writes the token's k and v
+    at ``pos`` into the caches (in place: the reference's update is
+    functional and its caches donated) and attends over positions
+    0..pos. Returns (y (B, 1, d), cache_k, cache_v)."""
+    b = x.shape[0]
+    pos = check_pos(pos, cache_k.shape[1])
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = qkv_proj(p, x, cfg, positions)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    out = decode_attention_dense(q[:, 0], cache_k, cache_v, pos + 1)
+    return out.reshape(b, 1, -1) @ p["wo"], cache_k, cache_v
 
 
 def mlp_init(gen: torch.Generator, cfg, d_ff: int | None = None) -> dict:

@@ -1,12 +1,23 @@
-"""Decoder-only transformer LM, dense family (GQA, rotary, QKV bias,
-SwiGLU or squared-ReLU MLP, tied or untied head).
+"""Decoder-only transformer LM: the dense, MoE and VLM families (GQA,
+rotary, QKV bias, SwiGLU or squared-ReLU MLP or an MoE feed-forward,
+tied or untied head; the VLM family is the dense path over the frontend
+stub's token ids, VQ image tokens sharing the text vocabulary).
 
 Parameters are a dict: ``embed`` (V, d), ``ln_f`` (d,), ``head``
 (d, V) unless tied, and ``layers``, a list of one dict per layer
-(``ln1``, ``attn`` {wq, wk, wv, wo[, bq, bk, bv]}, ``ln2``, ``mlp``
-{wi[, wg], wo}), weights (d_in, d_out) in bf16. The reference stacks the
+(``ln1``, ``attn`` {wq, wk, wv, wo[, bq, bk, bv]}, ``ln2``, and ``mlp``
+{wi[, wg], wo} or, in the MoE family, ``moe`` {router, wi, wg, wo}),
+weights (d_in, d_out) in bf16 (the router f32). The reference stacks the
 layers on a leading axis for ``lax.scan``; here a Python loop walks the
 list (``state.params_from_jax`` converts one layout into the other).
+
+Serving: ``prefill`` fills a dense KV cache; three decode steps continue
+from one, as the reference's: ``decode_step`` over (L, B, S, KH, D)
+caches, ``decode_step_v2`` and ``decode_step_v3`` over (L, B, KH, S, D)
+caches (v3 attends over the cache as a read-only pool plus the token's
+own partial, and appends every layer's k and v once at the end). Each
+updates the cache it is given in place, where the reference's are
+functional with the cache donated, and returns it.
 """
 
 from __future__ import annotations
@@ -14,17 +25,34 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..kernels.decode_attention.ops import merge_partials
+from ..kernels.decode_attention.ref import normalize
 from ..kernels.flash_attention.ops import attention
-from .layers import (PARAM_DTYPE, attention_block, attn_init, embed_init,
-                     mlp, mlp_init, qkv_proj, rmsnorm, rmsnorm_init, unembed)
+from .layers import (PARAM_DTYPE, attention_block, attention_decode,
+                     attn_init, check_pos, decode_attention_khmajor,
+                     decode_scores, embed_init, mlp, mlp_init, qkv_proj,
+                     rmsnorm, rmsnorm_init, unembed)
+from .moe import moe_ff, moe_init
+
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r}: transformer runs the dense family "
-            "only (ssm: models/ssm_lm.py; the others wait for ROADMAP "
-            "Queue 2 item 6)")
+            f"family {cfg.family!r}: transformer runs the dense, moe and vlm "
+            "families only (ssm: models/ssm_lm.py; hybrid and encdec wait "
+            "for ROADMAP Queue 2 item 6)")
+
+
+def _layer_init(gen: torch.Generator, cfg, dev) -> dict:
+    p = {"ln1": rmsnorm_init(cfg.d_model, dev), "attn": attn_init(gen, cfg),
+         "ln2": rmsnorm_init(cfg.d_model, dev)}
+    if cfg.family == "moe":
+        p["moe"] = moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp_init(gen, cfg)
+    return p
 
 
 def init_params(seed: int, cfg, device=None) -> dict:
@@ -36,10 +64,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    layers = [{"ln1": rmsnorm_init(cfg.d_model, dev),
-               "attn": attn_init(gen, cfg),
-               "ln2": rmsnorm_init(cfg.d_model, dev),
-               "mlp": mlp_init(gen, cfg)} for _ in range(cfg.num_layers)]
+    layers = [_layer_init(gen, cfg, dev) for _ in range(cfg.num_layers)]
     params = {"layers": layers, "embed": embed_init(gen, cfg),
               "ln_f": rmsnorm_init(cfg.d_model, dev)}
     if not cfg.tie_embeddings:
@@ -54,24 +79,39 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
                         device=device)[None, :].expand(b, s)
 
 
-def _block(lp: dict, x: torch.Tensor, cfg, positions) -> torch.Tensor:
-    h = x + attention_block(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
-                            cfg, positions)
-    return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
+def feed_forward(lp: dict, h: torch.Tensor, cfg):
+    """The block's feed-forward on ``h`` normed by ``ln2``: the MLP, or
+    the MoE's (y, aux); the MLP's aux is None."""
+    hin = rmsnorm(lp["ln2"], h, cfg.norm_eps)
+    if cfg.family == "moe":
+        return moe_ff(lp["moe"], hin, cfg)
+    return mlp(lp["mlp"], hin, cfg), None
 
 
 def hidden(params: dict, tokens: torch.Tensor, cfg):
-    """tokens: (B, S) int -> final normed hidden (B, S, d), aux (the
-    dense family's auxiliary losses are 0)."""
+    """tokens: (B, S) int -> final normed hidden (B, S, d), aux: the
+    layers' mean ``load_balance`` and ``router_z`` (0 outside the MoE
+    family)."""
     _check_family(cfg)
     b, s = tokens.shape
     x = params["embed"][tokens.long()]
     positions = _positions(b, s, x.device)
+    lb, rz = [], []
     for lp in params["layers"]:
-        x = _block(lp, x, cfg, positions)
+        h = x + attention_block(lp["attn"],
+                                rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+                                positions)
+        y, aux = feed_forward(lp, h, cfg)
+        x = h + y
+        if aux is not None:
+            lb.append(aux["load_balance"])
+            rz.append(aux["router_z"])
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, {"load_balance": zero, "router_z": zero}
+    if not lb:
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return x, {"load_balance": zero, "router_z": zero}
+    return x, {"load_balance": torch.stack(lb).mean(),
+               "router_z": torch.stack(rz).mean()}
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg):
@@ -94,9 +134,142 @@ def prefill(params: dict, tokens: torch.Tensor, cfg):
                            cfg, positions)
         o = attention(q, k, v, causal=True)
         h = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
-        x = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
+        x = h + feed_forward(lp, h, cfg)[0]
         ks.append(k.to(PARAM_DTYPE))
         vs.append(v.to(PARAM_DTYPE))
     x = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
     logits = unembed(params, x, cfg)[:, 0]
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+# ---------------------------------------------------------------------------
+# decode over a dense KV cache
+# ---------------------------------------------------------------------------
+def _zeros_cache(shape, dtype, device) -> dict:
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=PARAM_DTYPE,
+               device=None) -> dict:
+    """Stacked per-layer dense KV cache (L, B, S, KH, D), zeros."""
+    return _zeros_cache((cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                         cfg.hd), dtype, device)
+
+
+def _embed_token(params: dict, token: torch.Tensor) -> torch.Tensor:
+    return params["embed"][token.long()[:, None]]          # (B, 1, d)
+
+
+def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    return unembed(params, rmsnorm(params["ln_f"], x, cfg.norm_eps),
+                   cfg)[:, 0]
+
+
+def decode_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg):
+    """token: (B,) int; pos: the position written (an int). Returns
+    (logits (B, V) f32, cache), the cache updated in place."""
+    _check_family(cfg)
+    x = _embed_token(params, token)
+    for li, lp in enumerate(params["layers"]):
+        xin = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        y, _, _ = attention_decode(lp["attn"], xin, cfg, cache["k"][li],
+                                   cache["v"][li], pos)
+        h = x + y
+        x = h + feed_forward(lp, h, cfg)[0]
+    return _head(params, x, cfg), cache
+
+
+def init_cache_v2(cfg, batch: int, max_len: int, dtype=PARAM_DTYPE,
+                  device=None) -> dict:
+    """The KH-major dense cache (L, B, KH, S, D) of decode_step_v2 and
+    decode_step_v3, zeros."""
+    return _zeros_cache((cfg.num_layers, batch, cfg.num_kv_heads, max_len,
+                         cfg.hd), dtype, device)
+
+
+def _token_qkv(lp: dict, x: torch.Tensor, cfg, pos: int):
+    """The rotated q, k, v (B, 1, *, D) of the layer's input x (B, 1, d)
+    at position ``pos``."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    return qkv_proj(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
+                    positions)
+
+
+def decode_step_v2(params: dict, cache: dict, token: torch.Tensor, pos,
+                   cfg):
+    """decode_step's contract over init_cache_v2 caches: each layer writes
+    its token's (B, KH, D) slice in place, then attends over 0..pos."""
+    _check_family(cfg)
+    ck_all, cv_all = cache["k"], cache["v"]
+    pos = check_pos(pos, ck_all.shape[3])
+    b = token.shape[0]
+    x = _embed_token(params, token)
+    for li, lp in enumerate(params["layers"]):
+        q, k, v = _token_qkv(lp, x, cfg, pos)
+        ck_all[li, :, :, pos] = k[:, 0].to(ck_all.dtype)
+        cv_all[li, :, :, pos] = v[:, 0].to(cv_all.dtype)
+        o = decode_attention_khmajor(q[:, 0], ck_all[li], cv_all[li], pos + 1)
+        h = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]
+        x = h + feed_forward(lp, h, cfg)[0]
+    return _head(params, x, cfg), cache
+
+
+def _decode_attn_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, length):
+    """The un-normalised flash partial (acc (B, H, D), m (B, H), l (B, H))
+    over a (B, KH, S, D) pool slice's positions below ``length``."""
+    b, h, d = q.shape
+    s, valid = decode_scores(q, k_cache, length)
+    m = s.amax(dim=3)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(valid[:, None, None, :], p, 0.0)
+    l = p.sum(dim=3)
+    acc = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return acc.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
+
+
+def self_partial(q: torch.Tensor, k_new: torch.Tensor,
+                 v_new: torch.Tensor):
+    """The flash partial (acc, m, l) of the token's own just-computed KV,
+    to merge with the cache's (decode_step_v3, the paged server).
+    q: (B, H, D); k_new, v_new: (B, KH, D)."""
+    b, h, d = q.shape
+    kh = k_new.shape[1]
+    group = h // kh
+    qr = q.float().reshape(b, kh, group, d)
+    s = torch.einsum("bkgd,bkd->bkg", qr, k_new.float()) * d ** -0.5
+    acc = v_new.float()[:, :, None, :].expand(b, kh, group, d)
+    return (acc.reshape(b, h, d), s.reshape(b, h),
+            torch.ones((b, h), dtype=torch.float32, device=q.device))
+
+
+def decode_step_v3(params: dict, cache: dict, token: torch.Tensor, pos,
+                   cfg):
+    """The pool-invariant decode over init_cache_v2 caches: the cache is
+    read-only inside the layer loop (each layer's positions below pos,
+    merged with the token's own partial), and every layer's k and v are
+    appended at pos once, after the loop."""
+    _check_family(cfg)
+    ck_all, cv_all = cache["k"], cache["v"]
+    pos = check_pos(pos, ck_all.shape[3])
+    b = token.shape[0]
+    x = _embed_token(params, token)
+    ks, vs = [], []
+    for li, lp in enumerate(params["layers"]):
+        q, k, v = _token_qkv(lp, x, cfg, pos)
+        k0, v0 = k[:, 0], v[:, 0]                              # (B, KH, D)
+        parts = [_decode_attn_partial(q[:, 0], ck_all[li], cv_all[li], pos),
+                 self_partial(q[:, 0], k0, v0)]
+        o = normalize(*merge_partials(parts)).to(x.dtype)
+        h = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]
+        x = h + feed_forward(lp, h, cfg)[0]
+        ks.append(k0)
+        vs.append(v0)
+    # one append for all layers
+    ck_all[:, :, :, pos] = torch.stack(ks).to(ck_all.dtype)
+    cv_all[:, :, :, pos] = torch.stack(vs).to(cv_all.dtype)
+    return _head(params, x, cfg), cache

@@ -84,9 +84,9 @@ def _bf16(a, dev) -> torch.Tensor:
     return t.to(dev)
 
 
-# the reference's float32 parameters (models/mamba2.py:mamba_init); every
-# other parameter of the reference is bf16
-F32_LEAVES = frozenset({"a_log", "dt_bias", "d_skip"})
+# the reference's float32 parameters (models/mamba2.py:mamba_init, the MoE
+# router of models/moe.py:moe_init); every other parameter is bf16
+F32_LEAVES = frozenset({"a_log", "dt_bias", "d_skip", "router"})
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -99,8 +99,10 @@ def _f32(a, dev) -> torch.Tensor:
 
 def params_from_jax(params: dict, cfg, device=None) -> dict:
     """The port's parameters on ``device`` from the reference's parameter
-    tree (``models/transformer.py`` or ``models/ssm_lm.py:init_params``)
-    as nested dicts of numpy arrays.
+    tree (``models/transformer.py`` -- dense, MoE and VLM -- or
+    ``models/ssm_lm.py:init_params``) as nested dicts of numpy arrays.
+    An MoE layer's ``moe`` dict comes across whole: ``router`` (d, E)
+    f32, ``wi`` and ``wg`` (E, d, ff) and ``wo`` (E, ff, d) bf16.
 
     Both layouts keep weights (d_in, d_out) for ``x @ w``. The reference
     stacks the layers on a leading axis of length ``cfg.num_layers``; the

@@ -29,11 +29,17 @@ FLASH_SHAPES = [
     (2, 8, 2, 128, 128, 64, True, "bfloat16"),
     (1, 4, 1, 32, 128, 32, False, "float32"),
     (1, 2, 2, 256, 256, 16, True, "float32"),
+    # head dim 128 (llama3.2-3b and four more configs), GQA group 3
+    (1, 6, 2, 64, 64, 128, True, "bfloat16"),
+    (2, 3, 1, 96, 96, 128, True, "float32"),
+    (1, 6, 2, 32, 96, 128, False, "bfloat16"),
+    (1, 3, 1, 64, 32, 128, False, "float32"),
 ]
 DECODE_SHAPES = [
     (2, 8, 2, 32, 16, 12, 4, "float32"),
     (1, 4, 4, 64, 8, 20, 6, "float32"),
     (2, 4, 2, 16, 16, 8, 2, "bfloat16"),
+    (2, 6, 2, 128, 8, 12, 4, "float32"),
 ]
 
 

@@ -400,6 +400,18 @@ from repro_torch.kernels import flash_attention as tf  # noqa: E402
     (1, 4, 2, 300, 77, 32, False, torch.bfloat16),
     (1, 8, 2, 2048, 2048, 32, True, torch.bfloat16),
     (1, 4, 4, 2048, 2048, 16, True, torch.bfloat16),
+    # D = 128, each tile two 64-column halves: one query, ragged 128-row
+    # blocks, GQA groups 1, 3, 6 and 8, non-causal Sq != Sk both ways,
+    # llama3.2-3b's heads at its prefill length, and the f32 kernel
+    (1, 3, 1, 1, 1, 128, True, torch.bfloat16),
+    (1, 6, 2, 127, 127, 128, True, torch.bfloat16),
+    (2, 6, 1, 129, 129, 128, True, torch.bfloat16),
+    (1, 8, 1, 200, 200, 128, True, torch.bfloat16),
+    (1, 4, 4, 77, 300, 128, False, torch.bfloat16),
+    (1, 6, 2, 300, 77, 128, False, torch.bfloat16),
+    (1, 24, 8, 2048, 2048, 128, True, torch.bfloat16),
+    (1, 6, 2, 200, 200, 128, True, torch.float32),
+    (1, 4, 1, 77, 150, 128, False, torch.float32),
 ])
 def test_flash_attention_matches_plain(dev, b, h, kh, sq, sk, d, causal,
                                        dtype):
@@ -459,6 +471,8 @@ def assert_partials_close(got, ref, tol):
     (2, 4, 2, 16, 16, 8, 2, torch.bfloat16),
     (3, 16, 16, 64, 8, 300, 40, torch.float32),      # the server's shapes
     (2, 32, 4, 128, 16, 64, 9, torch.bfloat16),      # GQA group 8
+    (2, 24, 8, 128, 8, 40, 6, torch.float32),        # llama: group 3
+    (1, 12, 2, 128, 16, 30, 5, torch.bfloat16),      # group 6
 ])
 def test_paged_decode_matches_plain(dev, b, h, kh, d, ps, npages, p, dtype):
     q, kp, vp, pt, pos, lens = paged_case(dev, b, h, kh, d, ps, npages, p,
@@ -766,6 +780,55 @@ def test_ssm_prefill_step_on_the_card_matches_the_cpu(dev, s):
     assert _build.launches["ssd_scan"] == n0 + cfg.num_layers
     want = steps.prefill_step(params, tokens, cfg)
     torch.testing.assert_close(got.cpu(), want, atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "olmoe-1b-7b",
+                                  "chameleon-34b"])
+def test_transformer_families_on_the_card_match_the_cpu(dev, arch):
+    """The dense (GQA group 3), MoE and VLM smoke configs through
+    prefill_step (kernel 5 on the model's strided views) and the three
+    dense-cache decodes on the card, against the same weights on the CPU
+    (mha_ref). The weights are f32 and the MoE runs at capacity factor
+    8.0: bf16 rounded in other places by two backends can route a token
+    whose top experts nearly tie to another expert
+    (tests/test_torch_decode.py); f32 attention takes the f32 kernel.
+    5e-2, as tests/test_torch_ssm.py."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    cfg = get_smoke_config(arch).replace(moe_capacity_factor=8.0)
+    params = transformer.init_params(0, cfg, device="cpu")
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, device) for v in tree]
+        return tree.float().to(device)
+
+    host, card = to(params, "cpu"), to(params, dev)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40)))
+    n0 = _build.launches["flash_attention"]
+    got, kv = steps.prefill_step(card, tokens[:, :36].to(dev), cfg)
+    assert _build.launches["flash_attention"] == n0 + cfg.num_layers
+    want, wkv = steps.prefill_step(host, tokens[:, :36], cfg)
+    torch.testing.assert_close(got.cpu(), want, atol=5e-2, rtol=5e-2)
+    for optimized in (False, "v2", "v3"):
+        caches = []
+        for tree, d, k_v in ((card, dev, kv), (host, "cpu", wkv)):
+            c = steps.init_cache(cfg, 2, 40, optimized, torch.float32, d)
+            for name in ("k", "v"):
+                dst = c[name].transpose(2, 3) if optimized else c[name]
+                dst[:, :, :36] = k_v[name]
+            caches.append(c)
+        for t in range(36, 40):
+            a, caches[0] = steps.serve_step(card, caches[0],
+                                            tokens[:, t].to(dev), t, cfg,
+                                            optimized)
+            b, caches[1] = steps.serve_step(host, caches[1], tokens[:, t],
+                                            t, cfg, optimized)
+            torch.testing.assert_close(a.cpu(), b, atol=5e-2, rtol=5e-2)
 
 
 # ------------------------------------------------------------------ kernel 4

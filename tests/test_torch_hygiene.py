@@ -23,7 +23,9 @@ from repro_torch.kernels import cache_transition as tct  # noqa: E402
 from repro_torch.kvcache import paged_store  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
 from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
-from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
+from repro_torch.models.model_zoo import (build_model,  # noqa: E402
+                                          make_batch)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
@@ -54,6 +56,16 @@ JIT_SLICE = ("core/jit_engine.py", "kernels/batch_executor/__init__.py",
 PLANES_SLICE = ("core/linearizability.py", "core/requestplane.py",
                 "core/simulate.py", "core/scenarios.py",
                 "core/netmodel.py", "data/ycsb.py")
+# the modules of the attention families' slice (the MoE feed-forward, the
+# dense-cache decode, the step functions and the configs it adds), which
+# the scan must reach as well
+FAMILIES_SLICE = ("models/moe.py", "models/transformer.py",
+                  "models/layers.py", "models/model_zoo.py",
+                  "launch/steps.py", "launch/serve.py",
+                  "configs/llama3_2_3b.py", "configs/internlm2_20b.py",
+                  "configs/nemotron_4_15b.py", "configs/chameleon_34b.py",
+                  "configs/olmoe_1b_7b.py",
+                  "configs/granite_moe_1b_a400m.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the one environment variable the port reads: the ownership sanitizer's
 # switch, the reference's own (it chooses no device)
@@ -100,6 +112,11 @@ def test_the_scan_reaches_the_jit_slice():
 
 def test_the_scan_reaches_the_planes_slice():
     for name in PLANES_SLICE:
+        assert PORT / name in PORT_FILES, name
+
+
+def test_the_scan_reaches_the_families_slice():
+    for name in FAMILIES_SLICE:
         assert PORT / name in PORT_FILES, name
 
 
@@ -150,6 +167,13 @@ def test_every_kernel_package_has_ref_and_parity_test():
     lambda: scenarios.run_scenario("crash", "dinomo", smoke=True),
     lambda: scenarios.run_overload(smoke=True),
     lambda: scenarios.run_suite(smoke=True),
+    lambda: build_model(get_smoke_config("olmoe-1b-7b")).init(0),
+    lambda: transformer.init_cache(get_smoke_config("llama3.2-3b"), 1, 4),
+    lambda: transformer.init_cache_v2(get_smoke_config("llama3.2-3b"), 1, 4),
+    lambda: build_model(get_smoke_config("chameleon-34b")).init_cache(1, 4),
+    lambda: steps.init_cache(get_smoke_config("llama3.2-3b"), 1, 4, "v3"),
+    lambda: make_batch(get_smoke_config("llama3.2-3b"), 1, 4),
+    lambda: PagedServer("olmoe-1b-7b"),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

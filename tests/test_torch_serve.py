@@ -177,17 +177,27 @@ def test_pool_append_and_decode_over_owners():
                                    rtol=2e-5)
 
 
-@pytest.fixture(scope="module")
-def servers():
-    """The reference's smoke server and the port's, with one set of
-    weights, fed the same requests: 4 prompts of 10 tokens sharing an
-    8-token prefix, a worker added after the second, then 3 greedy
-    decode steps each."""
-    jsrv = jserve.PagedServer("qwen1.5-0.5b", page_size=4, seed=3)
-    tsrv = tserve.PagedServer("qwen1.5-0.5b", page_size=4, seed=3,
-                              device="cpu")
+def as_f32(tree):
+    if isinstance(tree, dict):
+        return {k: as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [as_f32(v) for v in tree]
+    return tree.float()
+
+
+def serve_pair(arch, f32_weights=False):
+    """The reference's smoke server of ``arch`` and the port's, with one
+    set of weights (f32 on both sides with ``f32_weights``), fed the same
+    requests: 4 prompts of 10 tokens sharing an 8-token prefix, a worker
+    added after the second, then 3 greedy decode steps each."""
+    jsrv = jserve.PagedServer(arch, page_size=4, seed=3)
+    tsrv = tserve.PagedServer(arch, page_size=4, seed=3, device="cpu")
     host = jax.tree.map(lambda x: np.asarray(x, np.float32), jsrv.params)
     tsrv.params = state.params_from_jax(host, tsrv.cfg, device="cpu")
+    if f32_weights:
+        jsrv.params = jax.tree.map(lambda x: x.astype(jnp.float32),
+                                   jsrv.params)
+        tsrv.params = as_f32(tsrv.params)
     rng = np.random.default_rng(1)
     shared = [int(t) for t in rng.integers(0, tsrv.cfg.vocab_size, 8)]
     out = {"admit": [], "reconfig": [], "decode": []}
@@ -204,6 +214,11 @@ def servers():
     for sid in range(4):
         out["decode"].append([srv.decode(sid, 3) for srv in (jsrv, tsrv)])
     return jsrv, tsrv, out
+
+
+@pytest.fixture(scope="module")
+def servers():
+    return serve_pair("qwen1.5-0.5b")
 
 
 def test_server_admit_logits_match_reference(servers):
@@ -241,6 +256,60 @@ def test_server_logits_survive_reconfiguration(servers):
     np.testing.assert_allclose(f32(ta), f32(tb), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(f32(ja), f32(jb), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(f32(tb), f32(jb), atol=5e-2, rtol=5e-2)
+
+
+@pytest.fixture(scope="module", params=["llama3.2-3b", "olmoe-1b-7b",
+                                        "chameleon-34b"])
+def family_servers(request):
+    """The same requests on the llama (dense, GQA group 3), olmoe (MoE)
+    and chameleon (VLM) smoke servers. llama's and olmoe's run with f32
+    weights on both sides. Greedy decode and top-k routing are
+    discontinuous: where the two best logits, or a token's top experts,
+    nearly tie, bf16 rounded in other places by XLA and torch picks
+    another token or expert (at bf16, llama's third greedy token of one
+    request differs: 395 against 185), and every later step follows it.
+    chameleon's runs in bf16."""
+    arch = request.param
+    return serve_pair(arch, f32_weights=arch != "chameleon-34b")
+
+
+def test_family_server_admit_logits_match_reference(family_servers):
+    jsrv, tsrv, out = family_servers
+    assert tsrv.cfg.__dict__ == jsrv.cfg.__dict__
+    for (jsid, jlog), (tsid, tlog) in out["admit"]:
+        assert jsid == tsid
+        assert tlog.dtype == torch.float32
+        assert tuple(tlog.shape) == (tsrv.cfg.vocab_size,)
+        np.testing.assert_allclose(f32(tlog), f32(jlog), atol=5e-2,
+                                   rtol=5e-2)
+
+
+def test_family_server_decode_and_stats_match_reference(family_servers):
+    jsrv, tsrv, out = family_servers
+    for jtoks, ttoks in out["decode"]:
+        assert ttoks == jtoks
+    assert tsrv.stats == jsrv.stats
+    assert tsrv.stats["prefix_hits"] == 3
+    assert tsrv.ctl.stats == jsrv.ctl.stats
+    assert {s: q.pages for s, q in tsrv.ctl.sequences.items()} == \
+        {s: q.pages for s, q in jsrv.ctl.sequences.items()}
+    assert tsrv.tokens == jsrv.tokens
+    for name in ("k", "v"):
+        np.testing.assert_allclose(f32(getattr(tsrv.pool, name)),
+                                   f32(getattr(jsrv.pool, name)),
+                                   atol=5e-2, rtol=5e-2)
+
+
+def test_family_server_logits_survive_reconfiguration(family_servers):
+    _, _, out = family_servers
+    (jb, ja), (tb, ta) = out["reconfig"]
+    np.testing.assert_allclose(f32(ta), f32(tb), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(f32(tb), f32(jb), atol=5e-2, rtol=5e-2)
+
+
+def test_server_refuses_the_ssm_family():
+    with pytest.raises(ValueError, match="attention families"):
+        tserve.PagedServer("mamba2-2.7b", device="cpu")
 
 
 @pytest.mark.parametrize("batch,workers", [(1, 3), (2, 3), (1, 5)])

@@ -240,8 +240,13 @@ def test_ssm_entry_points_refuse_other_families():
     dense = get_smoke_config("qwen1.5-0.5b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.init_params(0, dense, device="cpu")
+    # the step functions take the transformer families too; the
+    # hybrid and encdec families still wait
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.prefill_step({}, torch.zeros((1, 4), dtype=torch.long), dense)
+        steps.prefill_step({}, torch.zeros((1, 4), dtype=torch.long),
+                           CFG.replace(family="hybrid"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(CFG.replace(family="hybrid"))
-    assert build_model(dense).decode_step is None
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        steps.serve_step({}, {}, torch.zeros(1, dtype=torch.long), 0,
+                         CFG.replace(family="encdec"))
