@@ -3,8 +3,8 @@
 one KN's planned DAC windows over it, the DPM pool with its planned merge,
 the cluster over that pool by its host and compiled batch engines, the
 paged LLM serving path, the dense, MoE and VLM families at head dim 128
-with the dense-cache decode, and the SSM family's prefill and recurrent
-decode.
+with the dense-cache decode, the SSM family's prefill and recurrent
+decode, and the hybrid and encoder-decoder families.
 
 Run from the repository root with no arguments:
 
@@ -195,6 +195,33 @@ weights from a seeded generator):
                batch of 4, and a profile of one step
   time_ssd     ssd_scan at prefill's layer-0 inputs
 
+Then the last two families at their published widths (random bf16
+weights from a seeded generator):
+
+  hybrid_zamba2    zamba2-1.2b (38 mamba layers, d_model 2048, 64 SSD
+                   heads of 64, N 64; one shared attention block of 32
+                   heads of 64 and d_ff 8192 after every 6 layers: 6 sites,
+                   2 tail layers; vocab 32,000): launch.steps.prefill_step
+                   of 4 x 2048 tokens (38 ssd_scan and 6 causal
+                   flash_attention launches a call, each of one call held
+                   to its plain version); a 128-token prompt teacher-forced
+                   through serve_step against forward, each mamba layer
+                   and shared-block site in bf16 and the model in f32;
+                   64 greedy steps at batch 4 after a 128-token prompt, a
+                   profile of one step; kernel 7 timed at layer 0's inputs
+  encdec_seamless  seamless-m4t-medium (12 + 12 layers, d_model 1024, 16
+                   heads of 64, vocab 256,206; random frame embeddings,
+                   the frontend being a stub): prefill_step on 4 x 1,500
+                   frames and 4 x 256 tokens (12 non-causal encoder, 12
+                   causal self and 12 non-causal cross flash_attention
+                   launches a call, the cross ones at Sq 256 against
+                   Sk 1,500, each of one call held to mha_ref, and the
+                   bar shown to see a dropped ragged key tail); encode and
+                   prepare_cross, then the 256 tokens teacher-forced at
+                   batch 1 against forward; 64 greedy steps at batch 4;
+                   kernel 5 timed at the first cross-attention's views
+                   beside scaled_dot_product_attention
+
 Every failure raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels, each
 with its launches summed over every phase that ran it.
@@ -259,7 +286,8 @@ from repro_torch.kvcache.paged_store import decode_over_owners  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
-from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
+from repro_torch.models import (encdec, layers, mamba2,  # noqa: E402
+                                ssm_lm, transformer, zamba2)
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 from torch_cases import (MERGE_CASES, TRANSITION_CASES,  # noqa: E402
                          merge_case, transition_case, window_victims_case)
@@ -377,6 +405,14 @@ SSM_B, SSM_S, SSM_REPS = 4, 2048, 3     # prefill prompts x tokens, calls
 SSM_CHUNK = 64
 TF_PROMPT = 256                         # teacher-forced decode tokens
 GREEDY_B, GREEDY_STEPS = 4, 64
+# the hybrid and encoder-decoder families at their published widths:
+# zamba2-1.2b's prefill, its teacher-forced prompt (also the greedy
+# batch's prompt); seamless-m4t-medium's 30 s of audio at 20 ms a frame
+# and its decoder tokens
+ZAMBA = "zamba2-1.2b"
+HYBRID_B, HYBRID_S, HYBRID_REPS, HYBRID_TF = 4, 2048, 3, 128
+SEAMLESS = "seamless-m4t-medium"
+ENC_B, ENC_FRAMES, ENC_TOKENS, ENC_REPS = 4, 1500, 256, 3
 # the two attention kernels' times in the design they replace (commit
 # 6166d87: kernel 5 on mma.sync, kernel 6 one block per (row, kv head),
 # one launch per page owner), measured by this script on the same seeded
@@ -437,11 +473,29 @@ LOGIT_TOL = 5e-2
 # a kernel that dropped that term would pass 4e-2 on every layer
 SSD_PATH_RTOL = 2 ** -7
 SSD_PATH_ATOL_OF_MAX = 2 ** -8
+# kernel 5 against mha_ref on the main path's bf16 views. mha_ref computes
+# in f32 and rounds its output to bf16 once. The kernel rounds each p to
+# bf16 for P.V (at most 2^-9 of each term p v, so at most 2^-9 of the
+# softmax average of |v|, sum(p |v|) / l) and its output to bf16 once (one
+# unit in the last place, at most 2^-7 of |out|). The bar is twice the
+# first and the second: atol 2^-8 of the softmax average of |v|, rtol
+# 2^-7. TOL's fixed 2.5e-2 is about the size of what it compares here: over
+# 1,500 keys of unit-variance q, k and v each output is about N(0, 0.04),
+# so a kernel that dropped the ragged last 28 keys (1,500 = 23 x 64 + 28)
+# would pass it on most elements (tail_fault)
+ATTN_PATH_RTOL = 2 ** -7
+ATTN_PATH_ATOL_OF_ABS = 2 ** -8
 # the same comparison for mamba2 in f32 (weights and activations), where
 # the two paths differ only in the order of f32 sums (about 1e-5 of max
 # |logit| on an H100): far below the bf16 floor, so a path that computed
 # another function would show
 F32_LOGIT_TOL = 1e-4
+
+
+def decode_y(args, out) -> torch.Tensor:
+    """mamba_decode's or attention_decode's output for one token, (d,), as
+    recorded."""
+    return out[0][0, 0]
 
 
 def emit(obj) -> None:
@@ -508,6 +562,53 @@ def ssd_path_err(pairs) -> float:
     SSD_PATH_RTOL and SSD_PATH_ATOL_OF_MAX."""
     return max(close_err([(name, got, ref)], SSD_PATH_RTOL,
                          ssd_path_atol(ref)) for name, got, ref in pairs)
+
+
+def attn_plain(qkv, causal: bool, keys=None) -> torch.Tensor:
+    """mha_ref on (q, k, v) in model layout (B, S, H|KH, D), in that
+    layout; only the first ``keys`` keys when given."""
+    q, k, v = (t.transpose(1, 2) for t in qkv)
+    if keys is not None:
+        k, v = k[:, :, :keys], v[:, :, :keys]
+    return flash.mha_ref(q, k, v, causal=causal).transpose(1, 2)
+
+
+def attn_path_bar(ref: torch.Tensor, qkv, causal: bool) -> torch.Tensor:
+    """Kernel 5's bar on the main path's views, element by element: rtol
+    ATTN_PATH_RTOL and atol ATTN_PATH_ATOL_OF_ABS of the softmax average
+    of |v| (the same softmax over |v|)."""
+    q, k, v = qkv
+    return ATTN_PATH_ATOL_OF_ABS * attn_plain((q, k, v.abs()), causal) \
+        .float() + ATTN_PATH_RTOL * ref.float().abs()
+
+
+def attn_path_err(pairs, qkv, causal: bool) -> float:
+    """Largest |kernel - plain| over kernel 5's outputs on the main path's
+    views ``qkv``; raises where an element is outside attn_path_bar or
+    not finite."""
+    worst = 0.0
+    for name, got, ref in pairs:
+        if got.shape != ref.shape:
+            raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                                 f"{tuple(ref.shape)}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: non-finite output")
+        diff = (got.float() - ref.float()).abs()
+        bad = int((diff > attn_path_bar(ref, qkv, causal)).sum())
+        err = float(diff.max()) if diff.numel() else 0.0
+        if bad:
+            raise AssertionError(
+                f"{name}: {bad} elements outside rtol {ATTN_PATH_RTOL} and "
+                f"atol {ATTN_PATH_ATOL_OF_ABS} of the softmax average of "
+                f"|v| (max |diff| {err})")
+        worst = max(worst, err)
+    return worst
+
+
+def row_rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest over rows (T, d) of max |a - b| / max |b|."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
 
 
 def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -580,17 +681,23 @@ def event_ms(fn, reps: int, setup=None):
 
 
 @contextlib.contextmanager
-def recorded(module, name: str, replace=None, clone=False):
+def recorded(module, name: str, replace=None, clone=False, pick=None):
     """Record the calls of ``module.name`` made inside the block, as a
     list of (positional args, output); ``replace`` maps a call's index to the
     output returned in place of the real one; ``clone`` keeps a copy of a
-    tuple of tensors as it was returned (the caller may write into it)."""
+    tuple of tensors as it was returned (the caller may write into it);
+    ``pick`` keeps ``pick(args, output)`` of each call instead (what a long
+    run needs of it)."""
     fn = getattr(module, name)
     calls = []
 
     def wrapper(*args, **kwargs):
         out = fn(*args, **kwargs)
-        calls.append((args, tuple(t.clone() for t in out) if clone else out))
+        if pick is not None:
+            calls.append(pick(args, out))
+        else:
+            calls.append((args, tuple(t.clone() for t in out) if clone
+                          else out))
         return (replace or {}).get(len(calls) - 1, out)
 
     setattr(module, name, wrapper)
@@ -3418,11 +3525,10 @@ class Smoke:
         del logits, kv
         with uncounted(), recorded(transformer, "attention") as calls:
             model.prefill(params, tokens)
-        tol = TOL[torch.bfloat16]["flash_attention"]
-        err = max(close_err(
-            [(f"{phase}.flash_attention.layer{li}", out, flash.mha_ref(
-                *(t.transpose(1, 2) for t in args)).transpose(1, 2))],
-            tol) for li, (args, out) in enumerate(calls))
+        err = max(attn_path_err(
+            [(f"{phase}.flash_attention.layer{li}", out,
+              attn_plain(args, True))], args, True)
+            for li, (args, out) in enumerate(calls))
         qkv = calls[0][0]
         del calls
         sec = sorted(secs)[len(secs) // 2]
@@ -3653,8 +3759,7 @@ class Smoke:
             # per pair
             flops=2 * b * h * d * s * (s + 1), peak=BF16_FLOPS,
             extra={"shape": [b, s, h, d]},
-            compare=lambda pairs: close_err(
-                pairs, TOL[torch.bfloat16]["flash_attention"]))]
+            compare=lambda pairs: attn_path_err(pairs, (q, k, v), True))]
 
         # kernel 6 as the server calls it: one sequence's owners stacked
         # as rows of one launch (q a stride-0 view, tables with -1
@@ -3754,28 +3859,10 @@ class Smoke:
             "prefill_llama", cfg, PREFILL_B, PREFILL_S, PREFILL_REPS)
         emit(out)
         self.llama_params = params
-        q, k, v = qkv                          # (B, S, H|KH, D) views
-        b, s, h, d = q.shape
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        flops = 2 * b * h * d * s * (s + 1)
-        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-        row = self._timed(
-            "flash_attention", "flash_attention.cu",
-            "src/repro/kernels/flash_attention/flash_attention.py:81",
-            ("out",), lambda: (flash.attention(q, k, v, causal=True),),
-            lambda: (flash.mha_ref(qt, kt, vt).transpose(1, 2),),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True),
-            nbytes, REPS, plain_reps=3, flops=flops, peak=BF16_FLOPS,
-            extra={"shape": [b, s, h, d], "kv_heads": k.shape[2],
-                   "gflop": flops / 1e9, "bytes": nbytes},
-            compare=lambda pairs: close_err(
-                pairs, TOL[torch.bfloat16]["flash_attention"]),
-            label="flash_attention_d128")
+        row = self._flash_row(qkv, True, "flash_attention_d128",
+                              f"{LLAMA} prefill's layer-0 views")
         row["max_abs_err"] = max(row["max_abs_err"],
                                  out["flash_attention_vs_plain"])
-        row.update(head_dim=d, inputs=f"{LLAMA} prefill's layer-0 views, "
-                   f"{(b, s, h, d)} over {k.shape[2]} kv heads")
         emit({"flash_attention_d128": {
             "ms": row["ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "sdpa_ms": row["library_ms"],
@@ -3783,7 +3870,40 @@ class Smoke:
             "share_of_bound": row["bound_ms"] / row["ms"],
             "share_of_prefill_call": cfg.num_layers * row["ms"]
             / (out["batch"] * out["seq"] / out["tokens_per_s"] * 1e3)}})
-        del q, k, v, qt, kt, vt, qkv, tokens
+        del qkv, tokens
+        return row
+
+    def _flash_row(self, qkv, causal: bool, label: str, inputs: str) -> dict:
+        """The kernels line's row for kernel 5 on ``qkv``, a main path's
+        (q, k, v) in model layout (B, S, H|KH, D), read through transposed
+        strides: beside mha_ref and scaled_dot_product_attention on the
+        same views. Bound: the products' FLOP at the bf16 tensor-core rate
+        (2 S (S + 1) D a head causal, 4 Sq Sk D non-causal) or q, k, v
+        read and the output written once at the memory rate."""
+        q, k, v = qkv
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        flops = 2 * b * h * d * sq * (sq + 1) if causal \
+            else 4 * b * h * d * sq * sk
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        row = self._timed(
+            "flash_attention", "flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:81",
+            ("out",), lambda: (flash.attention(q, k, v, causal=causal),),
+            lambda: (flash.mha_ref(qt, kt, vt, causal=causal)
+                     .transpose(1, 2),),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True),
+            nbytes, REPS, plain_reps=3, flops=flops, peak=BF16_FLOPS,
+            extra={"shape": [b, sq, h, d], "kv_len": sk,
+                   "kv_heads": k.shape[2], "causal": causal,
+                   "gflop": flops / 1e9, "bytes": nbytes},
+            compare=lambda pairs: attn_path_err(pairs, qkv, causal),
+            label=label)
+        row.update(head_dim=d, inputs=f"{inputs}, {(b, sq, h, d)} over "
+                   f"{k.shape[2]} kv heads of {sk}, "
+                   f"{'causal' if causal else 'non-causal'}")
         return row
 
     def dense_decode_llama(self) -> None:
@@ -4140,56 +4260,98 @@ class Smoke:
                 "outside": int((diff > bar).sum())}
 
     # ----------------------------------------------------- 15. ssm decode
-    def teacher_forced(self, params, prompt, cfg, by_layer=False) -> dict:
+    def teacher_forced(self, params, cfg, cache, prompt, full,
+                       watch=()) -> tuple[dict, list]:
         """``prompt`` (1, T) through ``serve_step`` token by token from
-        ``init_cache``, against ``forward``'s logits on the same tokens:
-        max |diff| / max |logit| over all T steps and the top-1 agreement.
-
-        With ``by_layer``, each layer's block output is compared too: the
-        decode path's (cumulative: its input already carries the earlier
-        layers' differences), and the layer's own decode fed forward's
-        input to that layer (local: what the layer alone adds)."""
+        ``cache``, against ``full``, forward's logits (T, V) on the same
+        tokens: max |diff| / max |logit| over all T steps and the top-1
+        agreement. ``watch`` lists (module, name, pick): each such
+        function's calls over the T steps are recorded as ``pick(args,
+        out)`` and returned beside, a list each."""
         t_len = prompt.shape[1]
-        with recorded(ssm_lm, "mamba_block") as blocks:
-            full = ssm_lm.forward(params, prompt, cfg)[0][0]   # (T, V)
-        block_in = [args[1][0] for args, _ in blocks]        # (T, d) each
-        block_out = [out[0] for _, out in blocks]
-        del blocks
-        cache = ssm_lm.init_cache(cfg, 1)
-        cum = torch.zeros(cfg.num_layers, device=self.dev)
-        diffs, same = [], 0
-        t0 = time.perf_counter()
-        for t in range(t_len):
-            with recorded(ssm_lm, "mamba_decode") as dec:
+        dec = []
+        with contextlib.ExitStack() as stack:
+            calls = [stack.enter_context(recorded(m, n, pick=pick))
+                     for m, n, pick in watch]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(t_len):
                 logits, cache = steps.serve_step(params, cache, prompt[:, t],
                                                  t, cfg)
-            if by_layer:
-                for li, (_, (y, _)) in enumerate(dec):
-                    ref = block_out[li][t].float()
-                    cum[li] = torch.maximum(cum[li], (y[0, 0].float() - ref)
-                                            .abs().max() / ref.abs().max())
-            diffs.append((logits[0] - full[t]).abs().max())
-            same += int(logits[0].argmax()) == int(full[t].argmax())
-        torch.cuda.synchronize()
-        out = {"tokens": t_len, "seconds": time.perf_counter() - t0,
-               "max_abs_diff": float(torch.stack(diffs).max()),
-               "max_abs_logit": float(full.abs().max())}
+                dec.append(logits[0])
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        dec = torch.stack(dec)
+        out = {"tokens": t_len, "seconds": sec,
+               "max_abs_diff": float((dec - full).abs().max()),
+               "max_abs_logit": float(full.abs().max()),
+               "top1_agree": float((dec.argmax(-1) == full.argmax(-1))
+                                   .float().mean())}
         out["rel_diff"] = out["max_abs_diff"] / out["max_abs_logit"]
-        out["top1_agree"] = same / t_len
-        if by_layer:
-            local = torch.zeros(cfg.num_layers, device=self.dev)
-            for li, lp in enumerate(params["layers"]):
-                st = mamba2.mamba_state_init(cfg, 1)
-                for t in range(t_len):
-                    y, st = mamba2.mamba_decode(lp["mamba"],
-                                                block_in[li][t][None, None],
-                                                cfg, st)
-                    ref = block_out[li][t].float()
-                    local[li] = torch.maximum(local[li], (y[0, 0].float() - ref)
-                                              .abs().max() / ref.abs().max())
-            out["block_rel_diff_cumulative"] = cum.tolist()
-            out["block_rel_diff_local"] = local.tolist()
-        return out
+        return out, calls
+
+    @staticmethod
+    def block_gaps(decoded, refs) -> list[float]:
+        """Decode's output of each of n blocks, ``decoded`` (T x n rows of
+        d, step by step, as teacher_forced records them), against
+        forward's, ``refs`` (n of (T, d)): row_rel_diff each. Cumulative:
+        a block's input in decode already carries the earlier blocks'
+        differences."""
+        y = torch.stack(decoded).view(refs[0].shape[0], len(refs), -1)
+        return [row_rel_diff(y[:, i], ref) for i, ref in enumerate(refs)]
+
+    @staticmethod
+    def mamba_local(layer_params, blocks, cfg) -> list[float]:
+        """Each mamba layer's decode fed forward's own input to the layer
+        (``blocks``: forward's recorded mamba_block calls) token by token
+        from a fresh state, against forward's output of the layer:
+        row_rel_diff each (what the layer alone adds)."""
+        local = []
+        for lp, (args, ref) in zip(layer_params, blocks, strict=True):
+            xin = args[1][0]                                   # (T, d)
+            st = mamba2.mamba_state_init(cfg, 1)
+            ys = []
+            for t in range(xin.shape[0]):
+                y, st = mamba2.mamba_decode(lp["mamba"], xin[t][None, None],
+                                            cfg, st)
+                ys.append(y[0, 0])
+            local.append(row_rel_diff(torch.stack(ys), ref[0]))
+        return local
+
+    def greedy(self, phase: str, params, cfg, cache, tok, start: int,
+               what: str, **fields) -> None:
+        """GREEDY_STEPS greedy tokens through ``serve_step`` from ``cache``
+        and tokens ``tok`` (B,) at position ``start``, timed and held to
+        finite logits and tokens in the vocabulary; then one step
+        profiled. Emits the phase's line (with ``fields``) and the
+        profile's (``what`` names the step)."""
+        from torch.profiler import ProfilerActivity, profile
+        b = tok.shape[0]
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(start, start + GREEDY_STEPS):
+            logits, cache = steps.serve_step(params, cache, tok, t, cfg)
+            tok = logits.argmax(-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        out = torch.stack(out, dim=1)
+        if not bool(torch.isfinite(logits).all()) or \
+                not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+            raise AssertionError(f"{phase}: non-finite logits or a token "
+                                 "out of range")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = synced(steps.serve_step, params, cache, tok,
+                             start + GREEDY_STEPS, cfg)
+        summary = device_summary(prof, wall)
+        emit({"phase": phase, "batch": b, **fields, "steps": GREEDY_STEPS,
+              "seconds": sec, "step_ms": sec / GREEDY_STEPS * 1e3,
+              "tokens_per_s": b * GREEDY_STEPS / sec,
+              "distinct_tokens": int(torch.unique(out).numel())})
+        emit({"profile": f"one {what}", "launches_per_token":
+              summary["launches"] / b, **summary})
 
     def ssm_decode(self) -> None:
         """A prompt teacher-forced through the recurrent decode step against
@@ -4209,23 +4371,35 @@ class Smoke:
         them, with the share of it that the reference's bf16 prefill conv
         causes: the same comparison with that conv taken in f32 (a
         diagnostic; the model keeps the reference's conv)."""
-        from torch.profiler import ProfilerActivity, profile
         cfg = get_config(SSM_ARCH)
         params = self.ssm_params
         g = np.random.default_rng(SEED + 2)
         prompt = torch.from_numpy(g.integers(0, cfg.vocab_size,
                                              (1, TF_PROMPT))).to(self.dev)
+
+        def gap(p):
+            return self.teacher_forced(p, cfg, ssm_lm.init_cache(cfg, 1),
+                                       prompt,
+                                       ssm_lm.forward(p, prompt, cfg)[0][0])[0]
+
         _build.reset_counts()
-        bf16 = self.teacher_forced(params, prompt, cfg, by_layer=True)
+        with recorded(ssm_lm, "mamba_block") as blocks:
+            full = ssm_lm.forward(params, prompt, cfg)[0][0]   # (T, V)
+        bf16, (dec,) = self.teacher_forced(
+            params, cfg, ssm_lm.init_cache(cfg, 1), prompt, full,
+            watch=[(ssm_lm, "mamba_decode", decode_y)])
         if _build.launches["ssd_scan"] != cfg.num_layers:
             raise AssertionError("the teacher-forced forward did not run "
                                  "ssd_scan once a layer, or decode ran it")
         self.tally("ssm_decode", dict(_build.launches))
+        cum = self.block_gaps(dec, [out[0] for _, out in blocks])
+        local = self.mamba_local(params["layers"], blocks, cfg)
+        del blocks, dec, full
         conv = mamba2._causal_conv
         with mock.patch.object(mamba2, "_causal_conv",
                                lambda xbc, w, b: conv(xbc.float(), w.float(),
                                                       b.float())):
-            conv_f32 = self.teacher_forced(params, prompt, cfg)
+            conv_f32 = gap(params)
         if torch.backends.cuda.matmul.allow_tf32:
             raise AssertionError("f32 matrix products must not run in TF32")
         p32 = {"embed": params["embed"].float(),
@@ -4234,26 +4408,23 @@ class Smoke:
                            "mamba": {k: v.float()
                                      for k, v in lp["mamba"].items()}}
                           for lp in params["layers"]]}
-        f32 = self.teacher_forced(p32, prompt, cfg)
+        f32 = gap(p32)
         del p32
         torch.cuda.empty_cache()
-        local, cum = bf16["block_rel_diff_local"], \
-            bf16["block_rel_diff_cumulative"]
         over = [li for li, v in enumerate(cum) if v > LOGIT_TOL]
-        emit({"phase": "ssm_decode_teacher_forced", **{
-            k: v for k, v in bf16.items() if not k.startswith("block")},
-            "tolerance": LOGIT_TOL, "within_tolerance": bf16["rel_diff"]
-            <= LOGIT_TOL,
-            "block_rel_diff_local_max": max(local),
-            "block_rel_diff_local_first_last": [local[0], local[-1]],
-            "block_rel_diff_cumulative_every_8th": cum[::8] + [cum[-1]],
-            "first_layer_cumulative_over_tolerance": over[0] if over
-            else None,
-            "rel_diff_prefill_conv_f32": conv_f32["rel_diff"],
-            "top1_agree_prefill_conv_f32": conv_f32["top1_agree"],
-            "f32_model_rel_diff": f32["rel_diff"],
-            "f32_model_top1_agree": f32["top1_agree"],
-            "f32_tolerance": F32_LOGIT_TOL})
+        emit({"phase": "ssm_decode_teacher_forced", **bf16,
+              "tolerance": LOGIT_TOL,
+              "within_tolerance": bf16["rel_diff"] <= LOGIT_TOL,
+              "block_rel_diff_local_max": max(local),
+              "block_rel_diff_local_first_last": [local[0], local[-1]],
+              "block_rel_diff_cumulative_every_8th": cum[::8] + [cum[-1]],
+              "first_layer_cumulative_over_tolerance": over[0] if over
+              else None,
+              "rel_diff_prefill_conv_f32": conv_f32["rel_diff"],
+              "top1_agree_prefill_conv_f32": conv_f32["top1_agree"],
+              "f32_model_rel_diff": f32["rel_diff"],
+              "f32_model_top1_agree": f32["top1_agree"],
+              "f32_tolerance": F32_LOGIT_TOL})
         if max(local) > LOGIT_TOL:
             raise AssertionError(f"a layer's decode parts from its prefill by "
                                  f"{max(local)} of its max |output|")
@@ -4267,35 +4438,10 @@ class Smoke:
                             device=self.dev)
         cache = ssm_lm.init_cache(cfg, GREEDY_B)
         synced(steps.serve_step, params, cache, tok, 0, cfg)    # warm-up
-        cache = ssm_lm.init_cache(cfg, GREEDY_B)
-        out = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for t in range(GREEDY_STEPS):
-            logits, cache = steps.serve_step(params, cache, tok, t, cfg)
-            tok = logits.argmax(-1)
-            out.append(tok)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        out = torch.stack(out, dim=1)
-        if not bool(torch.isfinite(logits).all()) or \
-                not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
-            raise AssertionError("greedy decode: non-finite logits or a "
-                                 "token out of range")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, wall = synced(steps.serve_step, params, cache, tok,
-                             GREEDY_STEPS, cfg)
-        summary = device_summary(prof, wall)
-        emit({"phase": "ssm_decode_greedy", "batch": GREEDY_B,
-              "steps": GREEDY_STEPS, "seconds": sec,
-              "step_ms": sec / GREEDY_STEPS * 1e3,
-              "tokens_per_s": GREEDY_B * GREEDY_STEPS / sec,
-              "distinct_tokens": int(torch.unique(out).numel())})
-        emit({"profile": f"one decode step, batch {GREEDY_B} "
-                         f"({cfg.num_layers} layers)",
-              "launches_per_token": summary["launches"] / GREEDY_B,
-              **summary})
+        self.greedy("ssm_decode_greedy", params, cfg,
+                    ssm_lm.init_cache(cfg, GREEDY_B), tok, 0,
+                    f"decode step, batch {GREEDY_B} ({cfg.num_layers} "
+                    "layers)")
 
     # ------------------------------------------------------- 16. time 7
     def time_ssd(self) -> list[dict]:
@@ -4313,7 +4459,391 @@ class Smoke:
         runs, is printed beside it. Also printed: kernel 7's share of a
         prefill call (its launches a call times its time, over the
         call's median)."""
-        x, dt, a, b, c, d = self.ssd_args
+        row, flops = self._ssd_row(self.ssd_args, "ssd_scan")
+        row["max_abs_err"] = max(row["max_abs_err"], self.path_err["ssd_scan"])
+        layers = self.phase_counts["ssm_prefill"]["ssd_scan"] // SSM_REPS
+        emit({"ssd_scan_needed_tflops": flops / row["ms"] / 1e9,
+              "share_of_bound": row["bound_ms"] / row["ms"],
+              "bound_by": row["bound_by"],
+              "share_of_f32_cuda_core_bound": flops / F32_FLOPS * 1e3
+              / row["ms"],
+              "share_of_prefill_call": layers * row["ms"]
+              / (self.ssm_prefill_s * 1e3), "prefill_call_ms":
+              self.ssm_prefill_s * 1e3, "launches_per_call": layers})
+        emit({"redesigned": "ssd_scan", "ms": row["ms"],
+              "before_ms": BEFORE_SLICE6_MS["ssd_scan"],
+              "inputs": "prefill's layer-0 views, (4, 2048, 80, 64) bf16, "
+                        "N 128, G 1, L 64",
+              "before": BEFORE_SLICE6})
+        return [row]
+
+    # ------------------------------------------------ 17. hybrid zamba2
+    def _held_prefill(self, phase: str, call, causal=None) -> dict:
+        """Run one prefill ``call()`` uncounted, recording every kernel-7
+        and kernel-5 launch, and hold each to its plain version: kernel 7
+        to the plain chunked scan at the main path's bar, kernel 5 to
+        mha_ref at attn_path_bar (``causal`` lists each attention call's
+        mask; all causal when None). Returns the worst errors, each
+        attention call's max |ref| and max |diff|, and the first launch's
+        inputs of each kernel."""
+        attn = layers.attention
+        calls = []
+
+        def attention(q, k, v, *, causal=True):
+            out = attn(q, k, v, causal=causal)
+            calls.append(((q, k, v), causal, out))
+            return out
+
+        with uncounted(), recorded(mamba2, "ssd") as scans, \
+                mock.patch.object(layers, "attention", attention):
+            call()
+        if causal is not None and [c for _, c, _ in calls] != causal:
+            raise AssertionError(f"{phase}: attention calls' masks "
+                                 f"{[c for _, c, _ in calls]}, not {causal}")
+        out = {"ssd_scan_launches_held": len(scans),
+               "flash_attention_launches_held": len(calls)}
+        if scans:
+            out["ssd_scan_vs_plain"] = max(ssd_path_err([(
+                f"{phase}.ssd_scan.layer{li}", y,
+                ssd_k.ssd_chunked(*args, SSM_CHUNK))])
+                for li, (args, y) in enumerate(scans))
+            out["ssd_args"] = scans[0][0]
+        by_call = []
+        for i, (qkv, c, o) in enumerate(calls):
+            ref = attn_plain(qkv, c)
+            by_call.append([float(ref.float().abs().max()), attn_path_err(
+                [(f"{phase}.flash_attention.call{i}", o, ref)], qkv, c)])
+        out["flash_attention_vs_plain"] = max(e for _, e in by_call)
+        # [max |ref|, max |diff|] of each attention call, in call order
+        out["flash_attention_by_call"] = by_call
+        out["qkv"] = [(qkv, c) for qkv, c, _ in calls]
+        return out
+
+    def shared_local(self, attns, mlps, cfg) -> list[float]:
+        """Each shared-block site's attention and MLP as decode runs them,
+        fed forward's own inputs to them (``attns``, ``mlps``: forward's
+        recorded attention_block and mlp calls) token by token, the
+        attention over a fresh KV cache, against forward's outputs:
+        row_rel_diff each, attention and MLP of site 0, then of site 1, and
+        so on (what each alone adds; a site's output less its input would
+        be lost in the bf16 rounding of the residual stream)."""
+        local = []
+        for (args, ref), (margs, mref) in zip(attns, mlps, strict=True):
+            xin, hin = args[1], margs[1]                     # (1, T, d)
+            t_len = xin.shape[1]
+            k, v = (torch.zeros((1, t_len, cfg.num_kv_heads, cfg.hd),
+                                dtype=xin.dtype, device=self.dev)
+                    for _ in range(2))
+            ys = [zamba2.attention_decode(args[0], xin[:, t:t + 1], cfg, k,
+                                          v, t)[0][0, 0]
+                  for t in range(t_len)]
+            fs = [zamba2.mlp(margs[0], hin[:, t:t + 1], cfg)[0, 0]
+                  for t in range(t_len)]
+            local += [row_rel_diff(torch.stack(ys), ref[0]),
+                      row_rel_diff(torch.stack(fs), mref[0])]
+        return local
+
+    def hybrid_zamba2(self) -> dict:
+        """zamba2-1.2b at its published widths (38 mamba layers, d_model
+        2048, 64 SSD heads of 64, N 64; the shared block's 32 heads of 64
+        after every 6 layers: 6 sites and 2 tail layers; random bf16
+        weights): prefill_step on HYBRID_B x HYBRID_S tokens (38 kernel-7
+        and 6 kernel-5 launches a call), every launch of one call held to
+        its plain version; a HYBRID_TF-token prompt teacher-forced through
+        serve_step against forward, held as ssm_decode holds mamba2's:
+        each mamba layer and each shared-block site's attention and MLP,
+        fed forward's own input, within LOGIT_TOL, and an f32 copy of the
+        model end to end
+        within F32_LOGIT_TOL (the two paths computing one function), the
+        bf16 end-to-end gap reported beside; greedy decode at batch
+        GREEDY_B after a HYBRID_TF-token prompt fed through serve_step,
+        and a profile of one step. Returns the kernels line's row for
+        kernel 7 at layer 0's inputs."""
+        cfg = get_config(ZAMBA)
+        every, groups, tail = zamba2._group_shape(cfg)
+        t0 = time.perf_counter()
+        params = zamba2.init_params(SEED, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        tokens = torch.randint(0, cfg.vocab_size, (HYBRID_B, HYBRID_S),
+                               generator=gen, device=self.dev)
+        synced(steps.prefill_step, params, tokens, cfg)     # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        secs = []
+        for _ in range(HYBRID_REPS):
+            logits, sec = synced(steps.prefill_step, params, tokens, cfg)
+            secs.append(sec)
+        want = {"ssd_scan": cfg.num_layers * HYBRID_REPS,
+                "flash_attention": groups * HYBRID_REPS}
+        got = {k: _build.launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"hybrid prefill launched {got}, not {want}")
+        if tuple(logits.shape) != (HYBRID_B, cfg.vocab_size) or \
+                logits.dtype != torch.float32 or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("hybrid prefill: logits of the wrong shape, "
+                                 "type or not finite")
+        self.tally("hybrid_zamba2", dict(_build.launches))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prefill_s = sorted(secs)[len(secs) // 2]
+        held = self._held_prefill(
+            "hybrid_zamba2", lambda: steps.prefill_step(params, tokens, cfg))
+        emit({"phase": "hybrid_zamba2", "arch": ZAMBA,
+              "params": cfg.param_count(), "init_s": init_s,
+              "layers": cfg.num_layers, "every": every, "sites": groups,
+              "tail": tail, "batch": HYBRID_B, "seq": HYBRID_S,
+              "seconds": secs,
+              "tokens_per_s": HYBRID_B * HYBRID_S / prefill_s,
+              "launches_per_call": {k: v // HYBRID_REPS
+                                    for k, v in got.items()},
+              "peak_device_gib": peak,
+              **{k: v for k, v in held.items()
+                 if k not in ("ssd_args", "qkv")}})
+        self.path_err["ssd_scan_zamba2"] = held["ssd_scan_vs_plain"]
+        ssd_args = held.pop("ssd_args")
+        del held
+        # teacher-forced decode against forward, bf16 and f32
+        g = np.random.default_rng(SEED + 5)
+        prompt = torch.from_numpy(g.integers(0, cfg.vocab_size,
+                                             (1, HYBRID_TF))).to(self.dev)
+        _build.reset_counts()
+        with recorded(zamba2, "mamba_block") as blocks, \
+                recorded(zamba2, "attention_block") as attns, \
+                recorded(zamba2, "mlp") as mlps:
+            full = zamba2.forward(params, prompt, cfg)[0][0]   # (T, V)
+        bf16, (dec, dec_attns) = self.teacher_forced(
+            params, cfg, steps.init_cache(cfg, 1, HYBRID_TF), prompt, full,
+            watch=[(zamba2, "mamba_decode", decode_y),
+                   (zamba2, "attention_decode", decode_y)])
+        self.tally("hybrid_zamba2_decode", dict(_build.launches))
+        cum = self.block_gaps(dec, [out[0] for _, out in blocks])
+        cum_sites = self.block_gaps(dec_attns, [out[0] for _, out in attns])
+        local = self.mamba_local(params["layers"], blocks, cfg)
+        local_sites = self.shared_local(attns, mlps, cfg)
+        del blocks, attns, mlps, dec, dec_attns, full
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("f32 matrix products must not run in TF32")
+
+        def to_f32(tree):
+            if isinstance(tree, dict):
+                return {k: to_f32(v) for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [to_f32(v) for v in tree]
+            return tree.float()
+
+        p32 = to_f32(params)
+        with uncounted():
+            f32, _ = self.teacher_forced(
+                p32, cfg, steps.init_cache(cfg, 1, HYBRID_TF,
+                                           dtype=torch.float32),
+                prompt, zamba2.forward(p32, prompt, cfg)[0][0])
+        del p32
+        torch.cuda.empty_cache()
+        emit({"phase": "hybrid_zamba2_teacher_forced", **bf16,
+              "tolerance": LOGIT_TOL,
+              "within_tolerance": bf16["rel_diff"] <= LOGIT_TOL,
+              "block_rel_diff_local_max": max(local),
+              "site_attn_mlp_rel_diff_local": local_sites,
+              "block_rel_diff_cumulative_every_8th": cum[::8] + [cum[-1]],
+              "site_attn_rel_diff_cumulative": cum_sites,
+              "f32_model_rel_diff": f32["rel_diff"],
+              "f32_model_top1_agree": f32["top1_agree"],
+              "f32_tolerance": F32_LOGIT_TOL})
+        if max(local + local_sites) > LOGIT_TOL:
+            raise AssertionError(f"hybrid: a layer's or a site's decode parts "
+                                 f"from its prefill by "
+                                 f"{max(local + local_sites)} of its max "
+                                 "|output|")
+        if f32["rel_diff"] > F32_LOGIT_TOL:
+            raise AssertionError(f"hybrid: in f32, decode and forward logits "
+                                 f"differ by {f32['rel_diff']} of max |logit|")
+        # greedy decode of a batch after a prompt fed through serve_step
+        prompt = torch.from_numpy(g.integers(
+            0, cfg.vocab_size, (GREEDY_B, HYBRID_TF))).to(self.dev)
+        cache = steps.init_cache(cfg, GREEDY_B, HYBRID_TF + GREEDY_STEPS + 1)
+        for t in range(HYBRID_TF):
+            logits, cache = steps.serve_step(params, cache, prompt[:, t], t,
+                                             cfg)
+        self.greedy("hybrid_zamba2_greedy", params, cfg, cache,
+                    logits.argmax(-1), HYBRID_TF,
+                    f"hybrid decode step, batch {GREEDY_B} "
+                    f"({cfg.num_layers} mamba layers, {groups} sites)",
+                    prompt=HYBRID_TF)
+        del cache, params, tokens
+        torch.cuda.empty_cache()
+        row, flops = self._ssd_row(ssd_args, "ssd_scan_zamba2")
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 self.path_err["ssd_scan_zamba2"])
+        x, b = ssd_args[0], ssd_args[3]
+        row.update(inputs=f"{ZAMBA} prefill's layer-0 views, "
+                   f"{tuple(x.shape)} bf16, N {b.shape[3]}, G {b.shape[2]}, "
+                   f"L {SSM_CHUNK}", state=b.shape[3])
+        emit({"ssd_scan_zamba2": {
+            "ms": row["ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "plain_ms": row["plain_ms"],
+            "share_of_bound": row["bound_ms"] / row["ms"],
+            "needed_tflops": flops / row["ms"] / 1e9,
+            "share_of_prefill_call": cfg.num_layers * row["ms"]
+            / (prefill_s * 1e3), "prefill_call_ms": prefill_s * 1e3}})
+        return row
+
+    # ---------------------------------------------- 18. encdec seamless
+    @staticmethod
+    def tail_fault(qkv, label: str) -> dict:
+        """The fault a ragged non-causal tile could hide, planted in the
+        plain version on a main path's (q, k, v) in model layout: the keys
+        past the last whole 64-key tile dropped. Held to mha_ref at
+        attn_path_bar, which must see it; the count outside TOL's fixed bar
+        is reported beside."""
+        sk = qkv[1].shape[1]
+        cut = sk - sk % 64
+        if cut == sk:
+            raise AssertionError(f"{label}: {sk} keys leave no ragged tile")
+        ref = attn_plain(qkv, False).float()
+        diff = (attn_plain(qkv, False, keys=cut).float() - ref).abs()
+        tol = TOL[torch.bfloat16]["flash_attention"]
+        out = {"planted_fault": f"{label}: keys {cut}..{sk - 1} of {sk} "
+                                "dropped",
+               "elements": ref.numel(),
+               "max_abs_ref": float(ref.abs().max()),
+               "mean_abs_ref": float(ref.abs().mean()),
+               "fault_max_abs_diff": float(diff.max()),
+               "fault_outside_bar": int(
+                   (diff > attn_path_bar(ref, qkv, False)).sum()),
+               "fault_outside_fixed_tol": int((diff > tol + tol * ref.abs())
+                                              .sum())}
+        if not out["fault_outside_bar"]:
+            raise AssertionError(f"{label}: attn_path_bar does not see the "
+                                 "planted fault")
+        return out
+
+    def encdec_seamless(self) -> dict:
+        """seamless-m4t-medium at its published widths (12 + 12 layers,
+        d_model 1024, 16 heads of 64, vocab 256,206; random bf16 weights;
+        random frame embeddings, the frontend being a stub):
+        prefill_step on ENC_B x ENC_FRAMES frames and ENC_B x ENC_TOKENS
+        tokens (12 encoder launches of kernel 5, 12 causal self and 12
+        cross launches at Sq ENC_TOKENS against Sk ENC_FRAMES), every
+        launch of one call held to mha_ref, and the bar shown to see a
+        dropped ragged tail at the first encoder and cross views; encode
+        and prepare_cross, then ENC_TOKENS tokens teacher-forced through
+        serve_step at batch 1 against forward within LOGIT_TOL; greedy
+        decode at batch ENC_B over the batch's memory. Returns the kernels
+        line's row for kernel 5 at the first cross-attention's views."""
+        cfg = get_config(SEAMLESS)
+        t0 = time.perf_counter()
+        params = encdec.init_params(SEED, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        frames = torch.randn((ENC_B, ENC_FRAMES, cfg.d_model), generator=gen,
+                             device=self.dev) * 0.02
+        tokens = torch.randint(0, cfg.vocab_size, (ENC_B, ENC_TOKENS),
+                               generator=gen, device=self.dev)
+
+        def call():
+            return steps.prefill_step(params, tokens, cfg, frames=frames)
+
+        synced(call)                                        # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        secs = []
+        for _ in range(ENC_REPS):
+            logits, sec = synced(call)
+            secs.append(sec)
+        per_call = cfg.encoder_layers + 2 * cfg.num_layers
+        launches = _build.launches["flash_attention"]
+        if launches != per_call * ENC_REPS:
+            raise AssertionError(f"encdec prefill launched flash_attention "
+                                 f"{launches} times, not {per_call} a call")
+        if tuple(logits.shape) != (ENC_B, cfg.vocab_size) or \
+                logits.dtype != torch.float32 or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError("encdec prefill: logits of the wrong shape, "
+                                 "type or not finite")
+        self.tally("encdec_seamless", dict(_build.launches))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sec = sorted(secs)[len(secs) // 2]
+        held = self._held_prefill(
+            "encdec_seamless", call,
+            causal=[False] * cfg.encoder_layers + [True, False]
+            * cfg.num_layers)
+        first_cross = cfg.encoder_layers + 1
+        cross = held["qkv"][first_cross][0]
+        emit({"phase": "encdec_seamless", "arch": SEAMLESS,
+              "params": cfg.param_count(), "init_s": init_s,
+              "encoder_layers": cfg.encoder_layers,
+              "decoder_layers": cfg.num_layers, "batch": ENC_B,
+              "frames": ENC_FRAMES, "tokens": ENC_TOKENS, "seconds": secs,
+              "frames_per_s": ENC_B * ENC_FRAMES / sec,
+              "tokens_per_s": ENC_B * ENC_TOKENS / sec,
+              "flash_attention_launches": launches,
+              "launches_per_call": per_call, "peak_device_gib": peak,
+              "cross_shape": {"q": list(cross[0].shape),
+                              "k": list(cross[1].shape)},
+              **{k: v for k, v in held.items() if k != "qkv"}})
+        for i, label in ((0, "encoder layer 0"),
+                         (first_cross, "cross-attention, decoder layer 0")):
+            max_ref, err = held["flash_attention_by_call"][i]
+            emit({"phase": "encdec_seamless_tail_fault",
+                  **self.tail_fault(held["qkv"][i][0], label),
+                  "kernel_max_abs_diff": err, "kernel_max_abs_ref": max_ref,
+                  "rtol": ATTN_PATH_RTOL,
+                  "atol_of_abs_average": ATTN_PATH_ATOL_OF_ABS})
+        self.path_err["flash_attention_cross"] = \
+            held["flash_attention_vs_plain"]
+        del held, logits
+        torch.cuda.empty_cache()
+        # encode + prepare_cross, then teacher-forced decode at batch 1
+        _build.reset_counts()
+        f1, t1 = frames[:1], tokens[:1]
+        full = encdec.forward(params, f1, t1, cfg)[0][0]        # (T, V)
+        cache = encdec.prepare_cross(
+            params, encdec.encode(params, f1, cfg), cfg,
+            steps.init_cache(cfg, 1, ENC_TOKENS, enc_len=ENC_FRAMES))
+        self.tally("encdec_seamless_decode", dict(_build.launches))
+        gap, _ = self.teacher_forced(params, cfg, cache, t1, full)
+        del full, cache
+        torch.cuda.empty_cache()
+        emit({"phase": "encdec_seamless_teacher_forced", **gap,
+              "frames": ENC_FRAMES, "tolerance": LOGIT_TOL})
+        if gap["rel_diff"] > LOGIT_TOL:
+            raise AssertionError(f"encdec decode and forward logits differ "
+                                 f"by {gap['rel_diff']} of max |logit|")
+        # greedy decode of the batch over its memory
+        with uncounted():
+            cache = encdec.prepare_cross(
+                params, encdec.encode(params, frames, cfg), cfg,
+                steps.init_cache(cfg, ENC_B, GREEDY_STEPS + 1,
+                                 enc_len=ENC_FRAMES))
+        self.greedy("encdec_seamless_greedy", params, cfg, cache,
+                    tokens[:, 0], 0,
+                    f"encdec decode step, batch {ENC_B} ({cfg.num_layers} "
+                    f"decoder layers over {ENC_FRAMES} frames)")
+        del cache, params, frames, tokens
+        torch.cuda.empty_cache()
+        row = self._flash_row(cross, False, "flash_attention_cross",
+                              f"{SEAMLESS} prefill's first cross-attention "
+                              "views")
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 self.path_err["flash_attention_cross"])
+        emit({"flash_attention_cross": {
+            "ms": row["ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "sdpa_ms": row["library_ms"],
+            "plain_ms": row["plain_ms"],
+            "share_of_bound": row["bound_ms"] / row["ms"]}})
+        return row
+
+    def _ssd_row(self, args, label: str):
+        """The kernels line's row for kernel 7 on a prefill call's
+        (x, dt, a, b, c, d), x, b and c strided views of the conv's output,
+        against the plain chunked scan at the main path's bar; and the
+        FLOP the function needs."""
+        x, dt, a, b, c, d = args
         bsz, s, h, p = x.shape
         grp, n = b.shape[2], b.shape[3]
         lc = SSM_CHUNK
@@ -4332,23 +4862,8 @@ class Smoke:
             extra={"shape": [bsz, s, h, p], "state": n, "groups": grp,
                    "chunk": lc, "gflop": flops / 1e9, "bytes": nbytes,
                    "f32_cuda_core_bound_ms": flops / F32_FLOPS * 1e3},
-            compare=ssd_path_err)
-        row["max_abs_err"] = max(row["max_abs_err"], self.path_err["ssd_scan"])
-        layers = self.phase_counts["ssm_prefill"]["ssd_scan"] // SSM_REPS
-        emit({"ssd_scan_needed_tflops": flops / row["ms"] / 1e9,
-              "share_of_bound": row["bound_ms"] / row["ms"],
-              "bound_by": row["bound_by"],
-              "share_of_f32_cuda_core_bound": flops / F32_FLOPS * 1e3
-              / row["ms"],
-              "share_of_prefill_call": layers * row["ms"]
-              / (self.ssm_prefill_s * 1e3), "prefill_call_ms":
-              self.ssm_prefill_s * 1e3, "launches_per_call": layers})
-        emit({"redesigned": "ssd_scan", "ms": row["ms"],
-              "before_ms": BEFORE_SLICE6_MS["ssd_scan"],
-              "inputs": "prefill's layer-0 views, (4, 2048, 80, 64) bf16, "
-                        "N 128, G 1, L 64",
-              "before": BEFORE_SLICE6})
-        return [row]
+            compare=ssd_path_err, label=label)
+        return row, flops
 
     @staticmethod
     def _decode_bytes(q, pages, table, tokens: int) -> int:
@@ -4440,6 +4955,8 @@ def main() -> int:
     kernels += smoke.time_ssd()
     del smoke.ssm_params, smoke.ssd_args
     torch.cuda.empty_cache()
+    kernels.append(smoke.hybrid_zamba2())
+    kernels.append(smoke.encdec_seamless())
     emit({"total_s": time.perf_counter() - t_start})
     # launches on the main path, summed over every phase that ran it
     emit({"launches_by_phase": smoke.phase_counts})

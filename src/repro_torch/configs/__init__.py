@@ -1,8 +1,8 @@
 """Model configs of the port. ``get_config(name)`` returns the published
 config, ``get_smoke_config(name)`` a reduced one of the same family.
-The port carries the configs of the families it runs: the dense, MoE and
-VLM decoders and the pure SSM (``ARCHS``); zamba2-1.2b (hybrid) and
-seamless-m4t-medium (encdec) wait for ROADMAP Queue 2 item 6."""
+The port carries every config of the reference (``ARCHS``): the dense, MoE
+and VLM decoders, the pure SSM, the hybrid (zamba2-1.2b) and the
+encoder-decoder (seamless-m4t-medium)."""
 
 from importlib import import_module
 
@@ -10,7 +10,8 @@ from .base import ModelConfig
 
 ARCHS = [
     "chameleon_34b", "olmoe_1b_7b", "granite_moe_1b_a400m", "llama3_2_3b",
-    "internlm2_20b", "qwen1_5_0_5b", "nemotron_4_15b", "mamba2_2_7b",
+    "internlm2_20b", "qwen1_5_0_5b", "nemotron_4_15b", "zamba2_1_2b",
+    "seamless_m4t_medium", "mamba2_2_7b",
 ]
 # canonical ids as assigned (dashes/dots) -> module names
 ALIASES = {
@@ -21,6 +22,8 @@ ALIASES = {
     "internlm2-20b": "internlm2_20b",
     "qwen1.5-0.5b": "qwen1_5_0_5b",
     "nemotron-4-15b": "nemotron_4_15b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "mamba2-2.7b": "mamba2_2_7b",
 }
 

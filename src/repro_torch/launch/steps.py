@@ -1,50 +1,70 @@
 """Single-card step functions of the serving path: the bodies of the
 reference's ``launch/steps.py:build_prefill_step`` and
 ``build_decode_step``, without a mesh, shardings or a ``StepBundle``, for
-the transformer families (dense, moe, vlm) and the SSM family."""
+every family: the transformer families (dense, moe, vlm), the SSM, the
+hybrid (zamba2) and the encoder-decoder (encdec, audio)."""
 
 from __future__ import annotations
 
 import torch
 
-from ..models import ssm_lm, transformer
+from ..models import (RUNS, encdec, families_run_by, ssm_lm, transformer,
+                      zamba2)
 from ..models.layers import PARAM_DTYPE, unembed
+
+_ENCDEC = families_run_by("encdec")
 
 
 def _check_family(cfg) -> None:
-    if cfg.family not in transformer.FAMILIES + ("ssm",):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the step functions run the dense, moe, "
-            "vlm and ssm families (hybrid and encdec wait for ROADMAP "
-            "Queue 2 item 6)")
+    if cfg.family not in RUNS:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
-def prefill_step(params: dict, tokens: torch.Tensor, cfg):
-    """tokens: (B, S). The SSM family returns the last-token logits
-    (B, V) f32: ``ssm_lm.hidden`` and the tied unembed of the last
-    position only. The transformer families return ``prefill``'s
-    last-token logits (B, V) and its KV cache (L, B, S, KH, D).
+def prefill_step(params: dict, tokens: torch.Tensor, cfg,
+                 frames: torch.Tensor | None = None):
+    """tokens: (B, S). The SSM, hybrid and encoder-decoder families return
+    the last-token logits (B, V) f32: the family's ``hidden`` and the
+    unembed of the last position only (tied for the SSM); the
+    encoder-decoder family takes the encoder's ``frames`` (B, S_enc, d)
+    and raises without them. The transformer families return
+    ``prefill``'s last-token logits (B, V) and its KV cache
+    (L, B, S, KH, D).
 
     The reference's transformer step returns ``logits[:, -1]`` of those
     (B, V) logits, the last vocabulary entry of each row, shape (B,)
     (ROADMAP Queue 3); the port returns the logits themselves."""
     _check_family(cfg)
+    if (frames is not None) != (cfg.family in _ENCDEC):
+        raise ValueError(f"family {cfg.family!r}: the encoder-decoder "
+                         "families take frames, and only they")
+    if cfg.family in transformer.FAMILIES:
+        return transformer.prefill(params, tokens, cfg)
     if cfg.family == "ssm":
         x = ssm_lm.hidden(params, tokens, cfg)
-        return unembed(params, x[:, -1:],
-                       cfg.replace(tie_embeddings=True))[:, 0]
-    return transformer.prefill(params, tokens, cfg)
+        cfg = cfg.replace(tie_embeddings=True)
+    elif cfg.family == "hybrid":
+        x = zamba2.hidden(params, tokens, cfg)
+    else:
+        x = encdec.hidden(params, frames, tokens, cfg)
+    return unembed(params, x[:, -1:], cfg)[:, 0]
 
 
 def init_cache(cfg, batch: int, max_len: int, optimized: bool | str = False,
-               dtype=PARAM_DTYPE, device=None) -> dict:
+               dtype=PARAM_DTYPE, device=None, enc_len: int = 1024) -> dict:
     """The cache ``serve_step`` takes with ``optimized``: for the
     transformer families (L, B, S, KH, D) of ``dtype`` with
-    ``optimized=False``, the KH-major (L, B, KH, S, D) otherwise; the SSM
-    family's recurrent state whatever ``optimized`` says."""
+    ``optimized=False``, the KH-major (L, B, KH, S, D) otherwise; the
+    other families' caches whatever ``optimized`` says: the SSM's
+    recurrent state, the hybrid's states and shared-block KV, the
+    encoder-decoder's self-attention KV and ``enc_len`` positions of
+    cross KV."""
     _check_family(cfg)
     if cfg.family == "ssm":
         return ssm_lm.init_cache(cfg, batch, max_len, device=device)
+    if cfg.family == "hybrid":
+        return zamba2.init_cache(cfg, batch, max_len, dtype, device)
+    if cfg.family in _ENCDEC:
+        return encdec.init_cache(cfg, batch, max_len, enc_len, dtype, device)
     init = transformer.init_cache_v2 if optimized else transformer.init_cache
     return init(cfg, batch, max_len, dtype, device)
 
@@ -56,10 +76,14 @@ def serve_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg,
     picks the implementation as the reference's ``build_decode_step``:
     False ``decode_step``, "v2" ``decode_step_v2``, True or "v3"
     ``decode_step_v3`` (the latter two over ``init_cache_v2`` caches).
-    The SSM family runs its recurrent step whatever it says."""
+    The other families run their own step whatever it says."""
     _check_family(cfg)
     if cfg.family == "ssm":
         return ssm_lm.decode_step(params, cache, token, pos, cfg)
+    if cfg.family == "hybrid":
+        return zamba2.decode_step(params, cache, token, pos, cfg)
+    if cfg.family in _ENCDEC:
+        return encdec.decode_step(params, cache, token, pos, cfg)
     if not optimized:
         return transformer.decode_step(params, cache, token, pos, cfg)
     step = transformer.decode_step_v2 if optimized == "v2" \

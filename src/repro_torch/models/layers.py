@@ -1,5 +1,6 @@
 """Shared model layers: norms, rotary embeddings, attention (full
-sequence, and one decode token against a dense KV cache), MLPs.
+sequence, cross-attention over an encoder's memory, and one decode token
+against a dense KV cache), MLPs.
 
 Functional, as in the reference: parameters are plain dicts of tensors,
 weights stored (d_in, d_out) so a layer is ``x @ w``; every layer is
@@ -57,6 +58,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def position_ids(b: int, s: int, device) -> torch.Tensor:
+    """The positions 0..s-1 of each of b rows, (B, S) int32."""
+    return torch.arange(s, dtype=torch.int32,
+                        device=device)[None, :].expand(b, s)
+
+
 def attn_init(gen: torch.Generator, cfg) -> dict:
     h, kh, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_model
     p = {"wq": dense_init(gen, d, h * hd), "wk": dense_init(gen, d, kh * hd),
@@ -90,6 +97,17 @@ def attention_block(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     q, k, v = qkv_proj(p, x, cfg, positions)
     out = attention(q, k, v, causal=causal)
     b, s, _, _ = out.shape
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def cross_attention_block(p: dict, x: torch.Tensor, mem_k: torch.Tensor,
+                          mem_v: torch.Tensor, cfg) -> torch.Tensor:
+    """Decoder cross-attention of x (B, S, d) over precomputed memory K/V
+    (B, S_mem, KH, D): q projected with no rotation, the flash_attention
+    kernel non-causal with Sq = S against Sk = S_mem on the card."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).view(b, s, cfg.num_heads, cfg.hd)
+    out = attention(q, mem_k, mem_v, causal=False)
     return out.reshape(b, s, -1) @ p["wo"]
 
 

@@ -1,6 +1,7 @@
-"""Uniform model interface, for the families the port runs so far: the
-decoder-only transformer (dense, MoE and VLM families) and the pure-SSM
-LM (mamba2)."""
+"""Uniform model interface over every family of the port: the
+decoder-only transformer (dense, MoE and VLM families), the pure-SSM LM
+(mamba2), the Mamba2 hybrid (zamba2) and the encoder-decoder (encdec and
+audio)."""
 
 from __future__ import annotations
 
@@ -11,15 +12,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from . import ssm_lm, transformer
-
-# families the port does not run yet -> the ROADMAP item that brings them
-_WAITING = {
-    "encdec": "Queue 2 item 6 (models/encdec.py)",
-    "audio": "Queue 2 item 6 (models/encdec.py)",
-    "hybrid": "Queue 2 item 6 (zamba2: ssd_scan plus a shared attention "
-              "block over the dense KV cache)",
-}
+from . import encdec, families_run_by, ssm_lm, transformer, zamba2
 
 
 @dataclass(frozen=True)
@@ -29,7 +22,7 @@ class Model:
     forward: Callable[..., Any]     # (params, batch) -> logits
     # (params, tokens) -> (last-token logits, kv); transformer families
     prefill: Callable[..., Any] | None = None
-    # (batch, max_len[, device=None]) -> cache
+    # (batch, max_len[, enc_len for encdec][, device=None]) -> cache
     init_cache: Callable[..., Any] | None = None
     # (params, cache, token, pos) -> (logits, cache)
     decode_step: Callable[..., Any] | None = None
@@ -59,10 +52,30 @@ def build_model(cfg: ModelConfig) -> Model:
             decode_step=lambda p, c, t, pos: ssm_lm.decode_step(
                 p, c, t, pos, cfg),
         )
-    if cfg.family in _WAITING:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP "
-            f"{_WAITING[cfg.family]}")
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            init=lambda seed, device=None: zamba2.init_params(
+                seed, cfg, device),
+            forward=lambda p, b: zamba2.forward(p, b["tokens"], cfg)[0],
+            init_cache=lambda batch, max_len, device=None:
+                zamba2.init_cache(cfg, batch, max_len, device=device),
+            decode_step=lambda p, c, t, pos: zamba2.decode_step(
+                p, c, t, pos, cfg),
+        )
+    if cfg.family in families_run_by("encdec"):
+        return Model(
+            cfg=cfg,
+            init=lambda seed, device=None: encdec.init_params(
+                seed, cfg, device),
+            forward=lambda p, b: encdec.forward(p, b["frames"], b["tokens"],
+                                                cfg)[0],
+            init_cache=lambda batch, max_len, enc_len=1024, device=None:
+                encdec.init_cache(cfg, batch, max_len, enc_len,
+                                  device=device),
+            decode_step=lambda p, c, t, pos: encdec.decode_step(
+                p, c, t, pos, cfg),
+        )
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -71,14 +84,16 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int,
     """A random batch (smoke runs, examples): ``tokens`` (B, S) int64
     drawn from ``gen`` on its device (a generator seeded 0 on ``device``,
     the card unless ``"cpu"``, when none is given) and ``labels``, the
-    tokens shifted left by one. The encoder families' ``frames`` wait with
-    them (ROADMAP Queue 2 item 6)."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP "
-            f"{_WAITING['encdec']}")
+    tokens shifted left by one; with an encoder, also ``frames`` (B, S, d)
+    f32, normal draws times 0.02 (one ``seq`` for both, as the
+    reference's)."""
     if gen is None:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(0)
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                            device=gen.device)
-    return {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    out = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+    if cfg.encoder_layers:
+        out["frames"] = torch.randn((batch, seq, cfg.d_model), generator=gen,
+                                    device=gen.device,
+                                    dtype=torch.float32) * 0.02
+    return out

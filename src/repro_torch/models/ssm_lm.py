@@ -13,15 +13,9 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from . import check_family
 from .layers import embed_init, rmsnorm, rmsnorm_init, unembed
 from .mamba2 import mamba_block, mamba_decode, mamba_init, mamba_state_init
-
-
-def _check_family(cfg) -> None:
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: ssm_lm runs the ssm family only (the "
-            "hybrid family waits for ROADMAP Queue 2 item 6)")
 
 
 def init_params(seed: int, cfg, device=None) -> dict:
@@ -29,7 +23,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
     with ``seed`` on ``device`` (the card unless ``device="cpu"``). The
     draws are not the reference's; the layout, the types (f32 ``a_log``,
     ``dt_bias``, ``d_skip``) and the distributions are."""
-    _check_family(cfg)
+    check_family(cfg, "ssm_lm")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -42,7 +36,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
 def hidden(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """tokens: (B, S) int -> final normed hidden (B, S, d); one ssd_scan
     launch per layer on the card."""
-    _check_family(cfg)
+    check_family(cfg, "ssm_lm")
     x = params["embed"][tokens.long()]
     for lp in params["layers"]:
         x = x + mamba_block(lp["mamba"], rmsnorm(lp["ln"], x, cfg.norm_eps),
@@ -63,7 +57,7 @@ def init_cache(cfg, batch: int, max_len: int = 0, device=None) -> dict:
     """Zero recurrent state for every layer on ``device`` (the card unless
     ``device="cpu"``). ``max_len`` is the reference's and unused: the
     state is O(1) in the length."""
-    _check_family(cfg)
+    check_family(cfg, "ssm_lm")
     dev = resolve_device(device)
     return {"mamba": [mamba_state_init(cfg, batch, device=dev)
                       for _ in range(cfg.num_layers)]}

@@ -28,21 +28,14 @@ from ..device import resolve_device
 from ..kernels.decode_attention.ops import merge_partials
 from ..kernels.decode_attention.ref import normalize
 from ..kernels.flash_attention.ops import attention
+from . import check_family, families_run_by
 from .layers import (PARAM_DTYPE, attention_block, attention_decode,
                      attn_init, check_pos, decode_attention_khmajor,
-                     decode_scores, embed_init, mlp, mlp_init, qkv_proj,
-                     rmsnorm, rmsnorm_init, unembed)
+                     decode_scores, embed_init, mlp, mlp_init, position_ids,
+                     qkv_proj, rmsnorm, rmsnorm_init, unembed)
 from .moe import moe_ff, moe_init
 
-FAMILIES = ("dense", "moe", "vlm")
-
-
-def _check_family(cfg) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: transformer runs the dense, moe and vlm "
-            "families only (ssm: models/ssm_lm.py; hybrid and encdec wait "
-            "for ROADMAP Queue 2 item 6)")
+FAMILIES = families_run_by("transformer")
 
 
 def _layer_init(gen: torch.Generator, cfg, dev) -> dict:
@@ -60,7 +53,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
     with ``seed`` on ``device`` (the card unless ``device="cpu"``). The
     draws are not the reference's (JAX's PRNG bits are not reproduced);
     the layout and the distributions are."""
-    _check_family(cfg)
+    check_family(cfg, "transformer")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -72,11 +65,6 @@ def init_params(seed: int, cfg, device=None) -> dict:
             (cfg.d_model, cfg.vocab_size), generator=gen, device=dev,
             dtype=torch.float32) * 0.02).to(PARAM_DTYPE)
     return params
-
-
-def _positions(b: int, s: int, device) -> torch.Tensor:
-    return torch.arange(s, dtype=torch.int32,
-                        device=device)[None, :].expand(b, s)
 
 
 def feed_forward(lp: dict, h: torch.Tensor, cfg):
@@ -92,10 +80,10 @@ def hidden(params: dict, tokens: torch.Tensor, cfg):
     """tokens: (B, S) int -> final normed hidden (B, S, d), aux: the
     layers' mean ``load_balance`` and ``router_z`` (0 outside the MoE
     family)."""
-    _check_family(cfg)
+    check_family(cfg, "transformer")
     b, s = tokens.shape
     x = params["embed"][tokens.long()]
-    positions = _positions(b, s, x.device)
+    positions = position_ids(b, s, x.device)
     lb, rz = [], []
     for lp in params["layers"]:
         h = x + attention_block(lp["attn"],
@@ -124,10 +112,10 @@ def prefill(params: dict, tokens: torch.Tensor, cfg):
     """Full-sequence forward returning the *last-token* logits (B, V) f32
     and the KV of every layer, {"k", "v"}: (L, B, S, KH, D) bf16 (the
     (B, S, V) logits never materialise)."""
-    _check_family(cfg)
+    check_family(cfg, "transformer")
     b, s = tokens.shape
     x = params["embed"][tokens.long()]
-    positions = _positions(b, s, x.device)
+    positions = position_ids(b, s, x.device)
     ks, vs = [], []
     for lp in params["layers"]:
         q, k, v = qkv_proj(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
@@ -170,7 +158,7 @@ def _head(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 def decode_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg):
     """token: (B,) int; pos: the position written (an int). Returns
     (logits (B, V) f32, cache), the cache updated in place."""
-    _check_family(cfg)
+    check_family(cfg, "transformer")
     x = _embed_token(params, token)
     for li, lp in enumerate(params["layers"]):
         xin = rmsnorm(lp["ln1"], x, cfg.norm_eps)
@@ -202,7 +190,7 @@ def decode_step_v2(params: dict, cache: dict, token: torch.Tensor, pos,
                    cfg):
     """decode_step's contract over init_cache_v2 caches: each layer writes
     its token's (B, KH, D) slice in place, then attends over 0..pos."""
-    _check_family(cfg)
+    check_family(cfg, "transformer")
     ck_all, cv_all = cache["k"], cache["v"]
     pos = check_pos(pos, ck_all.shape[3])
     b = token.shape[0]
@@ -253,7 +241,7 @@ def decode_step_v3(params: dict, cache: dict, token: torch.Tensor, pos,
     read-only inside the layer loop (each layer's positions below pos,
     merged with the token's own partial), and every layer's k and v are
     appended at pos once, after the loop."""
-    _check_family(cfg)
+    check_family(cfg, "transformer")
     ck_all, cv_all = cache["k"], cache["v"]
     pos = check_pos(pos, ck_all.shape[3])
     b = token.shape[0]

@@ -97,20 +97,30 @@ def _f32(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(dev)
 
 
+# the reference's stacked layer lists, by key, and the config field that
+# gives each one's depth
+STACKS = {"layers": "num_layers", "enc_layers": "encoder_layers",
+          "dec_layers": "num_layers"}
+
+
 def params_from_jax(params: dict, cfg, device=None) -> dict:
     """The port's parameters on ``device`` from the reference's parameter
-    tree (``models/transformer.py`` -- dense, MoE and VLM -- or
-    ``models/ssm_lm.py:init_params``) as nested dicts of numpy arrays.
-    An MoE layer's ``moe`` dict comes across whole: ``router`` (d, E)
-    f32, ``wi`` and ``wg`` (E, d, ff) and ``wo`` (E, ff, d) bf16.
+    tree as nested dicts of numpy arrays: ``models/transformer.py``
+    (dense, MoE and VLM), ``models/ssm_lm.py``, ``models/zamba2.py`` or
+    ``models/encdec.py``'s ``init_params``. An MoE layer's ``moe`` dict
+    comes across whole: ``router`` (d, E) f32, ``wi`` and ``wg`` (E, d,
+    ff) and ``wo`` (E, ff, d) bf16. zamba2's ``shared`` block is one
+    unstacked dict and comes across once, one set of tensors for every
+    site.
 
     Both layouts keep weights (d_in, d_out) for ``x @ w``. The reference
-    stacks the layers on a leading axis of length ``cfg.num_layers``; the
-    port keeps ``params["layers"]`` as a list of one dict per layer.
-    Each tensor keeps the reference's type, by the leaf's name: the
-    leaves named in ``F32_LEAVES`` are float32 in the reference and come
-    as float32 arrays, kept exactly; every other leaf is bf16, given as
-    float32 (rounded to bf16) or as the uint16 bits of bf16."""
+    stacks the layers of each list in ``STACKS`` on a leading axis, as
+    deep as its config field says (``enc_layers`` ``encoder_layers``, the
+    others ``num_layers``); the port keeps each as a list of one dict per
+    layer. Each tensor keeps the reference's type, by the leaf's name:
+    the leaves named in ``F32_LEAVES`` are float32 in the reference and
+    come as float32 arrays, kept exactly; every other leaf is bf16, given
+    as float32 (rounded to bf16) or as the uint16 bits of bf16."""
     dev = resolve_device(device)
 
     def tree(node, pick, name=None):
@@ -119,14 +129,19 @@ def params_from_jax(params: dict, cfg, device=None) -> dict:
         leaf = pick(np.asarray(node))
         return _f32(leaf, dev) if name in F32_LEAVES else _bf16(leaf, dev)
 
-    depth = {np.asarray(a).shape[0] for a in _leaves(params["layers"])}
-    if depth != {cfg.num_layers}:
-        raise ValueError(f"layers stacked {sorted(depth)} deep, config has "
-                         f"{cfg.num_layers}")
+    stacks = [k for k in STACKS if k in params]
+    if not stacks:
+        raise ValueError(f"no stacked layers among {sorted(params)}; "
+                         f"expected one of {sorted(STACKS)}")
     out = {k: tree(v, lambda a: a, k) for k, v in params.items()
-           if k != "layers"}
-    out["layers"] = [tree(params["layers"], lambda a, i=i: a[i])
-                     for i in range(cfg.num_layers)]
+           if k not in STACKS}
+    for key in stacks:
+        n = getattr(cfg, STACKS[key])
+        depth = {np.asarray(a).shape[0] for a in _leaves(params[key])}
+        if depth != {n}:
+            raise ValueError(f"{key} stacked {sorted(depth)} deep, config "
+                             f"has {STACKS[key]} = {n}")
+        out[key] = [tree(params[key], lambda a, i=i: a[i]) for i in range(n)]
     return out
 
 

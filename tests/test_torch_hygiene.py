@@ -22,7 +22,8 @@ from repro_torch.core.dpm_pool import DPMPool  # noqa: E402
 from repro_torch.kernels import cache_transition as tct  # noqa: E402
 from repro_torch.kvcache import paged_store  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
-from repro_torch.models import mamba2, ssm_lm, transformer  # noqa: E402
+from repro_torch.models import (encdec, mamba2, ssm_lm,  # noqa: E402
+                                transformer, zamba2)
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models.model_zoo import (build_model,  # noqa: E402
                                           make_batch)
@@ -66,6 +67,11 @@ FAMILIES_SLICE = ("models/moe.py", "models/transformer.py",
                   "configs/nemotron_4_15b.py", "configs/chameleon_34b.py",
                   "configs/olmoe_1b_7b.py",
                   "configs/granite_moe_1b_a400m.py")
+# the modules of the hybrid and encoder-decoder families' slice, which the
+# scan must reach as well
+HYBRID_ENCDEC_SLICE = ("models/__init__.py", "models/zamba2.py",
+                       "models/encdec.py", "configs/zamba2_1_2b.py",
+                       "configs/seamless_m4t_medium.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the one environment variable the port reads: the ownership sanitizer's
 # switch, the reference's own (it chooses no device)
@@ -117,6 +123,11 @@ def test_the_scan_reaches_the_planes_slice():
 
 def test_the_scan_reaches_the_families_slice():
     for name in FAMILIES_SLICE:
+        assert PORT / name in PORT_FILES, name
+
+
+def test_the_scan_reaches_the_hybrid_and_encdec_slice():
+    for name in HYBRID_ENCDEC_SLICE:
         assert PORT / name in PORT_FILES, name
 
 
@@ -174,6 +185,14 @@ def test_every_kernel_package_has_ref_and_parity_test():
     lambda: steps.init_cache(get_smoke_config("llama3.2-3b"), 1, 4, "v3"),
     lambda: make_batch(get_smoke_config("llama3.2-3b"), 1, 4),
     lambda: PagedServer("olmoe-1b-7b"),
+    lambda: zamba2.init_params(0, get_smoke_config("zamba2-1.2b")),
+    lambda: zamba2.init_cache(get_smoke_config("zamba2-1.2b"), 1, 4),
+    lambda: build_model(get_smoke_config("zamba2-1.2b")).init_cache(1, 4),
+    lambda: encdec.init_params(0, get_smoke_config("seamless-m4t-medium")),
+    lambda: encdec.init_cache(get_smoke_config("seamless-m4t-medium"), 1, 4,
+                              4),
+    lambda: steps.init_cache(get_smoke_config("seamless-m4t-medium"), 1, 4),
+    lambda: make_batch(get_smoke_config("seamless-m4t-medium"), 1, 4),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -69,8 +69,9 @@ def test_configs_match_reference():
         assert ours.hd == theirs.hd
         assert ours.param_count() == theirs.param_count()
     assert CFG.replace(num_layers=3).num_layers == 3
+    assert get_config("zamba2-1.2b").family == "hybrid"
     with pytest.raises(KeyError):
-        get_config("zamba2-1.2b")
+        get_config("no-such-arch")
 
 
 def test_params_from_jax_layout(weights):
@@ -155,8 +156,11 @@ def test_prefill_matches_reference(weights):
 
 
 def test_other_families_name_their_roadmap_item():
-    for family in ("hybrid", "encdec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model(CFG.replace(family=family))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """build_model takes every family; the transformer refuses the others,
+    naming the module that runs each."""
+    for family, module in (("hybrid", "zamba2"), ("encdec", "encdec")):
+        assert build_model(CFG.replace(family=family)).cfg.family == family
+        with pytest.raises(NotImplementedError, match=f"models/{module}.py"):
+            tt.init_params(0, CFG.replace(family=family), device="cpu")
+    with pytest.raises(NotImplementedError, match="models/ssm_lm.py"):
         tt.init_params(0, CFG.replace(family="ssm"), device="cpu")

@@ -237,16 +237,23 @@ def test_bf16_decode_gap_at_full_depth_matches_the_reference():
 
 
 def test_ssm_entry_points_refuse_other_families():
+    """ssm_lm refuses the other families, naming the module that runs
+    each; the step functions and build_model run the hybrid and
+    encoder-decoder families through their own modules."""
     dense = get_smoke_config("qwen1.5-0.5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    hybrid = get_smoke_config("zamba2-1.2b")
+    seamless = get_smoke_config("seamless-m4t-medium")
+    with pytest.raises(NotImplementedError, match="models/transformer.py"):
         ts.init_params(0, dense, device="cpu")
-    # the step functions take the transformer families too; the
-    # hybrid and encdec families still wait
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.prefill_step({}, torch.zeros((1, 4), dtype=torch.long),
-                           CFG.replace(family="hybrid"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(CFG.replace(family="hybrid"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        steps.serve_step({}, {}, torch.zeros(1, dtype=torch.long), 0,
-                         CFG.replace(family="encdec"))
+    with pytest.raises(NotImplementedError, match="models/zamba2.py"):
+        ts.init_cache(hybrid, 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="models/encdec.py"):
+        ts.hidden({}, torch.zeros((1, 4), dtype=torch.long), seamless)
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    zp = build_model(hybrid).init(0, device="cpu")
+    assert tuple(steps.prefill_step(zp, tok, hybrid).shape) == \
+        (1, hybrid.vocab_size)
+    ep = build_model(seamless).init(0, device="cpu")
+    cache = steps.init_cache(seamless, 1, 4, enc_len=4, device="cpu")
+    logits, _ = steps.serve_step(ep, cache, tok[:, 0], 0, seamless)
+    assert tuple(logits.shape) == (1, seamless.vocab_size)
