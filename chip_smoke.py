@@ -4,7 +4,7 @@ one KN's planned DAC windows over it, the DPM pool with its planned merge,
 the cluster over that pool by its host and compiled batch engines, the
 paged LLM serving path, the dense, MoE and VLM families at head dim 128
 with the dense-cache decode, the SSM family's prefill and recurrent
-decode, and the hybrid and encoder-decoder families.
+decode, the hybrid and encoder-decoder families, and training.
 
 Run from the repository root with no arguments:
 
@@ -139,9 +139,10 @@ heads, vocab 151,936; random bf16 weights from a seeded generator):
 
   prefill      build_model(CONFIG).prefill of 4 prompts x 2048 tokens
                (flash_attention, 24 launches a call)
-  serve        PagedServer(cfg=CONFIG): 8 requests of 256-token prompts
+  serve        PagedServer(cfg=CONFIG): 2 requests of 256-token prompts
                sharing a 128-token prefix, a worker added after the
-               fourth (logits unchanged), 64 greedy decode steps each
+               first (logits unchanged), 64 greedy decode steps each
+               (cut: 2 requests, not 8, for the run's time)
                (paged_decode_attention, one launch a layer over the
                page owners' stacked tables)
   equivalence  the server's logits for a 256-token prompt (token by token
@@ -160,12 +161,13 @@ generator; each model freed before the next is made):
                       views beside scaled_dot_product_attention
   dense_decode_llama  launch.steps.serve_step's three dense-cache decodes
                       (v1, v2, v3) at batch 4 from a 256-token prefill_step,
-                      64 steps each on v1's greedy tokens: the three within
+                      32 steps each on v1's greedy tokens (cut from 64):
+                      the three within
                       2e-2 of max |logit| at every step, each within 5e-2
                       of forward's logits; one profiled step each
-  serve_llama         PagedServer(cfg=CONFIG): 4 requests of 128 tokens
-                      sharing 64, a worker added after the second, 32
-                      greedy steps each (paged_decode_attention at group 3,
+  serve_llama         PagedServer(cfg=CONFIG): 2 requests of 128 tokens
+                      sharing 64 (cut from 4), a worker added after the
+                      first, 32 greedy steps each (paged_decode_attention at group 3,
                       one stacked launch a layer); the server against
                       prefill on a 128-token prompt; kernel 6 timed
   moe_olmoe           olmoe-1b-7b at its published widths (16 layers,
@@ -191,7 +193,7 @@ weights from a seeded generator):
                against the recurrence on layer 0, and the bar shown to
                catch the output of a kernel that lost the chunk carry
   ssm_decode   a 256-token prompt teacher-forced through serve_step
-               against forward's logits, then 64 greedy steps for a
+               against forward's logits, then 32 greedy steps for a
                batch of 4, and a profile of one step
   time_ssd     ssd_scan at prefill's layer-0 inputs
 
@@ -207,7 +209,7 @@ weights from a seeded generator):
                    to its plain version); a 128-token prompt teacher-forced
                    through serve_step against forward, each mamba layer
                    and shared-block site in bf16 and the model in f32;
-                   64 greedy steps at batch 4 after a 128-token prompt, a
+                   32 greedy steps at batch 4 after a 128-token prompt, a
                    profile of one step; kernel 7 timed at layer 0's inputs
   encdec_seamless  seamless-m4t-medium (12 + 12 layers, d_model 1024, 16
                    heads of 64, vocab 256,206; random frame embeddings,
@@ -218,9 +220,30 @@ weights from a seeded generator):
                    Sk 1,500, each of one call held to mha_ref, and the
                    bar shown to see a dropped ragged key tail); encode and
                    prepare_cross, then the 256 tokens teacher-forced at
-                   batch 1 against forward; 64 greedy steps at batch 4;
+                   batch 1 against forward; 32 greedy steps at batch 4;
                    kernel 5 timed at the first cross-attention's views
                    beside scaled_dot_product_attention
+
+(the greedy decodes' 32 steps are cut from 64 for the run's time). Last,
+training at the published widths: launch.steps.train_step (remat "full",
+loss_chunk 512, AdamW with warmup_steps 1) on one fixed batch of 4 x 2048
+tokens (cut: the prefill cells' batch, not the reference's TRAIN_4K 256 x
+4096), 6 steps, the first with every kernel launch held to its plain
+version as it returns (attn_path_bar, ssd_path_err), 4 timed, the last
+profiled; the loss must fall and stay finite with every parameter; then
+the gradients of the same model cut to a few layers, in f32 on 1 x 256
+tokens, held on the card to the CPU's within 1e-4 of each leaf's max |g|:
+
+  train_qwen    qwen1.5-0.5b (0.62 B parameters; 2 layers for the
+                gradient hold): 48 flash_attention launches a step, each
+                block's forward and its checkpointed recompute
+  train_zamba2  zamba2-1.2b (1.17 B; 7 layers for the hold, one group
+                and a tail layer): 76 ssd_scan launches a step and 6
+                flash_attention (the shared block is not checkpointed)
+
+On the card kernels 5 and 7 run the forward; their backward is the plain
+versions' under autograd, as the reference's train step differentiates
+its plain paths.
 
 Every failure raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels, each
@@ -284,11 +307,12 @@ from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch.kvcache import paged_store  # noqa: E402
 from repro_torch.kvcache.paged_store import decode_over_owners  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch import optim  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
 from repro_torch.models import (encdec, layers, mamba2,  # noqa: E402
                                 ssm_lm, transformer, zamba2)
-from repro_torch.models.model_zoo import build_model  # noqa: E402
+from repro_torch.models.model_zoo import build_model, make_batch  # noqa: E402,E501
 from torch_cases import (MERGE_CASES, TRANSITION_CASES,  # noqa: E402
                          merge_case, transition_case, window_victims_case)
 from torch_cluster_cases import (cache_contents,  # noqa: E402
@@ -377,9 +401,12 @@ REFERENCE_FAULT = ("composed", "dinomo",
                    "post-recovery: index key 7326: dead value row ")
 ARCH = "qwen1.5-0.5b"
 PREFILL_B, PREFILL_S, PREFILL_REPS = 4, 2048, 3
-SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 8, 256, 128, 64
+# 2 requests, cut from 8 for the run's time: every request's shape, the
+# worker join's place before the last admission, and the held and timed
+# decode step (the last request's, 3 owners over 41 slots) are as before
+SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS = 2, 256, 128, 64
 PAGE_SIZE, NUM_PAGES = 8, 4096
-RECONFIG_AFTER = 4          # requests admitted before w2 joins
+RECONFIG_AFTER = 1          # requests admitted before w2 joins
 DECODE_B, DECODE_CTX = 64, 2048     # kernel 6 at a batched decode shape
 # the attention families at head dim 128: llama3.2-3b (dense, 24 heads over
 # 8 kv heads) and olmoe-1b-7b (MoE, 64 experts top-8) at their published
@@ -388,10 +415,13 @@ LLAMA = "llama3.2-3b"
 OLMOE = "olmoe-1b-7b"
 # the paged server at llama's widths: fewer and shorter requests than the
 # qwen serve cell (it admits token by token, about 70 ms a token)
-LLAMA_REQUESTS, LLAMA_PROMPT, LLAMA_SHARED = 4, 128, 64
-LLAMA_DECODE_STEPS, LLAMA_RECONFIG_AFTER, LLAMA_NUM_PAGES = 32, 2, 256
+# (2 requests, cut from 4 as the qwen cell's from 8, w2 after the first)
+LLAMA_REQUESTS, LLAMA_PROMPT, LLAMA_SHARED = 2, 128, 64
+LLAMA_DECODE_STEPS, LLAMA_RECONFIG_AFTER, LLAMA_NUM_PAGES = 32, 1, 256
+SERVE_CUT = ("requests cut (qwen's 8 to 2, llama's 4 to 2) for the run's "
+             "time; each request's shape and the held decode step kept")
 # the dense-cache decodes (steps.serve_step, optimized False / "v2" / "v3")
-DENSE_B, DENSE_PROMPT, DENSE_STEPS = 4, 256, 64
+DENSE_B, DENSE_PROMPT, DENSE_STEPS = 4, 256, 32     # steps cut from 64
 DENSE_IMPLS = (False, "v2", "v3")
 # max |diff| / max |logit| between two decode implementations fed the same
 # tokens: the reference's own bar (tests/test_perf_variants.py)
@@ -404,7 +434,8 @@ SSM_ARCH = "mamba2-2.7b"
 SSM_B, SSM_S, SSM_REPS = 4, 2048, 3     # prefill prompts x tokens, calls
 SSM_CHUNK = 64
 TF_PROMPT = 256                         # teacher-forced decode tokens
-GREEDY_B, GREEDY_STEPS = 4, 64
+GREEDY_B, GREEDY_STEPS = 4, 32        # steps cut from 64 for the time
+STEPS_CUT = "decode steps cut from 64 to 32 for the run's time"
 # the hybrid and encoder-decoder families at their published widths:
 # zamba2-1.2b's prefill, its teacher-forced prompt (also the greedy
 # batch's prompt); seamless-m4t-medium's 30 s of audio at 20 ms a frame
@@ -413,6 +444,21 @@ ZAMBA = "zamba2-1.2b"
 HYBRID_B, HYBRID_S, HYBRID_REPS, HYBRID_TF = 4, 2048, 3, 128
 SEAMLESS = "seamless-m4t-medium"
 ENC_B, ENC_FRAMES, ENC_TOKENS, ENC_REPS = 4, 1500, 256, 3
+# training: qwen1.5-0.5b and zamba2-1.2b at their published widths, steps
+# of launch/steps.py:train_step (remat "full", loss_chunk 512, AdamW with
+# warmup_steps 1) on one fixed batch of TRAIN_B x TRAIN_S tokens, the
+# prefill cells' batch (cut from the reference's TRAIN_4K, 256 x 4096):
+# one step held, TRAIN_STEPS timed and one profiled
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 4
+TRAIN_CUT = (f"batch {TRAIN_B} x {TRAIN_S} tokens, the prefill cells', not "
+             "TRAIN_4K's 256 x 4096; one fixed batch")
+# the gradients on the card held to the CPU's at a cut depth and full
+# width, in f32 (TF32 off), on 1 x 256 tokens: qwen at 2 layers, zamba2 at
+# 7 (one group of 6 with its shared-block site, and one tail layer); every
+# leaf within TRAIN_GRAD_TOL of its max |g|, the loss within it too
+TRAIN_HOLD_B, TRAIN_HOLD_S = 1, 256
+TRAIN_HOLD_LAYERS = {ARCH: 2, ZAMBA: 7}
+TRAIN_GRAD_TOL = 1e-4
 # the two attention kernels' times in the design they replace (commit
 # 6166d87: kernel 5 on mma.sync, kernel 6 one block per (row, kv head),
 # one launch per page owner), measured by this script on the same seeded
@@ -634,13 +680,15 @@ def paged_case(g, b, p, npages, ps):
 
 def device_summary(prof, wall: float) -> dict:
     """Device time by kernel from a torch.profiler run, and the device's
-    busy share of ``wall`` seconds."""
+    busy share of ``wall`` seconds. It walks the profiler's raw device
+    events: building its event tree for a train step's tens of thousands
+    of launches takes seconds."""
     kernels: dict[str, list] = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            k = kernels.setdefault(e.name[:60], [0, 0.0])
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            k = kernels.setdefault(e.name()[:60], [0, 0.0])
             k[0] += 1
-            k[1] += e.time_range.elapsed_us() / 1e3
+            k[1] += e.duration_ns() / 1e6
     busy_ms = sum(ms for _, ms in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms,
@@ -3543,7 +3591,7 @@ class Smoke:
 
     # --------------------------------------------------------- 10. serve
     def serve_paged(self) -> PagedServer:
-        """PagedServer at qwen1.5-0.5b's widths: 8 prompts sharing a
+        """PagedServer at qwen1.5-0.5b's widths: 2 prompts sharing a
         prefix, a worker added mid-flight, greedy decode."""
         srv, out = self._serve("serve_paged", get_config(ARCH),
                                SERVE_REQUESTS, PROMPT, SHARED, DECODE_STEPS,
@@ -3603,7 +3651,8 @@ class Smoke:
         self.tally(phase, counts)
         total = srv.stats["tokens"]
         return srv, {
-            "arch": cfg.name, "requests": requests, "prompt": prompt_len,
+            "arch": cfg.name, "cut": SERVE_CUT, "requests": requests,
+            "prompt": prompt_len,
             "shared_prefix": shared_len, "decode_steps": decode_steps,
             **srv.stats, "admit_tokens": admitted, "admit_s": admit_s,
             "decode_tokens": total - admitted, "decode_s": decode_s,
@@ -3974,7 +4023,8 @@ class Smoke:
                 "wall_ms", "device_busy_ms", "device_busy_share", "launches")}
         del caches
         torch.cuda.empty_cache()
-        emit({"phase": "dense_decode_llama", "arch": LLAMA, "batch": DENSE_B,
+        emit({"phase": "dense_decode_llama", "arch": LLAMA, "cut": STEPS_CUT,
+              "batch": DENSE_B,
               "prompt": DENSE_PROMPT, "steps": DENSE_STEPS,
               "prefill_s": prefill_s,
               "seconds": {name[i]: secs[i] for i in DENSE_IMPLS},
@@ -4346,7 +4396,8 @@ class Smoke:
             _, wall = synced(steps.serve_step, params, cache, tok,
                              start + GREEDY_STEPS, cfg)
         summary = device_summary(prof, wall)
-        emit({"phase": phase, "batch": b, **fields, "steps": GREEDY_STEPS,
+        emit({"phase": phase, "batch": b, **fields, "cut": STEPS_CUT,
+              "steps": GREEDY_STEPS,
               "seconds": sec, "step_ms": sec / GREEDY_STEPS * 1e3,
               "tokens_per_s": b * GREEDY_STEPS / sec,
               "distinct_tokens": int(torch.unique(out).numel())})
@@ -4838,6 +4889,218 @@ class Smoke:
             "share_of_bound": row["bound_ms"] / row["ms"]}})
         return row
 
+    # ----------------------------------------------------- 19. training
+    def train_qwen(self) -> None:
+        """qwen1.5-0.5b at its published widths (24 layers, d_model 1024,
+        16 heads of 64, d_ff 2816, vocab 151,936, untied; random bf16
+        weights): train_step on TRAIN_B x TRAIN_S tokens, 48 kernel-5
+        launches a step (each block's forward, and again in its
+        checkpointed recompute)."""
+        self._train("train_qwen", ARCH)
+
+    def train_zamba2(self) -> None:
+        """zamba2-1.2b at its published widths (38 mamba layers, 6
+        shared-block sites, vocab 32,000; random bf16 weights): train_step
+        on TRAIN_B x TRAIN_S tokens, 76 kernel-7 launches a step (each
+        mamba layer's forward and its recompute) and 6 kernel-5 (the shared
+        block is not checkpointed, as in the reference)."""
+        self._train("train_zamba2", ZAMBA)
+
+    @contextlib.contextmanager
+    def held_step(self, phase: str):
+        """Hold every kernel-5 and kernel-7 launch made inside the block (a
+        train step: the forward, and the backward's recompute of each
+        checkpointed block) to its plain version as it returns, at the
+        main path's bars (attn_path_bar, ssd_path_err). Yields a dict of
+        the launches held and the worst errors."""
+        attn, scan = layers.attention, mamba2.ssd
+        m = {"flash_attention_held": 0, "ssd_scan_held": 0,
+             "flash_attention_vs_plain": 0.0, "ssd_scan_vs_plain": 0.0}
+
+        def attention(q, k, v, *, causal=True):
+            n0 = _build.launches["flash_attention"]
+            out = attn(q, k, v, causal=causal)
+            if _build.launches["flash_attention"] != n0 + 1:
+                raise AssertionError(f"{phase}: an attention call launched "
+                                     "no kernel")
+            with torch.no_grad():
+                qkv = (q.detach(), k.detach(), v.detach())
+                err = attn_path_err([(
+                    f"{phase}.flash_attention.call"
+                    f"{m['flash_attention_held']}", out.detach(),
+                    attn_plain(qkv, causal))], qkv, causal)
+            m["flash_attention_held"] += 1
+            m["flash_attention_vs_plain"] = max(
+                m["flash_attention_vs_plain"], err)
+            return out
+
+        def ssd(x, dt, a, b, c, d, *, chunk=64):
+            n0 = _build.launches["ssd_scan"]
+            y = scan(x, dt, a, b, c, d, chunk=chunk)
+            if _build.launches["ssd_scan"] != n0 + 1:
+                raise AssertionError(f"{phase}: an SSD call launched no "
+                                     "kernel")
+            with torch.no_grad():
+                args = [t.detach() for t in (x, dt, a, b, c, d)]
+                err = ssd_path_err([(
+                    f"{phase}.ssd_scan.call{m['ssd_scan_held']}",
+                    y.detach(), ssd_k.ssd_chunked(
+                        *args, min(chunk, x.shape[1])))])
+            m["ssd_scan_held"] += 1
+            m["ssd_scan_vs_plain"] = max(m["ssd_scan_vs_plain"], err)
+            return y
+
+        with mock.patch.object(layers, "attention", attention), \
+                mock.patch.object(mamba2, "ssd", ssd):
+            yield m
+
+    @staticmethod
+    def _finite(params, loss) -> bool:
+        """The loss and every parameter finite (one read-back)."""
+        flags = [torch.isfinite(loss).all()] + \
+            [torch.isfinite(t).all() for _, t in optim.adamw.leaves(params)]
+        return bool(torch.stack(flags).all())
+
+    def _train(self, phase: str, arch: str) -> None:
+        """TRAIN_STEPS + 1 steps of steps.train_step at ``arch``'s published
+        widths on one fixed batch, counted from 0: the first with every
+        kernel launch held to its plain version (held_step), the next
+        TRAIN_STEPS timed (tokens/s from their median), the last profiled
+        (the device's busy share). The launches a step must be one a
+        forward call and one a checkpointed block's recompute; the loss
+        and every parameter finite after each step; the last step's loss
+        below the first's. Then the gradients on the card held to the
+        CPU's at a cut depth (_train_grad_hold)."""
+        from torch.profiler import ProfilerActivity, profile
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        _, groups, _ = zamba2._group_shape(cfg)
+        per_step = ({"flash_attention": 2 * cfg.num_layers, "ssd_scan": 0}
+                    if cfg.family == "dense" else
+                    {"flash_attention": groups,
+                     "ssd_scan": 2 * cfg.num_layers})
+        t0 = time.perf_counter()
+        params = build_model(cfg).init(SEED)
+        opt_state = optim.init_state(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        batch = make_batch(cfg, TRAIN_B, TRAIN_S, gen=torch.Generator(
+            device=self.dev).manual_seed(SEED))
+        opt = optim.AdamWConfig(warmup_steps=1)
+        torch.cuda.reset_peak_memory_stats()
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        metrics, secs = [], []
+
+        def step():
+            nonlocal params, opt_state
+            (params, opt_state, m), sec = synced(
+                steps.train_step, params, opt_state, batch, cfg, opt)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if not self._finite(params, m["loss"]):
+                raise AssertionError(f"{phase}: step {len(metrics)}: the "
+                                     "loss or a parameter is not finite")
+            return sec
+
+        with self.held_step(phase) as held:
+            first_s = step()
+        want = {k: v for k, v in per_step.items() if v}
+        got = {k: _build.launches[k] for k in want}
+        if got != want or held["flash_attention_held"] != \
+                per_step["flash_attention"] or \
+                held["ssd_scan_held"] != per_step["ssd_scan"]:
+            raise AssertionError(f"{phase}: the first step launched {got} "
+                                 f"and held {held}, not {want}")
+        for _ in range(TRAIN_STEPS):
+            secs.append(step())
+        # the device's activity alone: a step launches tens of thousands
+        # of kernels, and the host's events would take seconds to walk
+        t1 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = step()
+        summary = device_summary(prof, wall)
+        profile_s = time.perf_counter() - t1
+        steps_run = len(metrics)
+        got = {k: _build.launches[k] for k in want}
+        if got != {k: v * steps_run for k, v in want.items()}:
+            raise AssertionError(f"{phase}: {steps_run} steps launched {got}, "
+                                 f"not {want} a step")
+        if not metrics[-1]["loss"] < metrics[0]["loss"]:
+            raise AssertionError(f"{phase}: the loss did not fall: "
+                                 f"{[m['loss'] for m in metrics]}")
+        self.tally(phase, dict(_build.launches))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        sec = sorted(secs)[len(secs) // 2]
+        del params, opt_state, batch
+        torch.cuda.empty_cache()
+        hold = self._train_grad_hold(phase, cfg)
+        emit({"phase": phase, "arch": arch, "params": cfg.param_count(),
+              "layers": cfg.num_layers, "init_s": init_s, "batch": TRAIN_B,
+              "seq": TRAIN_S, "cut": TRAIN_CUT, "steps": steps_run,
+              "first_step_s": first_s, "seconds": secs,
+              "tokens_per_s": TRAIN_B * TRAIN_S / sec,
+              "peak_device_gib": peak,
+              "loss": [m["loss"] for m in metrics],
+              "grad_norm": [m["grad_norm"] for m in metrics],
+              "lr": metrics[-1]["lr"], "launches_per_step": want,
+              "launches": got, **held, "busy_share_profiled_step":
+              summary["device_busy_share"], "profile_s": profile_s,
+              "grad_hold": hold, "phase_s": time.perf_counter() - t_phase})
+        emit({"profile": f"one {arch} train step, {TRAIN_B} x {TRAIN_S}",
+              **summary})
+
+    def _train_grad_hold(self, phase: str, cfg) -> dict:
+        """The loss and every parameter's gradient of one batch on the card
+        (kernels 5 and 7 forward, their plain versions' backward) against
+        the same on the CPU (the plain versions throughout): ``cfg`` cut to
+        TRAIN_HOLD_LAYERS layers at full width, train_step's remat and
+        loss chunk, f32 weights from the seeded bf16 ones (so both hold the
+        same values), TF32 off, TRAIN_HOLD_B x TRAIN_HOLD_S tokens; within
+        TRAIN_GRAD_TOL of each leaf's max |g|. Uncounted."""
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("f32 matrix products must not run in TF32")
+        cut = cfg.replace(num_layers=TRAIN_HOLD_LAYERS[cfg.name],
+                          remat="full", loss_chunk=512)
+        t0 = time.perf_counter()
+        with uncounted():
+            card = optim.adamw.tree_map(lambda t: t.float(),
+                                        build_model(cut).init(SEED + 1))
+            host = optim.adamw.tree_map(lambda t: t.cpu(), card)
+            batch = make_batch(cut, TRAIN_HOLD_B, TRAIN_HOLD_S,
+                               gen=torch.Generator(device=self.dev)
+                               .manual_seed(SEED + 1))
+            n0 = dict(_build.launches)
+            loss_c, _, grads_c = steps.value_and_grad(card, batch, cut)
+            launched = {k: _build.launches[k] - n0[k]
+                        for k in ("flash_attention", "ssd_scan")}
+            loss_h, _, grads_h = steps.value_and_grad(
+                host, {k: v.cpu() for k, v in batch.items()}, cut)
+        if not any(launched.values()):
+            raise AssertionError(f"{phase}: the gradient hold launched no "
+                                 "kernel on the card")
+        worst, where = 0.0, None
+        for (path, gc_), (_, gh) in zip(optim.adamw.leaves(grads_c),
+                                        optim.adamw.leaves(grads_h),
+                                        strict=True):
+            scale = float(gh.abs().max()) or 1.0
+            gap = float((gc_.cpu() - gh).abs().max()) / scale
+            if gap > worst:
+                worst, where = gap, "/".join(map(str, path))
+        loss_gap = abs(float(loss_c) - float(loss_h)) / abs(float(loss_h))
+        out = {"layers": cut.num_layers, "batch": TRAIN_HOLD_B,
+               "seq": TRAIN_HOLD_S, "dtype": "float32",
+               "launches": launched, "loss_card": float(loss_c),
+               "loss_cpu": float(loss_h), "loss_rel_diff": loss_gap,
+               "worst_leaf_rel_diff": worst, "worst_leaf": where,
+               "tolerance": TRAIN_GRAD_TOL,
+               "seconds": time.perf_counter() - t0}
+        if worst > TRAIN_GRAD_TOL or loss_gap > TRAIN_GRAD_TOL:
+            emit({"phase": f"{phase}_grad_hold", **out})
+            raise AssertionError(f"{phase}: card and CPU gradients part by "
+                                 f"{worst} of a leaf's max |g| at {where} "
+                                 f"(loss by {loss_gap})")
+        return out
+
     def _ssd_row(self, args, label: str):
         """The kernels line's row for kernel 7 on a prefill call's
         (x, dt, a, b, c, d), x, b and c strided views of the conv's output,
@@ -4957,6 +5220,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.append(smoke.hybrid_zamba2())
     kernels.append(smoke.encdec_seamless())
+    smoke.train_qwen()
+    torch.cuda.empty_cache()
+    smoke.train_zamba2()
     emit({"total_s": time.perf_counter() - t_start})
     # launches on the main path, summed over every phase that ran it
     emit({"launches_by_phase": smoke.phase_counts})

@@ -8,6 +8,9 @@ kernel. The kernel reads q in its own type (f32 or bf16, rows through a
 stride that may be 0) and f32 or bf16 pages as they are, and computes in
 f32. Each row's slots are split across blocks (``split_count``) and the
 splits merged inside the same launch: one launch per call.
+
+The kernel's outputs carry no autograd graph, and no path trains through
+the paged decode: on the card an input that requires grad raises.
 """
 
 from __future__ import annotations
@@ -79,10 +82,16 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, page_pos,
     Rows are independent: the page owners of one sequence go as rows of
     one call, with q the same row for each (``q.expand``, stride 0).
     Returns (acc (B, H, D), m (B, H), l (B, H)) in f32, so that
-    attention = acc / l once the partials of all owners are merged."""
+    attention = acc / l once the partials of all owners are merged. On
+    the card an input that requires grad (with grad enabled) raises: the
+    kernel's outputs carry no graph."""
     if not on_cuda(q, k_pages, v_pages, page_table, page_pos, lengths):
         return paged_decode_ref(q, k_pages, v_pages, page_table, page_pos,
                                 lengths)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pages, v_pages)):
+        raise RuntimeError("paged_decode_attention records no autograd "
+                           "graph on the card; no path trains through it")
     b, h, d = q.shape
     num_pages, ps, kh, _ = k_pages.shape
     if v_pages.shape != k_pages.shape or k_pages.shape[3] != d or h % kh:

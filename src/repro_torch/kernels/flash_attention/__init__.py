@@ -1,3 +1,3 @@
-from .flash_attention import flash_attention
+from .flash_attention import FlashAttention, flash_attention
 from .ops import attention
 from .ref import mha_ref

@@ -8,6 +8,11 @@ CPU tensors run the plain version in ref.py; CUDA tensors run the kernel.
 A causal call with Sq != Sk raises on both: there the reference's kernel
 (top-left mask) and its oracle (bottom-right) disagree, and the model
 never makes such a call.
+
+Both run inside ``FlashAttention``, an autograd function whose backward
+differentiates the plain version, so the output carries a graph on every
+device. ``out=`` cannot carry one: with it, an input that requires grad
+raises.
 """
 
 from __future__ import annotations
@@ -48,26 +53,20 @@ def _strides(t: torch.Tensor, align: int):
     return strides
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    out: torch.Tensor | None = None) -> torch.Tensor:
-    """q: (B, H, Sq, D); k, v: (B, KH, Sk, D) with H % KH == 0. Returns
-    (B, H, Sq, D) in q's type, written into ``out`` when it is given.
-    Any strides are taken as they are, as long as D is contiguous: the
-    kernel reads and writes through them, so transposed views of the
-    model layout need no copy."""
+def _run(q, k, v, causal: bool, out: torch.Tensor) -> None:
+    """Write attention of the (B, H, Sq, D) / (B, KH, Sk, D) views into
+    ``out`` (B, H, Sq, D): the kernel on the card, mha_ref on the CPU.
+    Records no graph."""
     _check(q, k, v, causal)
-    b, h, sq, d = q.shape
-    if out is None:
-        out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    elif out.shape != q.shape or out.dtype != q.dtype:
+    if out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError("out must match q in shape and type")
     if not on_cuda(q, k, v, out):
         out.copy_(mha_ref(q, k, v, causal=causal))
-        return out
+        return
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"expected float32 or bfloat16 q, k, v of one type; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    b, h, sq, d = q.shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     # the bf16 kernel loads q, k and v with TMA, which needs 16-byte
@@ -79,4 +78,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d,
                   *strides, d ** -0.5, int(causal), _build.stream(q))
+
+
+def _heads_major(t: torch.Tensor, model_layout: bool) -> torch.Tensor:
+    return t.transpose(1, 2) if model_layout else t
+
+
+class FlashAttention(torch.autograd.Function):
+    """Kernel 5 forward, plain backward. ``apply(q, k, v, causal,
+    model_layout)``: q, k, v in (B, H, S, D) layout, or in the model's
+    (B, S, H, D) with ``model_layout``, where the kernel reads their
+    (B, H, S, D) views and writes a contiguous (B, S, H, D) output through
+    its view (no transposed copy either way).
+
+    The forward launches the kernel (mha_ref on CPU tensors) and saves q,
+    k and v as given, views included. The backward recomputes mha_ref on
+    detached copies under autograd and returns ``torch.autograd.grad`` of
+    that recompute, shaped like the inputs: the port of what the
+    reference's train step differentiates, ``mha_ref``
+    (src/repro/kernels/flash_attention/ops.py:63; ``blocked_mha_jnp`` at
+    :61, above 2048 keys, is not ported). The reference has no backward
+    kernel, so neither has the port."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, model_layout: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.model_layout = causal, model_layout
+        if model_layout:
+            out = torch.empty_like(q, memory_format=torch.contiguous_format)
+        else:
+            out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _run(*(_heads_major(t, model_layout) for t in (q, k, v)), causal,
+             _heads_major(out, model_layout))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = mha_ref(*(_heads_major(t, ctx.model_layout)
+                            for t in inputs), causal=ctx.causal)
+            grads = torch.autograd.grad(
+                _heads_major(out, ctx.model_layout), inputs, grad)
+        return (*grads, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """q: (B, H, Sq, D); k, v: (B, KH, Sk, D) with H % KH == 0. Returns
+    (B, H, Sq, D) in q's type, with a graph through ``FlashAttention``;
+    or written into ``out`` when it is given, which records no graph and
+    so raises when grad is enabled and an input requires it. Any strides
+    are taken as they are, as long as D is contiguous: the kernel reads and
+    writes through them, so transposed views of the model layout need no
+    copy."""
+    if out is None:
+        return FlashAttention.apply(q, k, v, causal, False)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention(out=...) records no autograd "
+                           "graph; call it without out= for inputs that "
+                           "require grad")
+    _run(q, k, v, causal, out)
     return out

@@ -6,7 +6,9 @@ f32; bf16 inputs (the model's) on the tensor cores, with S, B o w and the
 state's copy for C.h rounded to bf16 as operands.
 
 CPU tensors run the plain version (``ref.ssd_chunked``); CUDA tensors run
-the kernel.
+the kernel. Both run inside ``SSDScan``, an autograd function whose
+backward differentiates the plain version, so y carries a graph on every
+device.
 """
 
 from __future__ import annotations
@@ -48,16 +50,9 @@ def _rows(t: torch.Tensor, name: str):
     return t.stride(0), t.stride(1)
 
 
-def ssd_scan(x, dt, a, b, c, d, *, chunk: int = 64) -> torch.Tensor:
-    """x: (B, S, H, P); dt: (B, S, H) (positive, post-softplus); a: (H,)
-    (negative); b, c: (B, S, G, N); d: (H,). Returns y (B, S, H, P) in
-    x's type. S must be a multiple of ``chunk``.
-
-    On the card x, b and c are float32 or bfloat16 of one type and may be
-    strided views as long as their last two dims are packed (the model
-    hands it slices of one projection); dt, a and d are contiguous
-    float32."""
-    _check(x, dt, a, b, c, d, chunk)
+def _run(x, dt, a, b, c, d, chunk: int) -> torch.Tensor:
+    """y of the kernel on the card, of ssd_chunked on the CPU; records no
+    graph."""
     if not on_cuda(x, dt, a, b, c, d):
         return ssd_chunked(x, dt, a, b, c, d, chunk)
     if x.dtype not in _DTYPES or b.dtype != x.dtype or c.dtype != x.dtype:
@@ -84,3 +79,47 @@ def ssd_scan(x, dt, a, b, c, d, *, chunk: int = 64) -> torch.Tensor:
                   y.data_ptr(), bsz, s, h, g, n, p, chunk, *strides,
                   _build.stream(x))
     return y
+
+
+class SSDScan(torch.autograd.Function):
+    """Kernel 7 forward, plain backward: ``apply(x, dt, a, b, c, d,
+    chunk)``. The forward launches the kernel (ssd_chunked on CPU
+    tensors) and saves the six inputs as given, the strided views of one
+    projection included. The backward recomputes ``ref.ssd_chunked`` on
+    detached copies under autograd and returns ``torch.autograd.grad`` of
+    that recompute for each input that needs one, shaped like it: the
+    port of what the reference's train step differentiates,
+    ``_ssd_chunked_jnp`` (src/repro/kernels/ssd_scan/ops.py:25, called at
+    :83). The reference has no backward kernel, so neither has the
+    port."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d, chunk: int):
+        ctx.save_for_backward(x, dt, a, b, c, d)
+        ctx.chunk = chunk
+        return _run(x, dt, a, b, c, d, chunk)
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = ctx.needs_input_grad[:6]
+        inputs = [t.detach().requires_grad_(n)
+                  for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = ssd_chunked(*inputs, ctx.chunk)
+            wrt = [t for t, n in zip(inputs, need) if n]
+            got = iter(torch.autograd.grad(y, wrt, grad))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def ssd_scan(x, dt, a, b, c, d, *, chunk: int = 64) -> torch.Tensor:
+    """x: (B, S, H, P); dt: (B, S, H) (positive, post-softplus); a: (H,)
+    (negative); b, c: (B, S, G, N); d: (H,). Returns y (B, S, H, P) in
+    x's type, with a graph through ``SSDScan``. S must be a multiple of
+    ``chunk``.
+
+    On the card x, b and c are float32 or bfloat16 of one type and may be
+    strided views as long as their last two dims are packed (the model
+    hands it slices of one projection); dt, a and d are contiguous
+    float32."""
+    _check(x, dt, a, b, c, d, chunk)
+    return SSDScan.apply(x, dt, a, b, c, d, chunk)

@@ -1,5 +1,5 @@
-"""Single-card step functions of the serving path: the bodies of the
-reference's ``launch/steps.py:build_prefill_step`` and
+"""Single-card step functions: the bodies of the reference's
+``launch/steps.py:build_train_step``, ``build_prefill_step`` and
 ``build_decode_step``, without a mesh, shardings or a ``StepBundle``, for
 every family: the transformer families (dense, moe, vlm), the SSM, the
 hybrid (zamba2) and the encoder-decoder (encdec, audio)."""
@@ -11,6 +11,8 @@ import torch
 from ..models import (RUNS, encdec, families_run_by, ssm_lm, transformer,
                       zamba2)
 from ..models.layers import PARAM_DTYPE, unembed
+from ..models.model_zoo import build_model
+from ..optim.adamw import AdamWConfig, apply_updates, leaves, tree_map
 
 _ENCDEC = families_run_by("encdec")
 
@@ -18,6 +20,49 @@ _ENCDEC = families_run_by("encdec")
 def _check_family(cfg) -> None:
     if cfg.family not in RUNS:
         raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def value_and_grad(params: dict, batch: dict, cfg):
+    """(loss, metrics, grads) of ``build_model(cfg).loss(params, batch)``:
+    the gradients with respect to every parameter by
+    ``torch.autograd.grad``, a tree shaped like ``params`` (zeros for a
+    parameter the loss does not read, as under ``jax.grad``), computed on
+    aliases of the parameters so that theirs stay untouched. The metrics
+    come detached."""
+    # leaves of the graph: aliases of the parameters, which an update may
+    # then write in place once the graph is freed
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics = build_model(cfg).loss(live, batch)
+    flat = [t for _, t in leaves(live)]
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    it = iter([torch.zeros_like(t) if g is None else g
+               for t, g in zip(flat, grads)])
+    del live, flat
+    grads = tree_map(lambda _: next(it), params)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def train_step(params: dict, opt_state: dict, batch: dict, cfg,
+               opt: AdamWConfig | None = None):
+    """One training step: the loss of ``batch`` (``tokens``, ``labels``
+    and, for the encoder families, ``frames``), its gradients with respect
+    to every parameter (``value_and_grad``), and one AdamW step (``opt``,
+    the default ``AdamWConfig()`` when None). As the reference's step, the
+    model runs with ``remat="full"`` where cfg says "none" and
+    ``loss_chunk`` 512 where cfg says 0. ``params`` and ``opt_state`` are
+    updated in place (the reference's step donates them). Returns
+    (params, opt_state, {**the loss's metrics, "grad_norm", "lr"}).
+
+    On the card the forward runs kernels 5 and 7, once in the forward and
+    once more in the backward's recompute of each checkpointed block; the
+    backward differentiates their plain versions."""
+    _check_family(cfg)
+    cfg = cfg.replace(remat="full" if cfg.remat == "none" else cfg.remat,
+                      loss_chunk=cfg.loss_chunk or 512)
+    _, metrics, grads = value_and_grad(params, batch, cfg)
+    params, opt_state, opt_metrics = apply_updates(params, grads, opt_state,
+                                                   opt or AdamWConfig())
+    return params, opt_state, {**metrics, **opt_metrics}
 
 
 def prefill_step(params: dict, tokens: torch.Tensor, cfg,

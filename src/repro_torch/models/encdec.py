@@ -9,8 +9,9 @@ dicts (``ln1``, ``attn``, ``ln2``, ``mlp``); ``dec_layers``, a list of
 ``num_layers`` dicts (``ln1``, ``self``, ``lnx``, ``cross``, ``ln2``,
 ``mlp``); ``embed`` (V, d) for the decoder's tokens, ``ln_enc``, ``ln_f``
 and an untied ``head`` (d, V). The reference stacks each list on a leading
-axis for ``lax.scan``; here Python loops walk them. ``loss_fn`` and
-training are not ported.
+axis for ``lax.scan``; here Python loops walk them. ``loss_fn`` is the
+decoder's cross entropy; under ``cfg.remat == "full"`` each encoder and
+each decoder layer is checkpointed, as the reference's scan bodies.
 
 Serving: the cache holds the decoder's self-attention KV, (L, B, S, KH, D)
 each, written in place a token at a time, and the cross-attention KV of
@@ -24,9 +25,10 @@ import torch
 from ..device import resolve_device
 from . import check_family
 from .layers import (PARAM_DTYPE, attention_block, attention_decode,
-                     attn_init, cross_attention_block, decode_attention_dense,
-                     embed_init, mlp, mlp_init, position_ids, rmsnorm,
-                     rmsnorm_init, unembed)
+                     attn_init, chunked_cross_entropy, cross_attention_block,
+                     cross_entropy, decode_attention_dense, embed_init, mlp,
+                     mlp_init, position_ids, remat, rmsnorm, rmsnorm_init,
+                     unembed)
 
 
 def _enc_layer_init(gen: torch.Generator, cfg, dev) -> dict:
@@ -74,11 +76,15 @@ def encode(params: dict, frames: torch.Tensor, cfg) -> torch.Tensor:
     positions = position_ids(b, s, frames.device)
     x = frames.to(PARAM_DTYPE)
     for lp in params["enc_layers"]:
-        h = x + attention_block(lp["attn"],
-                                rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                                positions, causal=False)
-        x = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
+        x = remat(cfg, _enc_layer, lp, x, cfg, positions)
     return rmsnorm(params["ln_enc"], x, cfg.norm_eps)
+
+
+def _enc_layer(lp: dict, x: torch.Tensor, cfg,
+               positions: torch.Tensor) -> torch.Tensor:
+    h = x + attention_block(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                            cfg, positions, causal=False)
+    return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
 
 
 def _cross_kv(lp: dict, memory: torch.Tensor, cfg):
@@ -101,20 +107,38 @@ def hidden(params: dict, frames: torch.Tensor, tokens: torch.Tensor,
     x = params["embed"][tokens.long()]
     positions = position_ids(b, s, x.device)
     for lp in params["dec_layers"]:
-        h = x + attention_block(lp["self"],
-                                rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                                positions, causal=True)
-        mk, mv = _cross_kv(lp, memory, cfg)
-        h = h + cross_attention_block(
-            lp["cross"], rmsnorm(lp["lnx"], h, cfg.norm_eps), mk, mv, cfg)
-        x = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
+        x = remat(cfg, _dec_layer, lp, x, memory, cfg, positions)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps)
+
+
+def _dec_layer(lp: dict, x: torch.Tensor, memory: torch.Tensor, cfg,
+               positions: torch.Tensor) -> torch.Tensor:
+    h = x + attention_block(lp["self"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                            cfg, positions, causal=True)
+    mk, mv = _cross_kv(lp, memory, cfg)
+    h = h + cross_attention_block(
+        lp["cross"], rmsnorm(lp["lnx"], h, cfg.norm_eps), mk, mv, cfg)
+    return h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
 
 
 def forward(params: dict, frames: torch.Tensor, tokens: torch.Tensor, cfg):
     """frames: (B, S_enc, d); tokens: (B, S_dec) -> logits (B, S_dec, V)
     f32, aux {}."""
     return unembed(params, hidden(params, frames, tokens, cfg), cfg), {}
+
+
+def loss_fn(params: dict, batch: dict, cfg):
+    """batch: ``frames`` (B, S_enc, d), ``tokens`` and ``labels`` (B, S)
+    int, optional ``mask``. The decoder's chunked cross entropy under
+    ``cfg.loss_chunk``, else the dense one. Returns (loss, {"loss"})."""
+    x = hidden(params, batch["frames"], batch["tokens"], cfg)
+    if cfg.loss_chunk:
+        loss = chunked_cross_entropy(params, x, batch["labels"], cfg,
+                                     cfg.loss_chunk)
+    else:
+        loss = cross_entropy(unembed(params, x, cfg), batch["labels"],
+                             batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 def init_cache(cfg, batch: int, max_len: int, enc_len: int,

@@ -1,6 +1,6 @@
 """Shared model layers: norms, rotary embeddings, attention (full
 sequence, cross-attention over an encoder's memory, and one decode token
-against a dense KV cache), MLPs.
+against a dense KV cache), MLPs, the head and the losses.
 
 Functional, as in the reference: parameters are plain dicts of tensors,
 weights stored (d_in, d_out) so a layer is ``x @ w``; every layer is
@@ -11,6 +11,7 @@ rotary math run in f32, with the reference's casts in the same places.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from ..kernels.flash_attention.ops import attention
 
@@ -109,6 +110,18 @@ def cross_attention_block(p: dict, x: torch.Tensor, mem_k: torch.Tensor,
     q = (x @ p["wq"]).view(b, s, cfg.num_heads, cfg.hd)
     out = attention(q, mem_k, mem_v, causal=False)
     return out.reshape(b, s, -1) @ p["wo"]
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, checkpointed when ``cfg.remat == "full"`` (the
+    reference's ``jax.checkpoint`` of a block): its activations are not
+    kept but recomputed in the backward, kernel launches included. The
+    blocks draw no random numbers, so no RNG state is kept for the
+    recompute."""
+    if cfg.remat == "full":
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def check_pos(pos, slots: int) -> int:
@@ -213,3 +226,38 @@ def unembed(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
         return (x @ params["embed"].T).float()
     return (x @ params["head"]).float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """logits: (B, S, V) f32; labels: (B, S) int. The mean negative
+    log-likelihood of the labels under an f32 log-softmax; with ``mask``
+    (B, S), the masked sum over ``max(mask.sum(), 1)``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def chunked_cross_entropy(params: dict, x: torch.Tensor, labels: torch.Tensor,
+                          cfg, chunk: int) -> torch.Tensor:
+    """The loss of ``unembed(params, x, cfg)`` against labels (B, S) over
+    sequence chunks of ``chunk`` (cut to S), so that only one chunk's
+    (B, chunk, V) logits are made at a time: the chunks' summed NLL over
+    B * S, added chunk by chunk in order, as the reference's scan. When S
+    is not a multiple of the chunk, the dense ``cross_entropy`` of the
+    whole logits, with no mask, as the reference's."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        return cross_entropy(unembed(params, x, cfg), labels)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        logp = torch.log_softmax(unembed(params, x[:, c0:c0 + chunk], cfg),
+                                 dim=-1)
+        nll = -torch.gather(logp, -1,
+                            labels[:, c0:c0 + chunk].long()[..., None])
+        total = total + nll.sum()
+    return total / (b * s)

@@ -19,6 +19,7 @@ from . import encdec, families_run_by, ssm_lm, transformer, zamba2
 class Model:
     cfg: ModelConfig
     init: Callable[..., Any]        # (seed, device=None) -> params
+    loss: Callable[..., Any]        # (params, batch) -> (loss, metrics)
     forward: Callable[..., Any]     # (params, batch) -> logits
     # (params, tokens) -> (last-token logits, kv); transformer families
     prefill: Callable[..., Any] | None = None
@@ -34,6 +35,7 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             init=lambda seed, device=None: transformer.init_params(
                 seed, cfg, device),
+            loss=lambda p, b: transformer.loss_fn(p, b, cfg),
             forward=lambda p, b: transformer.forward(p, b["tokens"], cfg)[0],
             prefill=lambda p, tokens: transformer.prefill(p, tokens, cfg),
             init_cache=lambda batch, max_len, device=None:
@@ -46,6 +48,7 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             init=lambda seed, device=None: ssm_lm.init_params(
                 seed, cfg, device),
+            loss=lambda p, b: ssm_lm.loss_fn(p, b, cfg),
             forward=lambda p, b: ssm_lm.forward(p, b["tokens"], cfg)[0],
             init_cache=lambda batch, max_len=0, device=None:
                 ssm_lm.init_cache(cfg, batch, max_len, device=device),
@@ -57,6 +60,7 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             init=lambda seed, device=None: zamba2.init_params(
                 seed, cfg, device),
+            loss=lambda p, b: zamba2.loss_fn(p, b, cfg),
             forward=lambda p, b: zamba2.forward(p, b["tokens"], cfg)[0],
             init_cache=lambda batch, max_len, device=None:
                 zamba2.init_cache(cfg, batch, max_len, device=device),
@@ -68,6 +72,7 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg=cfg,
             init=lambda seed, device=None: encdec.init_params(
                 seed, cfg, device),
+            loss=lambda p, b: encdec.loss_fn(p, b, cfg),
             forward=lambda p, b: encdec.forward(p, b["frames"], b["tokens"],
                                                 cfg)[0],
             init_cache=lambda batch, max_len, enc_len=1024, device=None:

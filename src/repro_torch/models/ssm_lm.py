@@ -5,7 +5,8 @@ Parameters are a dict: ``embed`` (V, d), ``ln_f`` (d,) and ``layers``, a
 list of one dict per layer (``ln``, ``mamba``: see mamba2.py). The cache
 is {"mamba": a list of one {"conv", "ssm"} state per layer}. The
 reference stacks both on a leading axis for ``lax.scan``; here a Python
-loop walks the lists. ``loss_fn`` and training are not ported.
+loop walks the lists. ``loss_fn`` is the cross entropy of the tied head;
+under ``cfg.remat == "full"`` each block is checkpointed.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 
 from ..device import resolve_device
 from . import check_family
-from .layers import embed_init, rmsnorm, rmsnorm_init, unembed
+from .layers import (chunked_cross_entropy, cross_entropy, embed_init, remat,
+                     rmsnorm, rmsnorm_init, unembed)
 from .mamba2 import mamba_block, mamba_decode, mamba_init, mamba_state_init
 
 
@@ -35,13 +37,18 @@ def init_params(seed: int, cfg, device=None) -> dict:
 
 def hidden(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """tokens: (B, S) int -> final normed hidden (B, S, d); one ssd_scan
-    launch per layer on the card."""
+    launch per layer on the card (and one more in the backward under
+    ``cfg.remat == "full"``, which checkpoints each block)."""
     check_family(cfg, "ssm_lm")
     x = params["embed"][tokens.long()]
     for lp in params["layers"]:
-        x = x + mamba_block(lp["mamba"], rmsnorm(lp["ln"], x, cfg.norm_eps),
-                            cfg)
+        x = remat(cfg, _layer, lp, x, cfg)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps)
+
+
+def _layer(lp: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    return x + mamba_block(lp["mamba"], rmsnorm(lp["ln"], x, cfg.norm_eps),
+                           cfg)
 
 
 def _tied(cfg):
@@ -51,6 +58,20 @@ def _tied(cfg):
 def forward(params: dict, tokens: torch.Tensor, cfg):
     """tokens: (B, S) int -> logits (B, S, V) f32, aux {}."""
     return unembed(params, hidden(params, tokens, cfg), _tied(cfg)), {}
+
+
+def loss_fn(params: dict, batch: dict, cfg):
+    """The chunked cross entropy of the tied head under ``cfg.loss_chunk``,
+    else the dense one (with ``batch``'s optional ``mask``). Returns
+    (loss, {"loss"})."""
+    x = hidden(params, batch["tokens"], cfg)
+    if cfg.loss_chunk:
+        loss = chunked_cross_entropy(params, x, batch["labels"], _tied(cfg),
+                                     cfg.loss_chunk)
+    else:
+        loss = cross_entropy(unembed(params, x, _tied(cfg)), batch["labels"],
+                             batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 def init_cache(cfg, batch: int, max_len: int = 0, device=None) -> dict:

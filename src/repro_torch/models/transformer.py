@@ -11,6 +11,10 @@ weights (d_in, d_out) in bf16 (the router f32). The reference stacks the
 layers on a leading axis for ``lax.scan``; here a Python loop walks the
 list (``state.params_from_jax`` converts one layout into the other).
 
+Training: ``loss_fn`` is the chunked or dense cross entropy of
+``hidden`` plus the MoE's aux terms; under ``cfg.remat == "full"`` each
+block is checkpointed, as the reference's scan body.
+
 Serving: ``prefill`` fills a dense KV cache; three decode steps continue
 from one, as the reference's: ``decode_step`` over (L, B, S, KH, D)
 caches, ``decode_step_v2`` and ``decode_step_v3`` over (L, B, KH, S, D)
@@ -30,9 +34,10 @@ from ..kernels.decode_attention.ref import normalize
 from ..kernels.flash_attention.ops import attention
 from . import check_family, families_run_by
 from .layers import (PARAM_DTYPE, attention_block, attention_decode,
-                     attn_init, check_pos, decode_attention_khmajor,
-                     decode_scores, embed_init, mlp, mlp_init, position_ids,
-                     qkv_proj, rmsnorm, rmsnorm_init, unembed)
+                     attn_init, check_pos, chunked_cross_entropy,
+                     cross_entropy, decode_attention_khmajor, decode_scores,
+                     embed_init, mlp, mlp_init, position_ids, qkv_proj,
+                     remat, rmsnorm, rmsnorm_init, unembed)
 from .moe import moe_ff, moe_init
 
 FAMILIES = families_run_by("transformer")
@@ -76,21 +81,25 @@ def feed_forward(lp: dict, h: torch.Tensor, cfg):
     return mlp(lp["mlp"], hin, cfg), None
 
 
+def _block(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
+    """One layer: (x out, the MoE's aux or None)."""
+    h = x + attention_block(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
+                            cfg, positions)
+    y, aux = feed_forward(lp, h, cfg)
+    return h + y, aux
+
+
 def hidden(params: dict, tokens: torch.Tensor, cfg):
     """tokens: (B, S) int -> final normed hidden (B, S, d), aux: the
     layers' mean ``load_balance`` and ``router_z`` (0 outside the MoE
-    family)."""
+    family). Each block is checkpointed under ``cfg.remat == "full"``."""
     check_family(cfg, "transformer")
     b, s = tokens.shape
     x = params["embed"][tokens.long()]
     positions = position_ids(b, s, x.device)
     lb, rz = [], []
     for lp in params["layers"]:
-        h = x + attention_block(lp["attn"],
-                                rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
-                                positions)
-        y, aux = feed_forward(lp, h, cfg)
-        x = h + y
+        x, aux = remat(cfg, _block, lp, x, cfg, positions)
         if aux is not None:
             lb.append(aux["load_balance"])
             rz.append(aux["router_z"])
@@ -106,6 +115,23 @@ def forward(params: dict, tokens: torch.Tensor, cfg):
     """tokens: (B, S) int -> logits (B, S, V) f32, aux."""
     x, aux = hidden(params, tokens, cfg)
     return unembed(params, x, cfg), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg, aux_weight: float = 0.01):
+    """batch: ``tokens`` and ``labels`` (B, S) int, optional ``mask``
+    (B, S) (read by the dense loss only, as the reference's). The chunked
+    cross entropy under ``cfg.loss_chunk``, else the dense one, plus
+    ``aux_weight`` x ``load_balance`` + 1e-3 x ``router_z``. Returns
+    (loss, {"loss", "load_balance", "router_z"})."""
+    x, aux = hidden(params, batch["tokens"], cfg)
+    if cfg.loss_chunk:
+        loss = chunked_cross_entropy(params, x, batch["labels"], cfg,
+                                     cfg.loss_chunk)
+    else:
+        loss = cross_entropy(unembed(params, x, cfg), batch["labels"],
+                             batch.get("mask"))
+    loss = loss + aux_weight * aux["load_balance"] + 1e-3 * aux["router_z"]
+    return loss, {"loss": loss, **aux}
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg):

@@ -9,7 +9,10 @@ Parameters are a dict: ``layers``, a list of one dict per mamba layer
 ``groups`` of ``every`` layers, each followed by the shared block, and
 ``tail`` layers after the last group (``_group_shape``). The reference
 scans groups and tail with ``lax.scan``; here a Python loop walks the
-layers. ``loss_fn`` and training are not ported.
+layers. ``loss_fn`` is the cross entropy of the untied head; under
+``cfg.remat == "full"`` each mamba layer is checkpointed, in the groups and
+the tail, and the shared block is not (as in the reference). Every site
+reads the one ``shared`` dict, so its gradient is the sum over the sites.
 
 Serving: the cache holds a mamba state per layer and one dense KV pair
 per shared-block site, (groups, B, S, KH, D) each; ``decode_step``
@@ -23,8 +26,9 @@ import torch
 from ..device import resolve_device
 from . import check_family
 from .layers import (PARAM_DTYPE, attention_block, attention_decode,
-                     attn_init, embed_init, mlp, mlp_init, position_ids,
-                     rmsnorm, rmsnorm_init, unembed)
+                     attn_init, chunked_cross_entropy, cross_entropy,
+                     embed_init, mlp, mlp_init, position_ids, remat, rmsnorm,
+                     rmsnorm_init, unembed)
 from .mamba2 import mamba_block, mamba_decode, mamba_init, mamba_state_init
 
 
@@ -84,13 +88,14 @@ def _shared_attn(sp: dict, x: torch.Tensor, cfg,
 def hidden(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     """tokens: (B, S) int -> final normed hidden (B, S, d): on the card one
     ssd_scan launch a mamba layer and one flash_attention launch (causal)
-    a shared-block site."""
+    a shared-block site; under ``cfg.remat == "full"`` the backward runs
+    each mamba layer's again."""
     check_family(cfg, "zamba2")
     b, s = tokens.shape
     x = params["embed"][tokens.long()]
     positions = position_ids(b, s, x.device)
     for li, lp in enumerate(params["layers"]):
-        x = _mamba_layer(lp, x, cfg)
+        x = remat(cfg, _mamba_layer, lp, x, cfg)
         if _site_after(cfg, li) is not None:
             x = _shared_attn(params["shared"], x, cfg, positions)
     return rmsnorm(params["ln_f"], x, cfg.norm_eps)
@@ -99,6 +104,20 @@ def hidden(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
 def forward(params: dict, tokens: torch.Tensor, cfg):
     """tokens: (B, S) int -> logits (B, S, V) f32, aux {}."""
     return unembed(params, hidden(params, tokens, cfg), cfg), {}
+
+
+def loss_fn(params: dict, batch: dict, cfg):
+    """The chunked cross entropy of the untied head under
+    ``cfg.loss_chunk``, else the dense one (with ``batch``'s optional
+    ``mask``). Returns (loss, {"loss"})."""
+    x = hidden(params, batch["tokens"], cfg)
+    if cfg.loss_chunk:
+        loss = chunked_cross_entropy(params, x, batch["labels"], cfg,
+                                     cfg.loss_chunk)
+    else:
+        loss = cross_entropy(unembed(params, x, cfg), batch["labels"],
+                             batch.get("mask"))
+    return loss, {"loss": loss}
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=PARAM_DTYPE,

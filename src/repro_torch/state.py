@@ -103,6 +103,44 @@ STACKS = {"layers": "num_layers", "enc_layers": "encoder_layers",
           "dec_layers": "num_layers"}
 
 
+def reference_ndim(path: tuple, t: torch.Tensor) -> int:
+    """The rank of the leaf ``t`` at ``path`` (the keys from the root, list
+    indices included) in the reference's tree: one more than ``t``'s
+    inside a layer list of ``STACKS``, which the reference stacks on a
+    leading axis. So a layer's norm (d,) counts as (L, d), while ``ln_f``
+    and zamba2's unstacked ``shared`` block keep their own rank. The
+    reference's AdamW decays the leaves of rank 2 or more
+    (src/repro/optim/adamw.py:72)."""
+    stacked = len(path) > 1 and path[0] in STACKS and isinstance(path[1], int)
+    return t.dim() + int(stacked)
+
+
+def _carry(tree: dict, cfg, leaf) -> dict:
+    """The port's layout of the reference's tree ``tree`` (nested dicts of
+    numpy arrays): ``leaf(array, name)`` of each leaf, where ``name`` is
+    its key; each list of ``STACKS`` unstacked into one dict per layer,
+    as deep as cfg says."""
+    def walk(node, pick, name=None):
+        if isinstance(node, dict):
+            return {k: walk(v, pick, k) for k, v in node.items()}
+        return leaf(pick(np.asarray(node)), name)
+
+    stacks = [k for k in STACKS if k in tree]
+    if not stacks:
+        raise ValueError(f"no stacked layers among {sorted(tree)}; "
+                         f"expected one of {sorted(STACKS)}")
+    out = {k: walk(v, lambda a: a, k) for k, v in tree.items()
+           if k not in STACKS}
+    for key in stacks:
+        n = getattr(cfg, STACKS[key])
+        depth = {np.asarray(a).shape[0] for a in _leaves(tree[key])}
+        if depth != {n}:
+            raise ValueError(f"{key} stacked {sorted(depth)} deep, config "
+                             f"has {STACKS[key]} = {n}")
+        out[key] = [walk(tree[key], lambda a, i=i: a[i]) for i in range(n)]
+    return out
+
+
 def params_from_jax(params: dict, cfg, device=None) -> dict:
     """The port's parameters on ``device`` from the reference's parameter
     tree as nested dicts of numpy arrays: ``models/transformer.py``
@@ -122,27 +160,48 @@ def params_from_jax(params: dict, cfg, device=None) -> dict:
     come as float32 arrays, kept exactly; every other leaf is bf16, given
     as float32 (rounded to bf16) or as the uint16 bits of bf16."""
     dev = resolve_device(device)
+    return _carry(params, cfg, lambda a, name: _f32(a, dev)
+                  if name in F32_LEAVES else _bf16(a, dev))
 
-    def tree(node, pick, name=None):
+
+def opt_state_from_jax(state: dict, cfg, device=None) -> dict:
+    """The port's AdamW state (``optim.init_state``'s layout) on ``device``
+    from the reference's (``repro.optim.init_state`` and on), as numpy:
+    ``mu`` and ``nu``, trees shaped like the reference's parameters with
+    float32 leaves, kept exactly and unstacked as ``params_from_jax``
+    unstacks; ``step``, an int32 0-d tensor."""
+    dev = resolve_device(device)
+    return {"mu": _carry(state["mu"], cfg, lambda a, _: _f32(a, dev)),
+            "nu": _carry(state["nu"], cfg, lambda a, _: _f32(a, dev)),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
+
+
+def params_to_numpy(params: dict, cfg) -> dict:
+    """The reference's parameter tree (``params_from_jax``'s input) from
+    the port's parameters, or from any tree shaped like them (gradients,
+    AdamW moments): nested dicts of float32 numpy arrays (bf16 values are
+    exact in float32), each list of ``STACKS`` stacked on a leading axis
+    again."""
+    for key in STACKS:
+        if key in params and len(params[key]) != getattr(cfg, STACKS[key]):
+            raise ValueError(f"{key} holds {len(params[key])} layers, config "
+                             f"has {STACKS[key]} = "
+                             f"{getattr(cfg, STACKS[key])}")
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
+        return np.stack(layers)
+
+    def walk(node):
         if isinstance(node, dict):
-            return {k: tree(v, pick, k) for k, v in node.items()}
-        leaf = pick(np.asarray(node))
-        return _f32(leaf, dev) if name in F32_LEAVES else _bf16(leaf, dev)
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return stack([walk(v) for v in node])
+        return node.detach().float().cpu().numpy()
 
-    stacks = [k for k in STACKS if k in params]
-    if not stacks:
-        raise ValueError(f"no stacked layers among {sorted(params)}; "
-                         f"expected one of {sorted(STACKS)}")
-    out = {k: tree(v, lambda a: a, k) for k, v in params.items()
-           if k not in STACKS}
-    for key in stacks:
-        n = getattr(cfg, STACKS[key])
-        depth = {np.asarray(a).shape[0] for a in _leaves(params[key])}
-        if depth != {n}:
-            raise ValueError(f"{key} stacked {sorted(depth)} deep, config "
-                             f"has {STACKS[key]} = {n}")
-        out[key] = [tree(params[key], lambda a, i=i: a[i]) for i in range(n)]
-    return out
+    return walk(params)
 
 
 def _leaves(node):

@@ -1577,3 +1577,185 @@ def test_timed_simulation_jit_on_the_card_equals_the_host_engine(dev):
     assert cluster_state(jit.c, heaps=False) == \
         cluster_state(host.c, heaps=False)
     assert jit.c._jit.counts["launches"] > 0
+
+
+# ------------------------------------------- kernels 5 and 7 under autograd
+# The kernels' outputs carry a graph: the forward is the kernel, the
+# backward the plain version's recomputed under autograd (the reference
+# differentiates its plain paths and has no backward kernel). So the
+# gradients through a kernel equal the plain version's on the same inputs
+# up to the order of f32 sums in the same functions on one card: 1e-5 of
+# each gradient's max. Kernel 6 and flash_attention(out=) carry none and
+# raise on an input that requires grad.
+def grads_of(fn, inputs, weight):
+    """fn's output, and the gradients of sum(fn(*inputs) * weight) with
+    respect to every input that requires grad."""
+    out = fn(*inputs)
+    loss = (out.float() * weight).sum()
+    return out, torch.autograd.grad(loss, [t for t in inputs
+                                           if t.requires_grad])
+
+
+def leaf(t):
+    return t.detach().clone().requires_grad_()
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,d,causal,dtype", [
+    (2, 4, 4, 128, 128, 64, True, torch.bfloat16),
+    (1, 6, 2, 200, 200, 128, True, torch.bfloat16),      # GQA group 3
+    (1, 8, 2, 77, 300, 64, False, torch.bfloat16),       # ragged Sk
+    (2, 4, 1, 129, 129, 32, True, torch.float32),
+    (1, 4, 2, 64, 150, 64, False, torch.float32),
+])
+def test_flash_attention_gradients_match_plain(dev, b, h, kh, sq, sk, d,
+                                               causal, dtype):
+    g = torch.Generator(device=dev).manual_seed(sq + sk)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((b, h, sq, d), (b, kh, sk, d), (b, kh, sk, d)))
+    weight = torch.randn((b, h, sq, d), generator=g, device=dev)
+    n0 = _build.launches["flash_attention"]
+    out, got = grads_of(lambda *t: tf.flash_attention(*t, causal=causal),
+                        [leaf(q), leaf(k), leaf(v)], weight)
+    assert _build.launches["flash_attention"] == n0 + 1
+    assert out.grad_fn is not None
+    ref, want = grads_of(lambda *t: tf.mha_ref(*t, causal=causal),
+                         [leaf(q), leaf(k), leaf(v)], weight)
+    for name, a, w in zip("qkv", got, want):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=1e-5 * scale, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_gradients_through_model_layout_views(dev, dtype):
+    """q, k and v as the model hands them: (B, S, H, D) views of one
+    projection (the kernel reads their transposes through strides); the
+    gradient reaches the projection and the weight behind it."""
+    b, s, h, kh, d, dm = 2, 256, 8, 2, 64, 128
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((b, s, dm), generator=g, device=dev).to(dtype)
+    w = (torch.randn((dm, (h + 2 * kh) * d), generator=g, device=dev)
+         * dm ** -0.5).to(dtype)
+    weight = torch.randn((b, s, h, d), generator=g, device=dev)
+
+    def model(x, w, attn):
+        proj = x @ w
+        q = proj[..., :h * d].view(b, s, h, d)
+        k = proj[..., h * d:(h + kh) * d].view(b, s, kh, d)
+        v = proj[..., (h + kh) * d:].view(b, s, kh, d)
+        return attn(q, k, v)
+
+    def plain(q, k, v):
+        return tf.mha_ref(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=True).transpose(1, 2)
+
+    n0 = _build.launches["flash_attention"]
+    _, got = grads_of(lambda x, w: model(x, w, tf.attention),
+                      [leaf(x), leaf(w)], weight)
+    assert _build.launches["flash_attention"] == n0 + 1
+    _, want = grads_of(lambda x, w: model(x, w, plain), [leaf(x), leaf(w)],
+                       weight)
+    for name, a, ref in zip(("x", "w"), got, want):
+        torch.testing.assert_close(a.float(), ref.float(), rtol=0,
+                                   atol=1e-5 * float(ref.float().abs().max()),
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_scan_gradients_match_plain(dev, dtype):
+    """All six inputs: x, B and C as views of one projection (the
+    gradient reaches the projection), dt, a = -exp(a_log) (it reaches
+    a_log) and d."""
+    b, s, h, g, n, p = 2, 256, 8, 1, 64, 64
+    x, dt, a, bm, cm, d = ssd_case(dev, b, s, h, g, n, p, dtype, 17)
+    xbc = torch.cat([x.reshape(b, s, -1), bm.reshape(b, s, -1),
+                     cm.reshape(b, s, -1)], dim=-1)
+    a_log = torch.log(-a)
+    weight = torch.randn((b, s, h, p), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+
+    def model(xbc, dt, a_log, d, scan):
+        xv = xbc[..., :h * p].view(b, s, h, p)
+        bv = xbc[..., h * p:h * p + g * n].view(b, s, g, n)
+        cv = xbc[..., h * p + g * n:].view(b, s, g, n)
+        return scan(xv, dt, -torch.exp(a_log), bv, cv, d)
+
+    inputs = [xbc, dt, a_log, d]
+    n0 = _build.launches["ssd_scan"]
+    out, got = grads_of(
+        lambda *t: model(*t, lambda *u: tss.ssd_scan(*u, chunk=64)),
+        [leaf(t) for t in inputs], weight)
+    assert _build.launches["ssd_scan"] == n0 + 1
+    assert out.grad_fn is not None
+    _, want = grads_of(
+        lambda *t: model(*t, lambda *u: tss.ssd_chunked(*u, 64)),
+        [leaf(t) for t in inputs], weight)
+    for name, a_, w in zip(("xbc", "dt", "a_log", "d"), got, want):
+        assert a_.dtype == w.dtype and a_.shape == w.shape, name
+        torch.testing.assert_close(a_.float(), w.float(), rtol=0,
+                                   atol=1e-5 * float(w.float().abs().max()),
+                                   msg=name)
+
+
+def test_kernels_without_a_graph_refuse_inputs_that_require_grad(dev):
+    q = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device=dev,
+                    requires_grad=True)
+    out = torch.empty((1, 2, 8, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        tf.flash_attention(q, q, q, out=out)
+    with torch.no_grad():
+        tf.flash_attention(q, q, q, out=out)
+    q, kp, vp, pt, pos, lens = paged_case(dev, 2, 4, 2, 64, 8, 16, 3,
+                                          torch.bfloat16, 0)
+    args = [kp, vp, *(torch.from_numpy(x).to(dev) for x in (pt, pos, lens))]
+    qd = q.detach().clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no autograd graph"):
+        td.paged_decode_attention(qd, *args)
+    n0 = _build.launches["paged_decode_attention"]
+    with torch.no_grad():
+        td.paged_decode_attention(qd, *args)
+    assert _build.launches["paged_decode_attention"] == n0 + 1
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "zamba2-1.2b"])
+def test_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """One steps.train_step of the smoke config (f32 weights, TF32 off)
+    on the card -- kernel 5 (and 7) in the forward and again in each
+    checkpointed block's recompute, the plain versions' backward --
+    against the same step on the CPU: the metrics within 1e-4 and the
+    parameters within 5e-2 of the learning rate (a gradient element near 0
+    carries a last-place difference into Adam's normalized step)."""
+    from repro_torch import optim
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models import zamba2
+    from repro_torch.models.model_zoo import build_model, make_batch
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_smoke_config(arch)
+    host = _to(build_model(cfg).init(0, device="cpu"), "cpu")
+    host = optim.adamw.tree_map(lambda t: t.float(), host)
+    card = _to(host, dev)
+    batch = make_batch(cfg, 2, 64, device="cpu")
+    opt = optim.AdamWConfig(lr=1e-3, warmup_steps=1)
+    outs = []
+    for params, d in ((card, dev), (host, "cpu")):
+        st_ = optim.init_state(params)
+        n0 = dict(_build.launches)
+        params, st_, m = steps.train_step(params, st_, _to(batch, d), cfg,
+                                          opt)
+        outs.append((params, m, {k: _build.launches[k] - n0[k]
+                                 for k in ("flash_attention", "ssd_scan")}))
+    (p_card, m_card, launched), (p_host, m_host, _) = outs
+    _, groups, _ = zamba2._group_shape(cfg)
+    want = {"flash_attention": 2 * cfg.num_layers, "ssd_scan": 0} \
+        if cfg.family == "dense" else \
+        {"flash_attention": groups, "ssd_scan": 2 * cfg.num_layers}
+    assert launched == want
+    for k in m_host:
+        torch.testing.assert_close(m_card[k].cpu(), m_host[k], rtol=1e-4,
+                                   atol=1e-6, msg=k)
+    for (path, a), (_, w) in zip(optim.adamw.leaves(p_card),
+                                 optim.adamw.leaves(p_host), strict=True):
+        gap = float((a.cpu() - w).abs().max()) / opt.lr
+        assert gap <= 5e-2, (path, gap)

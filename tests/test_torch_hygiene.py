@@ -15,7 +15,7 @@ import numpy as np  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import clht as tc  # noqa: E402
 from repro_torch.core import log as tl  # noqa: E402
-from repro_torch import device, state  # noqa: E402
+from repro_torch import device, optim, state  # noqa: E402
 from repro_torch.core import DinomoCluster  # noqa: E402
 from repro_torch.core import scenarios  # noqa: E402
 from repro_torch.core.dpm_pool import DPMPool  # noqa: E402
@@ -72,6 +72,14 @@ FAMILIES_SLICE = ("models/moe.py", "models/transformer.py",
 HYBRID_ENCDEC_SLICE = ("models/__init__.py", "models/zamba2.py",
                        "models/encdec.py", "configs/zamba2_1_2b.py",
                        "configs/seamless_m4t_medium.py")
+# the modules of the training slice (the optimizer, the losses and the
+# train step, the state carried across), which the scan must reach too
+TRAIN_SLICE = ("optim/__init__.py", "optim/adamw.py", "launch/steps.py",
+               "state.py", "models/layers.py", "models/transformer.py",
+               "models/ssm_lm.py", "models/zamba2.py", "models/encdec.py",
+               "kernels/flash_attention/flash_attention.py",
+               "kernels/flash_attention/ops.py",
+               "kernels/ssd_scan/ssd_scan.py")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 # the one environment variable the port reads: the ownership sanitizer's
 # switch, the reference's own (it chooses no device)
@@ -131,6 +139,21 @@ def test_the_scan_reaches_the_hybrid_and_encdec_slice():
         assert PORT / name in PORT_FILES, name
 
 
+def test_the_scan_reaches_the_train_slice():
+    for name in TRAIN_SLICE:
+        assert PORT / name in PORT_FILES, name
+
+
+def test_optimizer_state_follows_its_params(monkeypatch):
+    """optim.init_state makes its state on the parameters' device and asks
+    for no card: meta parameters give meta moments even with no card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = {"layers": [{"w": torch.zeros((2, 3), device="meta")}]}
+    opt_state = optim.init_state(params)
+    assert opt_state["step"].device.type == "meta"
+    assert opt_state["mu"]["layers"][0]["w"].device.type == "meta"
+
+
 def test_every_kernel_package_has_ref_and_parity_test():
     kernels = sorted(p for p in (PORT / "kernels").iterdir()
                      if p.is_dir() and not p.name.startswith("_"))
@@ -164,6 +187,8 @@ def test_every_kernel_package_has_ref_and_parity_test():
     lambda: paged_store.pool_init(1, 2, 4, 1, 16),
     lambda: PagedServer("qwen1.5-0.5b"),
     lambda: state.params_from_jax({"layers": {}}, None),
+    lambda: state.opt_state_from_jax({"mu": {"layers": {}},
+                                      "nu": {"layers": {}}, "step": 0}, None),
     lambda: ssm_lm.init_params(0, get_smoke_config("mamba2-2.7b")),
     lambda: build_model(get_smoke_config("mamba2-2.7b")).init(0),
     lambda: ssm_lm.init_cache(get_smoke_config("mamba2-2.7b"), 1),
