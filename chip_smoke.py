@@ -4,7 +4,8 @@ one KN's planned DAC windows over it, the DPM pool with its planned merge,
 the cluster over that pool by its host and compiled batch engines, the
 paged LLM serving path, the dense, MoE and VLM families at head dim 128
 with the dense-cache decode, the SSM family's prefill and recurrent
-decode, the hybrid and encoder-decoder families, and training.
+decode, the hybrid and encoder-decoder families, and training with its
+loop (data loader, checkpoints, resume, hot-row replica).
 
 Run from the repository root with no arguments:
 
@@ -30,7 +31,8 @@ also on the slow-path entries of one served write batch). Then one
 KN serves the same pool from its DAC cache:
 
   kn_window  an ArrayDAC of 1 GiB (the paper's KN cache against its 32 GB
-             dataset) warmed full, then YCSB write_heavy_update and
+             dataset) warmed full, then 2^15 ops each (cut from 2^16 for
+             the run's time) of YCSB write_heavy_update and
              read_mostly_update at zipf 0.99 over the 2^25 keys, in
              batches whose missing reads are probed on the card (kernel A)
              and whose writes go through log_append_merge (C and D). Each
@@ -228,8 +230,9 @@ weights from a seeded generator):
 training at the published widths: launch.steps.train_step (remat "full",
 loss_chunk 512, AdamW with warmup_steps 1) on one fixed batch of 4 x 2048
 tokens (cut: the prefill cells' batch, not the reference's TRAIN_4K 256 x
-4096), 6 steps, the first with every kernel launch held to its plain
-version as it returns (attn_path_bar, ssd_path_err), 4 timed, the last
+4096), 4 steps, the first with every kernel launch held to its plain
+version as it returns (attn_path_bar, ssd_path_err), 2 timed (cut from 4:
+the loop below times the same step), the last
 profiled; the loss must fall and stay finite with every parameter; then
 the gradients of the same model cut to a few layers, in f32 on 1 x 256
 tokens, held on the card to the CPU's within 1e-4 of each leaf's max |g|:
@@ -243,7 +246,31 @@ tokens, held on the card to the CPU's within 1e-4 of each leaf's max |g|:
 
 On the card kernels 5 and 7 run the forward; their backward is the plain
 versions' under autograd, as the reference's train step differentiates
-its plain paths.
+its plain paths. Then training's loop around that step, at qwen1.5-0.5b's
+published widths:
+
+  train_loop  launch.train.train (smoke=False) on 4 x 2048 tokens a step
+              from SyntheticLM through the Prefetcher, checkpoints in a
+              temporary directory under build/ (removed after; the phase
+              first asks for twice a checkpoint's 6.2 GB free): 12 steps
+              with a failure injected after step 11, so one sealed
+              checkpoint, step 10, written by the asynchronous flush while
+              steps 11 and 12 run; then 5 steps resumed from it. The first
+              step's 48 kernel-5 launches held to the plain version, 48 a
+              step over the 17; the state the resumed run restores equal
+              bit for bit to the one saved (each leaf on the card,
+              serialized as the store writes it, with its segment's CRC);
+              every loss and parameter finite. Timed: the steps, the
+              prefetch waits and uploads, the save (its host copy, the
+              flush by stage, the steps it overlaps) and the restore
+              (validation and its CRC passes, the load, the upload)
+  hot_rows    the trained embedding table (151,936 x 1,024 bf16): the
+              loop's token ids counted, the M-node's rule (3 sigma, at most
+              256 rows), build_replica; lookup of the next batch bit for
+              bit the gather, is_hot np.isin; one more train_step changes
+              the table (the stale replica must differ), then
+              refresh_after_update and the lookup equal again; lookup
+              timed beside the plain gather
 
 Every failure raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels, each
@@ -261,8 +288,10 @@ import gc
 import importlib
 import json
 import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -294,7 +323,10 @@ from repro_torch.core.transition import (ENGINE_WALL,  # noqa: E402
                                          reset_engine_wall,
                                          reset_merge_plan_stats,
                                          reset_plan_stats)
-from repro_torch.data import Workload  # noqa: E402
+from repro_torch.data import Prefetcher, SyntheticLM, Workload  # noqa: E402
+from repro_torch import embedding  # noqa: E402
+from repro_torch import state as state_mod  # noqa: E402
+from repro_torch.checkpoint import ckpt as ckpt_mod  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import batch_executor  # noqa: E402
 from repro_torch.kernels import cache_transition as transition  # noqa: E402
@@ -310,6 +342,7 @@ from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import (encdec, layers, mamba2,  # noqa: E402
                                 ssm_lm, transformer, zamba2)
 from repro_torch.models.model_zoo import build_model, make_batch  # noqa: E402,E501
@@ -336,7 +369,7 @@ DPM_KERNELS = ("clht_probe", "kvs_lookup_fused", "log_merge_sorted",
 # against its 32 GB dataset (benchmarks/bench_dataplane.py:65-67)
 KN_CACHE = 1 << 30
 KN_MIXES = ("write_heavy_update", "read_mostly_update")
-KN_OPS = 1 << 16            # ops per mix
+KN_OPS = 1 << 15            # ops per mix (cut from 2^16 for the run's time)
 KN_BATCH = 1 << 13          # ops whose reads are probed and writes merged
 KN_WINDOW = 512             # ops per planning chunk, as _run_window_at
 KN_SEGMENT = 2048           # the reference's segments (a segcache holds 4)
@@ -448,10 +481,12 @@ ENC_B, ENC_FRAMES, ENC_TOKENS, ENC_REPS = 4, 1500, 256, 3
 # of launch/steps.py:train_step (remat "full", loss_chunk 512, AdamW with
 # warmup_steps 1) on one fixed batch of TRAIN_B x TRAIN_S tokens, the
 # prefill cells' batch (cut from the reference's TRAIN_4K, 256 x 4096):
-# one step held, TRAIN_STEPS timed and one profiled
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 4
+# one step held, TRAIN_STEPS timed (cut from 4: train_loop times the same
+# step 15 more times) and one profiled
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 2
 TRAIN_CUT = (f"batch {TRAIN_B} x {TRAIN_S} tokens, the prefill cells', not "
-             "TRAIN_4K's 256 x 4096; one fixed batch")
+             f"TRAIN_4K's 256 x 4096; one fixed batch; {TRAIN_STEPS} timed "
+             "steps, cut from 4")
 # the gradients on the card held to the CPU's at a cut depth and full
 # width, in f32 (TF32 off), on 1 x 256 tokens: qwen at 2 layers, zamba2 at
 # 7 (one group of 6 with its shared-block site, and one tail layer); every
@@ -459,6 +494,16 @@ TRAIN_CUT = (f"batch {TRAIN_B} x {TRAIN_S} tokens, the prefill cells', not "
 TRAIN_HOLD_B, TRAIN_HOLD_S = 1, 256
 TRAIN_HOLD_LAYERS = {ARCH: 2, ZAMBA: 7}
 TRAIN_GRAD_TOL = 1e-4
+# training's loop (launch/train.py): qwen1.5-0.5b at its published widths,
+# the reference's test_system.py drive at TRAIN_B x TRAIN_S tokens: 12 steps
+# with a failure injected after step 11 (one sealed checkpoint, step 10),
+# then 5 steps resumed from it; a log line every 5 steps
+LOOP_STEPS, LOOP_FAIL_AT, LOOP_RESUME_STEPS, LOOP_LOG_EVERY = 12, 11, 5, 5
+LOOP_RESUME_AT = 10
+LOOP_CUT = (f"batch {TRAIN_B} x {TRAIN_S} tokens, as the train cells; the "
+            "reference test's 12 + 5 steps and its one checkpoint")
+# the hot-row replica of the trained embedding table (the M-node's rule)
+HOT_K_SIGMA, HOT_MAX_ROWS = 3.0, 256
 # the two attention kernels' times in the design they replace (commit
 # 6166d87: kernel 5 on mma.sync, kernel 6 one block per (row, kv head),
 # one launch per page owner), measured by this script on the same seeded
@@ -881,6 +926,8 @@ class Smoke:
         # kernel vs plain on every launch of one main-path call (prefill,
         # a decode step)
         self.path_err: dict[str, float] = {}
+        # each training phase's median step seconds
+        self.train_step_s: dict[str, float] = {}
 
     def tally(self, phase: str, counts: dict) -> None:
         """Add a phase's main-path launches (counted from 0 just before
@@ -1451,7 +1498,9 @@ class Smoke:
         planned = PLAN_STATS["planned_windows"]
         prefixes = sum(pv.values())
         emit({"phase": "kn_window", "mixes": list(KN_MIXES),
-              "ops": len(KN_MIXES) * KN_OPS, "seconds": sec,
+              "ops": len(KN_MIXES) * KN_OPS,
+              "cut": "2^15 ops a mix, cut from 2^16 for the run's time",
+              "seconds": sec,
               "ops_per_s": len(KN_MIXES) * KN_OPS / sec, **PLAN_STATS,
               **tally,
               "agree_share": v["agree"] / max(1, planned),
@@ -5031,6 +5080,7 @@ class Smoke:
         self.tally(phase, dict(_build.launches))
         peak = torch.cuda.max_memory_allocated() / 2**30
         sec = sorted(secs)[len(secs) // 2]
+        self.train_step_s[phase] = sec
         del params, opt_state, batch
         torch.cuda.empty_cache()
         hold = self._train_grad_hold(phase, cfg)
@@ -5100,6 +5150,350 @@ class Smoke:
                                  f"{worst} of a leaf's max |g| at {where} "
                                  f"(loss by {loss_gap})")
         return out
+
+    # ------------------------------------------------ 20. training's loop
+    def train_loop(self) -> None:
+        """launch.train.train at qwen1.5-0.5b's published widths, TRAIN_B x
+        TRAIN_S tokens a step from SyntheticLM through the Prefetcher,
+        checkpoints in a temporary directory under build/ (removed at the
+        end): LOOP_STEPS steps with a failure injected after step
+        LOOP_FAIL_AT (one sealed checkpoint, step LOOP_RESUME_AT), then
+        LOOP_RESUME_STEPS steps resumed from it, as the reference's
+        tests/test_system.py drives it. The first step's kernel-5 launches
+        are held to the plain version (held_step); the phase's launches
+        must be 48 a step; every step's loss and each run's parameters
+        finite. The state the resumed run restores must equal the saved
+        one bit for bit (_restored_as_saved, before the loop unstacks it).
+        Timed: each step between synchronizations, the waits in
+        Prefetcher.next and in the batch's upload, the save (its blocking
+        host copy, the asynchronous flush by stage, the steps that overlap
+        it) and the restores (validation with its CRC passes, the load,
+        the upload, the unstacking)."""
+        phase = "train_loop"
+        t_phase = time.perf_counter()
+        cfg = get_config(ARCH)
+        build = ROOT / "build"
+        build.mkdir(exist_ok=True)
+        ckpt_bytes = cfg.param_count() * (2 + 4 + 4)
+        free = shutil.disk_usage(build).free
+        if free < 2 * ckpt_bytes:
+            raise RuntimeError(f"{phase}: {free / 1e9:.1f} GB free under "
+                               f"{build}, a checkpoint needs "
+                               f"{ckpt_bytes / 1e9:.1f} GB (twice that "
+                               "asked for)")
+        d = tempfile.mkdtemp(prefix="train_loop_", dir=build)
+        rec = {"step_s": [], "step_span": [], "losses": [], "held": None,
+               "next_s": [], "steps_given": [], "tokens": [],
+               "upload_s": [], "saves": [], "restores": [],
+               "from_checkpoint_s": [], "restore_check": None}
+        real = {"step": steps.train_step, "next": Prefetcher.next,
+                "upload": train_mod.upload,
+                "save": ckpt_mod.CheckpointStore.save,
+                "restore": ckpt_mod.CheckpointStore.restore,
+                "from_ckpt": state_mod.from_checkpoint}
+
+        def train_step(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if rec["held"] is None:
+                with self.held_step(phase) as held:
+                    out = real["step"](*args)
+                rec["held"] = dict(held)
+            else:
+                out = real["step"](*args)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            rec["step_s"].append(t1 - t0)
+            rec["step_span"].append((t0, t1))
+            loss = float(out[2]["loss"])
+            if not np.isfinite(loss):
+                raise AssertionError(f"{phase}: step {len(rec['step_s'])}: "
+                                     f"loss {loss}")
+            rec["losses"].append(loss)
+            return out
+
+        def next_batch(pf):
+            t0 = time.perf_counter()
+            step, batch = real["next"](pf)
+            rec["next_s"].append(time.perf_counter() - t0)
+            rec["steps_given"].append(step)
+            rec["tokens"].append(batch["tokens"])
+            return step, batch
+
+        def upload(batch, dev):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real["upload"](batch, dev)
+            torch.cuda.synchronize()
+            rec["upload_s"].append(time.perf_counter() - t0)
+            return out
+
+        def save(store, step, tree, extra=None):
+            t0 = time.perf_counter()
+            fut = real["save"](store, step, tree, extra)
+            t1 = time.perf_counter()
+            entry = {"step": step, "store": store, "call_s": t1 - t0,
+                     "returned": t1, "flushed": None}
+            fut.add_done_callback(
+                lambda _: entry.update(flushed=time.perf_counter()))
+            rec["saves"].append(entry)
+            return fut
+
+        def restore(store, template, step=None, device=None):
+            before = dict(store.stats)
+            t0 = time.perf_counter()
+            out = real["restore"](store, template, step, device)
+            rec["restores"].append({
+                "step": out[2], "call_s": time.perf_counter() - t0,
+                "store": store,
+                **{k: store.stats[k] - before[k] for k in
+                   ("validate_s", "crc_s", "crc_passes", "crc_bytes",
+                    "load_s", "upload_s", "bytes_read")}})
+            return out
+
+        def from_checkpoint(tree, cfg_, device=None):
+            # the state the loop resumes from, as restored
+            rec["restore_check"] = self._restored_as_saved(
+                phase, d, LOOP_RESUME_AT, tree, self.dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real["from_ckpt"](tree, cfg_, device)
+            torch.cuda.synchronize()
+            rec["from_checkpoint_s"].append(time.perf_counter() - t0)
+            return out
+
+        run = dict(smoke=False, batch=TRAIN_B, seq=TRAIN_S, ckpt_dir=d,
+                   log_every=LOOP_LOG_EVERY, seed=SEED)
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with mock.patch.object(steps, "train_step", train_step), \
+                    mock.patch.object(Prefetcher, "next", next_batch), \
+                    mock.patch.object(train_mod, "upload", upload), \
+                    mock.patch.object(ckpt_mod.CheckpointStore, "save",
+                                      save), \
+                    mock.patch.object(ckpt_mod.CheckpointStore, "restore",
+                                      restore), \
+                    mock.patch.object(state_mod, "from_checkpoint",
+                                      from_checkpoint):
+                t0 = time.perf_counter()
+                params, opt_state, losses_a = train_mod.train(
+                    ARCH, steps=LOOP_STEPS, fail_at=LOOP_FAIL_AT, **run)
+                first_run_s = time.perf_counter() - t0
+                if not self._finite(params, torch.tensor(losses_a,
+                                                         device=self.dev)):
+                    raise AssertionError(f"{phase}: the first run's loss or "
+                                         "a parameter is not finite")
+                del params, opt_state
+                torch.cuda.empty_cache()
+                first_steps = len(rec["step_s"])
+                t0 = time.perf_counter()
+                params, opt_state, losses_b = train_mod.train(
+                    ARCH, steps=LOOP_RESUME_STEPS, resume=True, **run)
+                resumed_run_s = time.perf_counter() - t0
+            if not self._finite(params, torch.tensor(losses_b,
+                                                     device=self.dev)):
+                raise AssertionError(f"{phase}: the resumed run's loss or a "
+                                     "parameter is not finite")
+            self.tally(phase, dict(_build.launches))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            steps_run = len(rec["step_s"])
+            want_given = list(range(LOOP_STEPS)) + list(range(
+                LOOP_RESUME_AT, LOOP_RESUME_AT + LOOP_RESUME_STEPS))
+            if rec["steps_given"] != want_given or \
+                    [r["step"] for r in rec["restores"]] != [LOOP_RESUME_AT]:
+                raise AssertionError(
+                    f"{phase}: the loop ran steps {rec['steps_given']} and "
+                    f"restored {[r['step'] for r in rec['restores']]}, not "
+                    f"{want_given} from step {LOOP_RESUME_AT}")
+            per_step = 2 * cfg.num_layers
+            held = rec["held"]
+            launched = _build.launches["flash_attention"]
+            if launched != per_step * steps_run or \
+                    held["flash_attention_held"] != per_step:
+                raise AssertionError(f"{phase}: {steps_run} steps launched "
+                                     f"kernel 5 {launched} times and held "
+                                     f"{held}, not {per_step} a step")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        self.loop = {"params": params, "opt_state": opt_state, "cfg": cfg,
+                     "tokens": rec["tokens"]}
+        save = rec["saves"][0]
+        flush_s = save["flushed"] - save["returned"]
+        overlap = [sec for sec, (a, b) in zip(rec["step_s"],
+                                              rec["step_span"])
+                   if b > save["returned"] and a < save["flushed"]]
+        firsts = {0, first_steps}
+        steady = sorted(sec for i, (sec, (a, b)) in enumerate(zip(
+            rec["step_s"], rec["step_span"])) if i not in firsts
+            and not (b > save["returned"] and a < save["flushed"]))
+        median = steady[len(steady) // 2]
+        stats = save["store"].stats
+        logged = [i + 1 for i in range(LOOP_STEPS)
+                  if (i + 1) % LOOP_LOG_EVERY == 0 or i == 0] + \
+            [i + 1 for i in range(LOOP_RESUME_AT,
+                                  LOOP_RESUME_AT + LOOP_RESUME_STEPS)
+             if (i + 1) % LOOP_LOG_EVERY == 0 or i == LOOP_RESUME_AT]
+        emit({"phase": phase, "arch": ARCH, "params": cfg.param_count(),
+              "batch": TRAIN_B, "seq": TRAIN_S, "cut": LOOP_CUT,
+              "steps": steps_run,
+              "runs": [{"steps": LOOP_STEPS, "fail_at": LOOP_FAIL_AT,
+                        "seconds": first_run_s},
+                       {"steps": LOOP_RESUME_STEPS,
+                        "resumed_at": LOOP_RESUME_AT,
+                        "seconds": resumed_run_s}],
+              "step_s": rec["step_s"],
+              "median_step_s": median,
+              "median_of": "steps but each run's first and those "
+                           "overlapping the flush",
+              "tokens_per_s": TRAIN_B * TRAIN_S / median,
+              "train_qwen_median_step_s": self.train_step_s.get(
+                  "train_qwen"),
+              "prefetch_wait_s": rec["next_s"],
+              "prefetch_wait_total_s": sum(rec["next_s"]),
+              "upload_s": rec["upload_s"],
+              "upload_total_s": sum(rec["upload_s"]),
+              "save": {"step": save["step"], "bytes": stats["bytes_written"],
+                       "blocking_call_s": save["call_s"],
+                       "host_copy_s": stats["copy_s"],
+                       "flush_s": flush_s,
+                       "flush_gbps": stats["bytes_written"] / flush_s / 1e9,
+                       **{k: stats[k] for k in
+                          ("write_s", "fsync_s", "manifest_s", "gc_s")},
+                       "crc_s_write_and_gc": stats["crc_s"],
+                       "crc_passes_write_and_gc": stats["crc_passes"],
+                       "steps_overlapping_flush_s": overlap},
+              "restore": {**{k: v for k, v in rec["restores"][0].items()
+                             if k != "store"},
+                          "resumed_run_store": dict(
+                              rec["restores"][0]["store"].stats)},
+              "unstack_s": rec["from_checkpoint_s"],
+              "restore_check": rec["restore_check"],
+              "logged_steps": logged, "losses": losses_a + losses_b,
+              "step_losses": rec["losses"],
+              # step LOOP_RESUME_AT + 1's loss twice from the same state
+              # and batch: the first run's, the resumed run's first
+              "resumed_step_loss": {
+                  "first_run": rec["losses"][LOOP_RESUME_AT],
+                  "resumed_run": rec["losses"][first_steps]},
+              "launches": {"flash_attention": launched},
+              "launches_per_step": {"flash_attention": per_step},
+              **held, "checkpoint_bytes_estimate": ckpt_bytes,
+              "disk_free_gb": free / 1e9, "peak_device_gib": peak,
+              "phase_s": time.perf_counter() - t_phase})
+
+    @staticmethod
+    def _restored_as_saved(phase: str, d: str, step: int, tree,
+                           dev) -> dict:
+        """The restored checkpoint ``tree`` equals what was saved at
+        ``step`` in the store at ``d``, bit for bit: every leaf on ``dev``
+        and, copied back to the host as the store would save it, byte for
+        byte its segment (whose CRC the restore has just checked against
+        the manifest written at the save), with the entry's shape and
+        dtype."""
+        t0 = time.perf_counter()
+        with open(Path(d) / f"MANIFEST-{step}.json") as f:
+            entries = json.load(f)["entries"]
+        leaves = ckpt_mod._leaf_paths(tree)
+        if sorted(name for name, _ in leaves) != sorted(entries):
+            raise AssertionError(f"{phase}: restored leaves {len(leaves)} "
+                                 f"against {len(entries)} in the manifest")
+        nbytes = 0
+        for name, leaf in leaves:
+            if leaf.device.type != dev.type:
+                raise AssertionError(f"{phase}: {name} restored onto "
+                                     f"{leaf.device}")
+            stored, dtype = ckpt_mod._to_storage(leaf)
+            ent = entries[name]
+            seg = np.load(Path(d) / "segments" / str(step) / ent["file"],
+                          mmap_mode="r")
+            nbytes += stored.nbytes
+            if [dtype, list(stored.shape)] != [ent["dtype"], ent["shape"]] \
+                    or seg.dtype != stored.dtype or not np.array_equal(
+                        seg.reshape(-1).view(np.uint8),
+                        stored.reshape(-1).view(np.uint8)):
+                raise AssertionError(f"{phase}: restored leaf {name} "
+                                     f"({dtype}, {list(stored.shape)}) "
+                                     f"differs from its segment {ent}")
+        return {"leaves": len(leaves), "equal": True, "bytes": nbytes,
+                "seconds": time.perf_counter() - t0}
+
+    # ---------------------------------------------------- 21. hot rows
+    def hot_rows(self) -> None:
+        """The hot-row replica (embedding/hot_rows.py) of the embedding
+        table train_loop trained (151,936 x 1,024 bf16): the token ids of
+        the loop's batches counted, the M-node's rule (k_sigma HOT_K_SIGMA,
+        at most HOT_MAX_ROWS rows), build_replica padded to HOT_MAX_ROWS;
+        lookup of the next TRAIN_B x TRAIN_S batch bit for bit the plain
+        gather, is_hot np.isin; then one more train_step (48 kernel-5
+        launches) changes the table, the old replica must now disagree on
+        the hot ids, refresh_after_update, and the lookup must equal the
+        gather again. Timed: lookup against the plain gather."""
+        phase = "hot_rows"
+        t_phase = time.perf_counter()
+        loop = self.loop
+        params, opt_state, cfg = loop["params"], loop["opt_state"], \
+            loop["cfg"]
+        table = params["embed"]
+        counts = np.bincount(np.concatenate(
+            [t.ravel() for t in loop["tokens"]]), minlength=cfg.vocab_size)
+        hot = embedding.select_hot_rows(counts, HOT_K_SIGMA, HOT_MAX_ROWS)
+        if not len(hot):
+            raise AssertionError(f"{phase}: no hot row among the loop's "
+                                 "tokens")
+        st = embedding.build_replica(table, hot, pad_to=HOT_MAX_ROWS)
+        nxt = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=SEED).batch(
+            LOOP_RESUME_AT + LOOP_RESUME_STEPS)
+        ids_np = nxt["tokens"]
+        ids = torch.from_numpy(ids_np).to(self.dev)
+        want_hot = np.isin(ids_np, hot)
+
+        def check(state, when: str) -> float:
+            out, is_hot = embedding.lookup(table, state, ids)
+            gather = table[ids.long()]
+            if not torch.equal(out, gather):
+                raise AssertionError(f"{phase}: lookup {when} differs from "
+                                     "the gather")
+            if not np.array_equal(is_hot.cpu().numpy(), want_hot):
+                raise AssertionError(f"{phase}: is_hot {when} differs from "
+                                     "np.isin")
+            return float(is_hot.float().mean())
+
+        hot_share = check(st, "before the update")
+        lookup_ms = event_ms(lambda: embedding.lookup(table, st, ids),
+                             REPS)[0]
+        gather_ms = event_ms(lambda: table[ids.long()], REPS)[0]
+        # one more step changes every row (weight decay) and the replica
+        # goes stale
+        _build.reset_counts()
+        opt = optim.AdamWConfig(warmup_steps=1)
+        params, opt_state, m = steps.train_step(
+            params, opt_state, train_mod.upload(nxt, self.dev),
+            cfg.replace(loss_chunk=min(TRAIN_S, 512)), opt)
+        self.tally(phase, dict(_build.launches))
+        if _build.launches["flash_attention"] != 2 * cfg.num_layers:
+            raise AssertionError(f"{phase}: the step launched kernel 5 "
+                                 f"{_build.launches['flash_attention']} "
+                                 "times")
+        stale, _ = embedding.lookup(table, st, ids)
+        hot_mask = torch.from_numpy(want_hot).to(self.dev)
+        if torch.equal(stale[hot_mask], table[ids.long()][hot_mask]):
+            raise AssertionError(f"{phase}: the stale replica still equals "
+                                 "the updated table")
+        st = embedding.refresh_after_update(table, st)
+        check(st, "after the refresh")
+        emit({"phase": phase, "arch": ARCH, "table": list(table.shape),
+              "dtype": str(table.dtype), "tokens_counted": int(counts.sum()),
+              "hot_rows": int(len(hot)), "k_sigma": HOT_K_SIGMA,
+              "max_rows": HOT_MAX_ROWS, "lookups": int(ids.numel()),
+              "hot_share_of_lookups": hot_share,
+              "lookup_ms": lookup_ms, "gather_ms": gather_ms,
+              "loss_after_step": float(m["loss"]),
+              "launches": {"flash_attention":
+                           _build.launches["flash_attention"]},
+              "phase_s": time.perf_counter() - t_phase})
+        del self.loop, params, opt_state, table, st
 
     def _ssd_row(self, args, label: str):
         """The kernels line's row for kernel 7 on a prefill call's
@@ -5223,6 +5617,9 @@ def main() -> int:
     smoke.train_qwen()
     torch.cuda.empty_cache()
     smoke.train_zamba2()
+    torch.cuda.empty_cache()
+    smoke.train_loop()
+    smoke.hot_rows()
     emit({"total_s": time.perf_counter() - t_start})
     # launches on the main path, summed over every phase that ran it
     emit({"launches_by_phase": smoke.phase_counts})

@@ -1,1 +1,2 @@
+from .lm_data import Prefetcher, SyntheticLM
 from .ycsb import MIXES, Workload

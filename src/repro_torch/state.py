@@ -71,7 +71,12 @@ def to_numpy(obj) -> dict:
 def _bf16(a, dev) -> torch.Tensor:
     """A bf16 copy of ``a`` on ``dev``: float32 values are rounded (bf16
     values carried as float32 come back exactly), uint16 arrays are taken
-    as the raw bits of bf16 values."""
+    as the raw bits of bf16 values, bf16 tensors kept."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"expected a bf16 or float32 tensor, got "
+                            f"{a.dtype}")
+        return a.to(device=dev, dtype=torch.bfloat16, copy=True)
     a = np.asarray(a)
     if a.dtype == np.uint16:
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
@@ -90,6 +95,11 @@ F32_LEAVES = frozenset({"a_log", "dt_bias", "d_skip", "router"})
 
 
 def _f32(a, dev) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        if a.dtype != torch.float32:
+            raise TypeError(f"expected a float32 tensor for a float32 "
+                            f"parameter, got {a.dtype}")
+        return a.to(dev, copy=True)
     a = np.asarray(a)
     if a.dtype != np.float32:
         raise TypeError(f"expected a float32 array for a float32 parameter, "
@@ -115,15 +125,20 @@ def reference_ndim(path: tuple, t: torch.Tensor) -> int:
     return t.dim() + int(stacked)
 
 
+def _array(a):
+    """A tensor as it is, anything else as a numpy array."""
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 def _carry(tree: dict, cfg, leaf) -> dict:
     """The port's layout of the reference's tree ``tree`` (nested dicts of
-    numpy arrays): ``leaf(array, name)`` of each leaf, where ``name`` is
-    its key; each list of ``STACKS`` unstacked into one dict per layer,
-    as deep as cfg says."""
+    numpy arrays or tensors): ``leaf(array, name)`` of each leaf, where
+    ``name`` is its key; each list of ``STACKS`` unstacked into one dict
+    per layer, as deep as cfg says."""
     def walk(node, pick, name=None):
         if isinstance(node, dict):
             return {k: walk(v, pick, k) for k, v in node.items()}
-        return leaf(pick(np.asarray(node)), name)
+        return leaf(pick(_array(node)), name)
 
     stacks = [k for k in STACKS if k in tree]
     if not stacks:
@@ -133,7 +148,7 @@ def _carry(tree: dict, cfg, leaf) -> dict:
            if k not in STACKS}
     for key in stacks:
         n = getattr(cfg, STACKS[key])
-        depth = {np.asarray(a).shape[0] for a in _leaves(tree[key])}
+        depth = {_array(a).shape[0] for a in _leaves(tree[key])}
         if depth != {n}:
             raise ValueError(f"{key} stacked {sorted(depth)} deep, config "
                              f"has {STACKS[key]} = {n}")
@@ -150,6 +165,9 @@ def params_from_jax(params: dict, cfg, device=None) -> dict:
     ff) and ``wo`` (E, ff, d) bf16. zamba2's ``shared`` block is one
     unstacked dict and comes across once, one set of tensors for every
     site.
+
+    The leaves may also be tensors (a restored checkpoint's: bf16 kept,
+    float32 exactly), which are copied to ``device``.
 
     Both layouts keep weights (d_in, d_out) for ``x @ w``. The reference
     stacks the layers of each list in ``STACKS`` on a leading axis, as
@@ -173,8 +191,33 @@ def opt_state_from_jax(state: dict, cfg, device=None) -> dict:
     dev = resolve_device(device)
     return {"mu": _carry(state["mu"], cfg, lambda a, _: _f32(a, dev)),
             "nu": _carry(state["nu"], cfg, lambda a, _: _f32(a, dev)),
-            "step": torch.tensor(int(np.asarray(state["step"])),
-                                 dtype=torch.int32, device=dev)}
+            "step": torch.tensor(int(state["step"]), dtype=torch.int32,
+                                 device=dev)}
+
+
+def _stacked(params: dict, cfg, leaf, stack) -> dict:
+    """``params`` (or a tree shaped like it) in the reference's layout:
+    ``leaf`` of each tensor, each list of ``STACKS`` stacked by ``stack``
+    on a leading axis."""
+    for key in STACKS:
+        if key in params and len(params[key]) != getattr(cfg, STACKS[key]):
+            raise ValueError(f"{key} holds {len(params[key])} layers, config "
+                             f"has {STACKS[key]} = "
+                             f"{getattr(cfg, STACKS[key])}")
+
+    def stacked(layers):
+        if isinstance(layers[0], dict):
+            return {k: stacked([lp[k] for lp in layers]) for k in layers[0]}
+        return stack(layers)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return stacked([walk(v) for v in node])
+        return leaf(node)
+
+    return walk(params)
 
 
 def params_to_numpy(params: dict, cfg) -> dict:
@@ -183,25 +226,46 @@ def params_to_numpy(params: dict, cfg) -> dict:
     AdamW moments): nested dicts of float32 numpy arrays (bf16 values are
     exact in float32), each list of ``STACKS`` stacked on a leading axis
     again."""
-    for key in STACKS:
-        if key in params and len(params[key]) != getattr(cfg, STACKS[key]):
-            raise ValueError(f"{key} holds {len(params[key])} layers, config "
-                             f"has {STACKS[key]} = "
-                             f"{getattr(cfg, STACKS[key])}")
+    return _stacked(params, cfg, lambda t: t.detach().float().cpu().numpy(),
+                    np.stack)
 
-    def stack(layers):
-        if isinstance(layers[0], dict):
-            return {k: stack([lp[k] for lp in layers]) for k in layers[0]}
-        return np.stack(layers)
 
-    def walk(node):
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        if isinstance(node, list):
-            return stack([walk(v) for v in node])
-        return node.detach().float().cpu().numpy()
+def _checkpoint(params: dict, opt_state: dict, cfg, leaf) -> tuple:
+    def stack(tree):
+        return _stacked(tree, cfg, leaf, torch.stack)
 
-    return walk(params)
+    return (stack(params), {"mu": stack(opt_state["mu"]),
+                            "nu": stack(opt_state["nu"]),
+                            "step": leaf(opt_state["step"])})
+
+
+def checkpoint_tree(params: dict, opt_state: dict, cfg) -> tuple:
+    """The training state as the reference's train loop checkpoints it:
+    the tuple (params, opt_state) in the reference's layout, each list of
+    ``STACKS`` stacked on a leading axis (a copy on the tensors' device;
+    the other leaves are the state's own tensors) and every leaf of its
+    own type: the bf16 parameters as bf16 (saved as their bits), the
+    float32 ones and the AdamW moments exactly, ``step`` an int32 0-d
+    tensor. ``CheckpointStore.save`` of it writes what the reference
+    writes for the same values; ``from_checkpoint`` takes it back."""
+    return _checkpoint(params, opt_state, cfg, lambda t: t.detach())
+
+
+def checkpoint_template(params: dict, opt_state: dict, cfg) -> tuple:
+    """``checkpoint_tree``'s structure, shapes and types with meta tensors
+    for leaves (no data moves): the template ``CheckpointStore.restore``
+    takes."""
+    return _checkpoint(params, opt_state, cfg, lambda t: t.to("meta"))
+
+
+def from_checkpoint(tree: tuple, cfg, device=None) -> tuple[dict, dict]:
+    """(params, opt_state) on ``device`` from ``checkpoint_tree``'s layout
+    (a restored checkpoint, the reference's or the port's), every tensor a
+    copy: ``params_from_jax`` and ``opt_state_from_jax`` of its two
+    halves."""
+    params, opt_state = tree
+    return (params_from_jax(params, cfg, device),
+            opt_state_from_jax(opt_state, cfg, device))
 
 
 def _leaves(node):

@@ -1759,3 +1759,102 @@ def test_train_step_on_the_card_matches_the_cpu(dev, arch):
                                  optim.adamw.leaves(p_host), strict=True):
         gap = float((a.cpu() - w).abs().max()) / opt.lr
         assert gap <= 5e-2, (path, gap)
+
+
+@pytest.mark.parametrize("async_flush", [True, False])
+def test_checkpoint_store_round_trip_on_the_card(dev, tmp_path, async_flush):
+    """Card tensors of every stored type saved, written in place at once
+    (as the next train step writes them), and restored onto the card: the
+    values from before the write, on the card."""
+    from repro_torch.checkpoint import CheckpointStore
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = ({"w": torch.randn((64, 32), generator=g, device=dev)
+             .to(torch.bfloat16),
+             "m": torch.randn((5, 7), generator=g, device=dev)},
+            {"step": torch.tensor(3, dtype=torch.int32, device=dev),
+             "f8": torch.randn(9, generator=g, device=dev)
+             .to(torch.float8_e4m3fn)})
+    want = [t.clone() for t in (tree[0]["w"], tree[0]["m"],
+                                tree[1]["step"], tree[1]["f8"])]
+    store = CheckpointStore(str(tmp_path), async_flush=async_flush)
+    fut = store.save(3, tree)
+    with torch.no_grad():
+        for t in (tree[0]["w"], tree[0]["m"]):
+            t.add_(1)
+    fut.result()
+    got, _, step = store.restore(tree)
+    assert step == 3
+    leaves = (got[0]["w"], got[0]["m"], got[1]["step"], got[1]["f8"])
+    for a, w in zip(leaves, want):
+        assert a.device.type == "cuda" and a.dtype == w.dtype
+        assert torch.equal(a.view(torch.uint8) if a.dtype ==
+                           torch.float8_e4m3fn else a,
+                           w.view(torch.uint8) if w.dtype ==
+                           torch.float8_e4m3fn else w)
+
+
+def test_train_loop_saves_and_resumes_on_the_card(dev, tmp_path, capsys):
+    """launch.train.train at qwen1.5-0.5b's smoke size on the card: 12
+    steps with a failure injected after step 11 (kernel 5 twice a layer a
+    step), then 5 resumed from the sealed step 10; the restored state on
+    the card equals what was saved (its leaves serialized as the store
+    writes them have the manifest's CRCs)."""
+    import io
+    import json
+    import zlib
+    from repro_torch import state
+    from repro_torch.checkpoint import CheckpointStore, ckpt
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train as ttrain
+    cfg = get_smoke_config("qwen1.5-0.5b")
+    d = str(tmp_path)
+    run = dict(batch=2, seq=64, ckpt_dir=d, log_every=5)
+    n0 = _build.launches["flash_attention"]
+    ttrain.train("qwen1.5-0.5b", steps=12, fail_at=11, **run)
+    assert _build.launches["flash_attention"] - n0 == 12 * 2 * cfg.num_layers
+    assert CheckpointStore(d).steps() == [10]
+    capsys.readouterr()
+    params, opt_state, losses = ttrain.train("qwen1.5-0.5b", steps=5,
+                                             resume=True, **run)
+    out = capsys.readouterr().out
+    assert "[train] resumed from step 10" in out
+    assert all(t.device.type == "cuda"
+               for _, t in optim_leaves([params, opt_state]))
+    assert np.isfinite(losses).all()
+    template = state.checkpoint_template(params, opt_state, cfg)
+    tree, _, step = CheckpointStore(d).restore(template)
+    entries = json.load(open(f"{d}/MANIFEST-10.json"))["entries"]
+    for name, leaf in ckpt._leaf_paths(tree):
+        assert leaf.device.type == "cuda", name
+        stored, dtype = ckpt._to_storage(leaf)
+        buf = io.BytesIO()
+        np.save(buf, stored)
+        assert zlib.crc32(buf.getbuffer()) & 0xFFFFFFFF == \
+            entries[name]["crc"], name
+        assert dtype == entries[name]["dtype"], name
+
+
+def test_hot_row_lookup_on_the_card_equals_the_gather(dev):
+    from repro_torch import embedding
+    g = torch.Generator(device=dev).manual_seed(1)
+    table = torch.randn((4096, 256), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    counts = np.bincount(rng.zipf(1.2, 50_000) % 4096, minlength=4096)
+    hot = embedding.select_hot_rows(counts, 3.0, 64)
+    st = embedding.build_replica(table, hot, pad_to=64)
+    assert st.hot_rows.device.type == "cuda"
+    ids = torch.from_numpy(rng.zipf(1.2, (8, 512)) % 4096).to(dev)
+    out, is_hot = embedding.lookup(table, st, ids)
+    assert torch.equal(out, table[ids])
+    np.testing.assert_array_equal(is_hot.cpu().numpy(),
+                                  np.isin(ids.cpu().numpy(), hot))
+    table.mul_(2)
+    st = embedding.refresh_after_update(table, st)
+    out, _ = embedding.lookup(table, st, ids)
+    assert torch.equal(out, table[ids])
+
+
+def optim_leaves(tree):
+    from repro_torch.optim.adamw import leaves
+    return leaves(tree)

@@ -25,6 +25,10 @@ from repro_torch.launch.serve import PagedServer  # noqa: E402
 from repro_torch.models import (encdec, mamba2, ssm_lm,  # noqa: E402
                                 transformer, zamba2)
 from repro_torch.launch import steps  # noqa: E402
+from repro_torch.checkpoint import CheckpointStore  # noqa: E402
+from repro_torch.embedding import build_replica  # noqa: E402
+from repro_torch.launch.elastic import resize  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models.model_zoo import (build_model,  # noqa: E402
                                           make_batch)
 
@@ -80,7 +84,15 @@ TRAIN_SLICE = ("optim/__init__.py", "optim/adamw.py", "launch/steps.py",
                "kernels/flash_attention/flash_attention.py",
                "kernels/flash_attention/ops.py",
                "kernels/ssd_scan/ssd_scan.py")
-FORBIDDEN = ("jax", "jaxlib", "repro")
+# the modules of the training loop's slice (the loader, the checkpoint
+# store, the driver, the elastic restore, the hot-row replica), which the
+# scan must reach as well
+LOOP_SLICE = ("data/__init__.py", "data/lm_data.py",
+              "checkpoint/__init__.py", "checkpoint/ckpt.py", "state.py",
+              "launch/train.py", "launch/elastic.py",
+              "embedding/__init__.py", "embedding/hot_rows.py")
+# the card's machine has no ml_dtypes: bf16 goes through torch's views
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 # the one environment variable the port reads: the ownership sanitizer's
 # switch, the reference's own (it chooses no device)
 SANITIZE_SWITCH = 'os.environ.get("REPRO_SANITIZE", "0")'
@@ -141,6 +153,11 @@ def test_the_scan_reaches_the_hybrid_and_encdec_slice():
 
 def test_the_scan_reaches_the_train_slice():
     for name in TRAIN_SLICE:
+        assert PORT / name in PORT_FILES, name
+
+
+def test_the_scan_reaches_the_loop_slice():
+    for name in LOOP_SLICE:
         assert PORT / name in PORT_FILES, name
 
 
@@ -218,12 +235,30 @@ def test_every_kernel_package_has_ref_and_parity_test():
                               4),
     lambda: steps.init_cache(get_smoke_config("seamless-m4t-medium"), 1, 4),
     lambda: make_batch(get_smoke_config("seamless-m4t-medium"), 1, 4),
+    lambda: train("qwen1.5-0.5b", steps=1, batch=1, seq=8),
+    lambda: build_replica(np.zeros((4, 2), np.float32), np.array([1]), 2),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry()
     assert device.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("entry", [
+    lambda store, tree: store.restore(tree),
+    lambda store, tree: resize(store, tree),
+], ids=["CheckpointStore.restore", "resize"])
+def test_restores_need_a_card_unless_asked_for_cpu(entry, tmp_path,
+                                                   monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = CheckpointStore(str(tmp_path), async_flush=False)
+    tree = {"w": torch.ones(3)}
+    store.save(1, tree).result()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry(store, tree)
+    got, _, _ = store.restore(tree, device="cpu")
+    assert got["w"].device.type == "cpu"
 
 
 def test_wrappers_refuse_mixed_devices():

@@ -1,17 +1,20 @@
 """Shared cases of the port's training tests (tests/test_torch_train.py,
 tests/test_torch_optim.py): a smoke config's weights drawn by the JAX
 package and carried to the port, batches from a numpy seed, and the
-comparison of two trees in the reference's layout."""
+comparison of two trees in the reference's layout, in values or, for
+checkpoints, in bits."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.checkpoint.ckpt import _leaf_paths as jax_leaf_paths
 from repro.configs import get_smoke_config as jax_smoke
 from repro.models import build_model as jax_build
 from repro.models import encdec as je
 from repro_torch import state
+from repro_torch.checkpoint.ckpt import _leaf_paths
 from repro_torch.configs import get_smoke_config
 from repro_torch.launch import steps
 from repro_torch.models import encdec as te
@@ -135,3 +138,32 @@ def loss_and_grads(arch, monkeypatch, f32_weights=True, seed=3, s=S,
                                       has_aux=True)(jp, jb)
     tl, tm, tg = steps.value_and_grad(tp, tb, cfg)
     return (jl, jm, jg), (tl, tm, state.params_to_numpy(tg, cfg))
+
+
+# the reference's and torch's names of the dtypes stored as their bits
+BITS = {"bfloat16": np.int16, "float8_e4m3fn": np.uint8,
+        "float8_e5m2": np.uint8}
+
+
+def bits(x) -> tuple[str, np.ndarray]:
+    """(logical dtype name, the raw bits as a numpy array) of a torch
+    tensor or a reference (numpy / JAX) array."""
+    if isinstance(x, torch.Tensor):
+        name = str(x.dtype).removeprefix("torch.")
+        if name in BITS:
+            x = x.view(torch.int16 if name == "bfloat16" else torch.uint8)
+        return name, x.detach().cpu().numpy().view(
+            BITS.get(name, x.detach().cpu().numpy().dtype))
+    a = np.asarray(x)
+    return str(a.dtype), a.view(BITS.get(str(a.dtype), a.dtype))
+
+
+def assert_same_bits(ours, ref):
+    """Two trees (the port's torch tree, the reference's) leaf for leaf,
+    named as the store names them, equal in dtype, shape and bits."""
+    a, b = dict(_leaf_paths(ours)), dict(jax_leaf_paths(ref))
+    assert sorted(a) == sorted(b)
+    for name in b:
+        (na, xa), (nb, xb) = bits(a[name]), bits(b[name])
+        assert na == nb, (name, na, nb)
+        assert xa.shape == xb.shape and np.array_equal(xa, xb), name
