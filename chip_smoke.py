@@ -272,6 +272,28 @@ published widths:
               refresh_after_update and the lookup equal again; lookup
               timed beside the plain gather
 
+Then the launch side: the dry run and the long sequences.
+
+  dryrun        launch.dryrun.run_cell of every arch at train_4k and
+                decode_32k on the 16 x 16 mesh (cut from all 40 cells,
+                which take 68-71 s of 8 processes on a CPU), on meta tensors
+                in a pool of worker processes; each cell's status, FLOPs,
+                argument bytes per device and temp bytes. Also the two
+                long_context cells, cut as below, on the card's (1, 1)
+                mesh: their FLOPs and predicted peak memory
+  long_context  qwen1.5-0.5b at its published widths through the launch
+                layer's bundles: build_prefill_step at 1 x 32,768 tokens
+                (PREFILL_32K's length; batch cut from 32), 24 kernel-5
+                launches a call, causal over 32,768 keys; then
+                build_train_step at 2 x 4,096 (TRAIN_4K's length; batch
+                cut from 256), 3 steps, the first with every kernel-5
+                launch held to the plain version (blocked_mha above 2048
+                keys, as the backward recomputes) and 2 timed. Layer 0's
+                launch of the prefill held to blocked_mha too; tokens/s,
+                peak memory beside the dry run's prediction, the train
+                step's FLOPs over its time as a share of 989 TFLOP/s, and
+                kernel 5 timed at both views
+
 Every failure raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels, each
 with its launches summed over every phase that ran it.
@@ -287,6 +309,7 @@ import dataclasses
 import gc
 import importlib
 import json
+import os
 import pickle
 import shutil
 import subprocess
@@ -303,7 +326,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.distributed.sharding import make_rules  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
 from repro_torch.core import clht, log  # noqa: E402
 from repro_torch.core.cluster import (DINOMO, VARIANTS,  # noqa: E402
                                       DinomoCluster, KVSNode, _WritePlan,
@@ -338,6 +364,7 @@ from repro_torch.kernels import log_merge as merge  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_k  # noqa: E402
 from repro_torch.kvcache import paged_store  # noqa: E402
 from repro_torch.kvcache.paged_store import decode_over_owners  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch import optim  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
@@ -358,8 +385,8 @@ BATCH = 1 << 20             # keys or ops per load / served batch
 BATCHES = 8                 # served batches per mix
 REPS = 20                   # timed runs per kernel
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
-BF16_FLOPS = 989e12         # H100 SXM dense bf16 tensor-core rate
+HBM_BYTES_PER_S = mesh_mod.HBM_BW      # H100 SXM device memory rate
+BF16_FLOPS = mesh_mod.PEAK_FLOPS_BF16  # H100 SXM dense bf16 tensor rate
 F32_FLOPS = 67e12           # H100 SXM f32 rate outside the tensor cores
 SPIN_CYCLES = 2_000_000     # about 1 ms of device spin before a timed call
 
@@ -475,6 +502,20 @@ STEPS_CUT = "decode steps cut from 64 to 32 for the run's time"
 # and its decoder tokens
 ZAMBA = "zamba2-1.2b"
 HYBRID_B, HYBRID_S, HYBRID_REPS, HYBRID_TF = 4, 2048, 3, 128
+# the long-sequence cells of qwen1.5-0.5b at its published widths, through
+# the launch layer's bundles: PREFILL_32K's length at batch 1 (cut from
+# 32), 2 timed calls after a warm-up; TRAIN_4K's length at batch 2 (cut
+# from 256), one held step and 2 timed
+LONG_PREFILL_B, LONG_PREFILL_S, LONG_PREFILL_REPS = 1, 32768, 2
+LONG_TRAIN_B, LONG_TRAIN_S, LONG_TRAIN_STEPS = 2, 4096, 2
+LONG_CUT = (f"prefill {LONG_PREFILL_B} x {LONG_PREFILL_S} (PREFILL_32K's "
+            f"batch cut from 32), train {LONG_TRAIN_B} x {LONG_TRAIN_S} "
+            "(TRAIN_4K's batch cut from 256), one fixed batch")
+# the dry run's cells on the card's host: every arch at two shapes (all
+# 40 cells take 68-71 s over 8 processes on a CPU, past the phase's 60 s)
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_CUT = ("every arch at train_4k and decode_32k on the 16 x 16 mesh, "
+              "cut from all 40 (arch x shape) cells")
 SEAMLESS = "seamless-m4t-medium"
 ENC_B, ENC_FRAMES, ENC_TOKENS, ENC_REPS = 4, 1500, 256, 3
 # training: qwen1.5-0.5b and zamba2-1.2b at their published widths, steps
@@ -656,12 +697,14 @@ def ssd_path_err(pairs) -> float:
 
 
 def attn_plain(qkv, causal: bool, keys=None) -> torch.Tensor:
-    """mha_ref on (q, k, v) in model layout (B, S, H|KH, D), in that
-    layout; only the first ``keys`` keys when given."""
+    """Kernel 5's plain version (plain_attention: mha_ref, or blocked_mha
+    above 2048 keys in blocks of 1024) on (q, k, v) in model layout
+    (B, S, H|KH, D), in that layout; only the first ``keys`` keys when
+    given."""
     q, k, v = (t.transpose(1, 2) for t in qkv)
     if keys is not None:
         k, v = k[:, :, :keys], v[:, :, :keys]
-    return flash.mha_ref(q, k, v, causal=causal).transpose(1, 2)
+    return flash.plain_attention(q, k, v, causal).transpose(1, 2)
 
 
 def attn_path_bar(ref: torch.Tensor, qkv, causal: bool) -> torch.Tensor:
@@ -950,6 +993,7 @@ class Smoke:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip().splitlines()[0]
         print(smi, flush=True)
+        self.card = smi
         cap = torch.cuda.get_device_capability(0)
         emit({"device": torch.cuda.get_device_name(0), "capability": cap})
         if cap != (9, 0):
@@ -3974,8 +4018,9 @@ class Smoke:
     def _flash_row(self, qkv, causal: bool, label: str, inputs: str) -> dict:
         """The kernels line's row for kernel 5 on ``qkv``, a main path's
         (q, k, v) in model layout (B, S, H|KH, D), read through transposed
-        strides: beside mha_ref and scaled_dot_product_attention on the
-        same views. Bound: the products' FLOP at the bf16 tensor-core rate
+        strides: beside its plain version (mha_ref, or blocked_mha above
+        2048 keys) and scaled_dot_product_attention on the same views.
+        Bound: the products' FLOP at the bf16 tensor-core rate
         (2 S (S + 1) D a head causal, 4 Sq Sk D non-causal) or q, k, v
         read and the output written once at the memory rate."""
         q, k, v = qkv
@@ -3989,7 +4034,7 @@ class Smoke:
             "flash_attention", "flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:81",
             ("out",), lambda: (flash.attention(q, k, v, causal=causal),),
-            lambda: (flash.mha_ref(qt, kt, vt, causal=causal)
+            lambda: (flash.plain_attention(qt, kt, vt, causal)
                      .transpose(1, 2),),
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=True),
@@ -5495,6 +5540,193 @@ class Smoke:
               "phase_s": time.perf_counter() - t_phase})
         del self.loop, params, opt_state, table, st
 
+    # ------------------------------------------- 21. the launch side
+    @staticmethod
+    def _long_cells() -> dict:
+        return {"prefill": ShapeConfig("prefill_32k_cut", LONG_PREFILL_S,
+                                       LONG_PREFILL_B, "prefill"),
+                "train": ShapeConfig("train_4k_cut", LONG_TRAIN_S,
+                                     LONG_TRAIN_B, "train")}
+
+    def dryrun(self) -> None:
+        """launch.dryrun.run_cell on meta tensors, on the card's host: every
+        arch at DRYRUN_SHAPES on the 16 x 16 mesh, and long_context's two
+        cut cells on the (1, 1) mesh (their predictions), over a pool of
+        worker processes. Every cell must be OK."""
+        t0 = time.perf_counter()
+        host = train_mod.make_host_mesh("meta")
+        cut = self._long_cells()
+        # the slowest cells first (the SSM families' train steps run a
+        # chunk loop a layer), so that no long cell starts last
+        archs = sorted(ARCHS, key=lambda a: get_config(a).family
+                       not in dryrun_mod.LONG_OK_FAMILIES)
+        jobs = [(a, s, {}) for s in DRYRUN_SHAPES for a in archs]
+        jobs += [(ARCH, "prefill_32k", {"shape": cut["prefill"],
+                                        "mesh": host}),
+                 (ARCH, "train_4k", {"shape": cut["train"], "mesh": host})]
+        procs = min(len(jobs), os.cpu_count() or 1)
+        recs = dryrun_mod.run_cells(jobs, procs)
+        bad = [(r["arch"], r["shape"], r.get("error")) for r in recs
+               if r["status"] != "OK"]
+        if bad:
+            raise AssertionError(f"dryrun: cells failed: {bad}")
+        for rec in recs:
+            mem = rec["memory"]
+            emit({"dryrun_cell": f"{rec['arch']} x {rec['shape']}",
+                  "mesh": rec["mesh"], "status": rec["status"],
+                  "step": rec["step"], "flops": rec["flops"],
+                  "bytes": rec["bytes"],
+                  "argument_bytes_per_device": mem["argument_bytes"],
+                  "temp_bytes": mem["temp_bytes"], "run_s": rec["compile_s"]})
+        self.predicted = {"prefill": recs[-2], "train": recs[-1]}
+        emit({"phase": "dryrun", "cells": len(jobs) - 2, "cut": DRYRUN_CUT,
+              "processes": procs, "host": self.card,
+              "seconds": time.perf_counter() - t0})
+
+    def _peak_against_prediction(self, kind: str, base: int) -> dict:
+        """The peak device memory since the last reset, beyond ``base``
+        bytes allocated before the cell's state, beside the dry run's
+        prediction for the cut cell (arguments and temp bytes on one
+        device)."""
+        mem = self.predicted[kind]["memory"]
+        want = mem["argument_bytes"] + mem["temp_bytes"]
+        got = torch.cuda.max_memory_allocated() - base
+        return {"peak_device_gib": got / 2**30,
+                "predicted_peak_gib": want / 2**30,
+                "peak_over_predicted": got / want,
+                "predicted_arguments_gib": mem["argument_bytes"] / 2**30,
+                "predicted_temp_gib": mem["temp_bytes"] / 2**30}
+
+    def long_context(self) -> list[dict]:
+        """qwen1.5-0.5b at its published widths through the launch layer's
+        bundles on the card's (1, 1) mesh: build_prefill_step at
+        LONG_PREFILL_B x LONG_PREFILL_S (24 kernel-5 launches a call,
+        causal over 32,768 keys; layer 0's launch held to blocked_mha),
+        then build_train_step at LONG_TRAIN_B x LONG_TRAIN_S (48 kernel-5
+        launches a step, every launch of the first held to blocked_mha as
+        it returns, LONG_TRAIN_STEPS timed). Peak memory against the dry
+        run's prediction; the train step's FLOPs (op_analysis on meta)
+        over its time. Returns kernel 5's rows at both views."""
+        t_phase = time.perf_counter()
+        cfg, cut = get_config(ARCH), self._long_cells()
+        rules = make_rules(train_mod.make_host_mesh())
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        base = torch.cuda.memory_allocated()
+        params = build_model(cfg).init(SEED)
+        pre = steps.build_prefill_step(cfg, cut["prefill"], rules)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (LONG_PREFILL_B, LONG_PREFILL_S),
+            generator=gen, device=self.dev)}
+        with torch.no_grad():
+            synced(pre.fn, params, batch)     # warm-up: cuBLAS, caches
+            torch.cuda.reset_peak_memory_stats()
+            # set every count to 0 just before the main path
+            _build.reset_counts()
+            secs = []
+            for _ in range(LONG_PREFILL_REPS):
+                (logits, kv), sec = synced(pre.fn, params, batch)
+                secs.append(sec)
+            launches = _build.launches["flash_attention"]
+            if launches != cfg.num_layers * LONG_PREFILL_REPS:
+                raise AssertionError(f"long_prefill: {launches} kernel-5 "
+                                     "launches, not one a layer")
+            kv_shape = (cfg.num_layers, LONG_PREFILL_B, LONG_PREFILL_S,
+                        cfg.num_kv_heads, cfg.hd)
+            if tuple(logits.shape) != (LONG_PREFILL_B, cfg.vocab_size) or \
+                    tuple(kv["k"].shape) != kv_shape or not bool(
+                        torch.isfinite(logits).all()
+                        & torch.isfinite(kv["k"]).all()
+                        & torch.isfinite(kv["v"]).all()):
+                raise AssertionError("long_prefill: logits or KV of the "
+                                     "wrong shape or not finite")
+            self.tally("long_prefill", dict(_build.launches))
+            pre_peak = self._peak_against_prediction("prefill", base)
+            del logits, kv
+            with uncounted(), recorded(transformer, "attention") as calls:
+                pre.fn(params, batch)
+            qkv, out = calls[0]
+            del calls
+            err = attn_path_err([("long_prefill.flash_attention.layer0",
+                                  out, attn_plain(qkv, True))], qkv, True)
+        sec = sorted(secs)[len(secs) // 2]
+        emit({"phase": "long_prefill", "arch": ARCH, "card": self.card,
+              "batch": LONG_PREFILL_B, "seq": LONG_PREFILL_S,
+              "cut": LONG_CUT, "seconds": secs,
+              "tokens_per_s": LONG_PREFILL_B * LONG_PREFILL_S / sec,
+              "flash_attention_launches": launches,
+              "flash_attention_vs_plain": err,
+              "flops_dry_run": self.predicted["prefill"]["flops"],
+              **pre_peak})
+        rows = [self._flash_row(qkv, True, "flash_attention_32k",
+                                f"{ARCH} long prefill, layer 0")]
+        rows[0]["card"] = self.card
+        del qkv, out, batch, pre
+        torch.cuda.empty_cache()
+
+        # training at TRAIN_4K's length
+        opt = optim.AdamWConfig(warmup_steps=1)
+        opt_state = optim.init_state(params)
+        tr = steps.build_train_step(cfg, cut["train"], rules, opt)
+        batch = make_batch(cfg, LONG_TRAIN_B, LONG_TRAIN_S, gen=gen)
+        torch.cuda.reset_peak_memory_stats()
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        metrics, secs = [], []
+
+        def step():
+            nonlocal params, opt_state
+            (params, opt_state, m), sec = synced(tr.fn, params, opt_state,
+                                                 batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if not self._finite(params, m["loss"]):
+                raise AssertionError(f"long_train: step {len(metrics)}: "
+                                     "the loss or a parameter is not finite")
+            return sec
+
+        with self.held_step("long_train") as held:
+            first_s = step()
+        per_step = 2 * cfg.num_layers
+        if _build.launches["flash_attention"] != per_step or \
+                held["flash_attention_held"] != per_step:
+            raise AssertionError(f"long_train: the first step launched "
+                                 f"{_build.launches['flash_attention']} and "
+                                 f"held {held}, not {per_step}")
+        for _ in range(LONG_TRAIN_STEPS):
+            secs.append(step())
+        if _build.launches["flash_attention"] != per_step * len(metrics):
+            raise AssertionError("long_train: not 48 kernel-5 launches a "
+                                 "step")
+        if not metrics[-1]["loss"] < metrics[0]["loss"]:
+            raise AssertionError(f"long_train: the loss did not fall: "
+                                 f"{[m['loss'] for m in metrics]}")
+        self.tally("long_train", dict(_build.launches))
+        train_peak = self._peak_against_prediction("train", base)
+        sec = sorted(secs)[len(secs) // 2]
+        flops = self.predicted["train"]["flops"]
+        emit({"phase": "long_train", "arch": ARCH, "card": self.card,
+              "batch": LONG_TRAIN_B, "seq": LONG_TRAIN_S, "cut": LONG_CUT,
+              "steps": len(metrics), "first_step_s": first_s,
+              "seconds": secs,
+              "tokens_per_s": LONG_TRAIN_B * LONG_TRAIN_S / sec,
+              "loss": [m["loss"] for m in metrics],
+              "launches_per_step": per_step, **held,
+              "flops_op_analysis": flops,
+              "achieved_tflop_s": flops / sec / 1e12,
+              "share_of_bf16_peak": flops / sec / BF16_FLOPS, **train_peak,
+              "phase_s": time.perf_counter() - t_phase})
+        # kernel 5 at the train step's views: layer 0 of one forward
+        with torch.no_grad(), uncounted(), \
+                recorded(layers, "attention") as calls:
+            build_model(cfg).loss(params, batch)
+        qkv = calls[0][0]
+        del calls, params, opt_state, batch
+        rows.append(self._flash_row(qkv, True, "flash_attention_4k_train",
+                                    f"{ARCH} long train step, layer 0"))
+        rows[1]["card"] = self.card
+        del qkv
+        torch.cuda.empty_cache()
+        return rows
+
     def _ssd_row(self, args, label: str):
         """The kernels line's row for kernel 7 on a prefill call's
         (x, dt, a, b, c, d), x, b and c strided views of the conv's output,
@@ -5620,6 +5852,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     smoke.train_loop()
     smoke.hot_rows()
+    smoke.dryrun()
+    kernels += smoke.long_context()
     emit({"total_s": time.perf_counter() - t_start})
     # launches on the main path, summed over every phase that ran it
     emit({"launches_by_phase": smoke.phase_counts})

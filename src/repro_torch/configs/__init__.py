@@ -2,11 +2,13 @@
 config, ``get_smoke_config(name)`` a reduced one of the same family.
 The port carries every config of the reference (``ARCHS``): the dense, MoE
 and VLM decoders, the pure SSM, the hybrid (zamba2-1.2b) and the
-encoder-decoder (seamless-m4t-medium)."""
+encoder-decoder (seamless-m4t-medium); and the reference's four cell
+shapes (``SHAPES``)."""
 
 from importlib import import_module
 
-from .base import ModelConfig
+from .base import (DECODE_32K, LONG_500K, PREFILL_32K, SHAPES, TRAIN_4K,
+                   ModelConfig, ShapeConfig)
 
 ARCHS = [
     "chameleon_34b", "olmoe_1b_7b", "granite_moe_1b_a400m", "llama3_2_3b",
@@ -42,3 +44,7 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE_CONFIG
+
+
+def all_configs():
+    return {a: get_config(a) for a in ARCHS}

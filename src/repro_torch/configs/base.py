@@ -1,5 +1,6 @@
-"""Model configuration (the port's copy of the reference's ModelConfig,
-with the fields and the analytic parameter count unchanged)."""
+"""Model and run configuration (the port's copies of the reference's
+ModelConfig, with the fields and the analytic parameter count unchanged,
+and of its ShapeConfig and the four input shapes of its cells)."""
 
 from __future__ import annotations
 
@@ -94,3 +95,22 @@ class ModelConfig:
         full_mlp = self.num_layers * self.num_experts * 3 * d * ff
         act_mlp = self.num_layers * self.experts_per_token * 3 * d * ff
         return self.param_count() - full_mlp + act_mlp
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

@@ -1,3 +1,3 @@
-from .flash_attention import FlashAttention, flash_attention
-from .ops import attention
-from .ref import mha_ref
+from .flash_attention import FlashAttention, flash_attention, plain_attention
+from .ops import attention, set_head_sharded_attention
+from .ref import blocked_mha, blocked_mha_heads, mha_ref

@@ -4,14 +4,15 @@ kernel (``csrc/flash_attention.cu``: bf16 inputs through TMA and wgmma
 on the tensor cores, f32 inputs on the CUDA cores), for head dims 16, 32,
 64 and 128 (at 128 each tile is loaded as two 64-column halves).
 
-CPU tensors run the plain version in ref.py; CUDA tensors run the kernel.
+CPU and meta tensors run a plain version in ref.py (``plain_attention``);
+CUDA tensors run the kernel, at every length.
 A causal call with Sq != Sk raises on both: there the reference's kernel
 (top-left mask) and its oracle (bottom-right) disagree, and the model
 never makes such a call.
 
 Both run inside ``FlashAttention``, an autograd function whose backward
-differentiates the plain version, so the output carries a graph on every
-device. ``out=`` cannot carry one: with it, an input that requires grad
+differentiates ``plain_attention``, so the output carries a graph on
+every device. ``out=`` cannot carry one: with it, an input that requires grad
 raises.
 """
 
@@ -20,11 +21,38 @@ from __future__ import annotations
 import torch
 
 from ...device import on_cuda
+from ...distributed.act_sharding import head_sharding_active
 from .. import _build
-from .ref import mha_ref
+from .ref import blocked_mha, blocked_mha_heads, mha_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+# the reference's attention goes blocked off the TPU above this many keys,
+# where they are a multiple of the block
+BLOCKED_ABOVE, BLOCK = 2048, 1024
+# §Perf toggle: when an activation-sharding policy is installed and the
+# head count divides the model axis, the plain version off the card is the
+# head-major blocked attention. Off by default, as in the reference.
+HEAD_SHARDED_ATTENTION = False
+
+
+def set_head_sharded_attention(v: bool) -> None:
+    global HEAD_SHARDED_ATTENTION
+    HEAD_SHARDED_ATTENTION = v
+
+
+def plain_attention(q, k, v, causal: bool) -> torch.Tensor:
+    """The plain version of (B, H, Sq, D) / (B, KH, Sk, D) attention that
+    the reference runs off the TPU (its ops.py:48-63): ``blocked_mha``
+    (``blocked_mha_heads`` under ``HEAD_SHARDED_ATTENTION`` with
+    ``head_sharding_active``) above BLOCKED_ABOVE keys where Sk % BLOCK is
+    0, ``mha_ref`` otherwise."""
+    sk = k.shape[2]
+    if sk > BLOCKED_ABOVE and sk % BLOCK == 0:
+        if HEAD_SHARDED_ATTENTION and head_sharding_active(q.shape[1]):
+            return blocked_mha_heads(q, k, v, causal=causal, bk=BLOCK)
+        return blocked_mha(q, k, v, causal=causal, bk=BLOCK)
+    return mha_ref(q, k, v, causal=causal)
 
 
 def _check(q, k, v, causal):
@@ -55,13 +83,13 @@ def _strides(t: torch.Tensor, align: int):
 
 def _run(q, k, v, causal: bool, out: torch.Tensor) -> None:
     """Write attention of the (B, H, Sq, D) / (B, KH, Sk, D) views into
-    ``out`` (B, H, Sq, D): the kernel on the card, mha_ref on the CPU.
-    Records no graph."""
+    ``out`` (B, H, Sq, D): the kernel on the card, plain_attention on CPU
+    and meta tensors. Records no graph."""
     _check(q, k, v, causal)
     if out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError("out must match q in shape and type")
     if not on_cuda(q, k, v, out):
-        out.copy_(mha_ref(q, k, v, causal=causal))
+        out.copy_(plain_attention(q, k, v, causal))
         return
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"expected float32 or bfloat16 q, k, v of one type; "
@@ -91,14 +119,16 @@ class FlashAttention(torch.autograd.Function):
     (B, H, S, D) views and writes a contiguous (B, S, H, D) output through
     its view (no transposed copy either way).
 
-    The forward launches the kernel (mha_ref on CPU tensors) and saves q,
-    k and v as given, views included. The backward recomputes mha_ref on
-    detached copies under autograd and returns ``torch.autograd.grad`` of
-    that recompute, shaped like the inputs: the port of what the
-    reference's train step differentiates, ``mha_ref``
-    (src/repro/kernels/flash_attention/ops.py:63; ``blocked_mha_jnp`` at
-    :61, above 2048 keys, is not ported). The reference has no backward
-    kernel, so neither has the port."""
+    The forward launches the kernel (plain_attention on CPU and meta
+    tensors) and saves q, k and v as given, views included. The backward
+    recomputes plain_attention on detached copies under autograd and
+    returns ``torch.autograd.grad`` of that recompute, shaped like the
+    inputs: the port of what the reference's train step differentiates,
+    ``mha_ref`` (src/repro/kernels/flash_attention/ops.py:63) or, above
+    2048 keys in blocks of 1024, ``blocked_mha_jnp`` (:61) or
+    ``blocked_mha_heads`` (:58), whose memory grows with S * 1024 and not
+    with S^2. The reference has no backward kernel, so neither has the
+    port."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, model_layout: bool):
@@ -116,8 +146,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, grad):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = mha_ref(*(_heads_major(t, ctx.model_layout)
-                            for t in inputs), causal=ctx.causal)
+            out = plain_attention(*(_heads_major(t, ctx.model_layout)
+                                    for t in inputs), ctx.causal)
             grads = torch.autograd.grad(
                 _heads_major(out, ctx.model_layout), inputs, grad)
         return (*grads, None, None)

@@ -1,18 +1,25 @@
 """Public attention op in model layout (B, S, H, D): the flash_attention
-kernel on the card, its plain version on the CPU, chosen by where the
-tensors lie (there is no switch), with the output carrying a graph on
-both (``FlashAttention``'s backward differentiates the plain version, as
-the reference's train step differentiates its own). The reference's
-sharded and blocked CPU paths (``blocked_mha_*``,
-``HEAD_SHARDED_ATTENTION``) are not ported: training above 2048 keys
-recomputes the dense ``mha_ref`` where the reference's blocked one would
-save memory."""
+kernel on the card at every length, and on CPU and meta tensors the plain
+version the reference's ``attention`` lowers off the TPU
+(``src/repro/kernels/flash_attention/ops.py:48-63``): the blocked
+online-softmax attention above 2048 keys where Sk is a multiple of 1024
+(heads-major under ``flash_attention.HEAD_SHARDED_ATTENTION``, set by
+``set_head_sharded_attention``, when an activation-sharding
+policy is installed and the heads divide its model axis), the dense
+``mha_ref`` otherwise (``flash_attention.plain_attention``). Which runs
+is chosen by where the tensors lie: there is no switch. The output
+carries a graph on every device: ``FlashAttention``'s backward
+differentiates the same plain version, as the reference's train step
+differentiates its own. The dry run (``launch/dryrun.py``) reaches the
+plain versions on meta tensors, as the reference's lowers its jnp paths
+on a forced host platform."""
 
 from __future__ import annotations
 
 import torch
 
-from .flash_attention import FlashAttention
+from .flash_attention import (FlashAttention,  # noqa: F401
+                              set_head_sharded_attention)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

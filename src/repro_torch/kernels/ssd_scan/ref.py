@@ -79,12 +79,13 @@ def ssd_chunked(x, dt, a, b, c, d, chunk: int):
     last = cum[:, :, -1, :]                                 # (B, NC, H)
     w = torch.exp(last[:, :, None, :] - cum) * dtf          # (B, NC, L, H)
     chunk_states = torch.einsum("bnlhd,bnlhp->bnhdp", bf * w[..., None], xf)
-    decs = torch.exp(last)                                  # (B, NC, H)
+    decs = torch.exp(last)[..., None, None]                 # (B, NC, H, 1, 1)
     h_in = torch.zeros((bsz, h, n, p), dtype=torch.float32, device=x.device)
     h_prevs = []
-    for ci in range(nc):
+    # the chunks' operands split once, so that a step is two operations
+    for dec, states in zip(decs.unbind(1), chunk_states.unbind(1)):
         h_prevs.append(h_in)
-        h_in = h_in * decs[:, ci, :, None, None] + chunk_states[:, ci]
+        h_in = h_in * dec + states
     h_prevs = torch.stack(h_prevs, dim=1)                   # (B, NC, H, N, P)
     y_inter = torch.exp(cum)[..., None] * torch.einsum(
         "bnlhd,bnhdp->bnlhp", cf, h_prevs)

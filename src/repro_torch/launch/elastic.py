@@ -10,28 +10,44 @@ analogue:
   1. participants = every worker (synchronous step boundary)
   2. quiesce (finish in-flight step)
   3. merge pending state = flush async checkpoint futures
-  4. new mapping = the device that loads the leaves
+  4. new mapping = shardings for the new mesh
   5. resume -- restore + re-own, no data reorganization
 
-On one card step 4 is the device alone. The reference maps each leaf to
-a new mesh's shardings there (``distributed/sharding.py``); the mesh
-rules come to the port with its launch and distributed modules (ROADMAP
-Queue 2 item 8).
+Step 4 maps each leaf to the new mesh's partition rules
+(``distributed/sharding.py``), as the reference's. The port restores onto
+one device: a mesh of one (``launch/train.py:make_host_mesh``), where
+every leaf's shard is the whole leaf, or, with no mesh, the device asked
+for. A mesh of more devices raises.
 """
 
 from __future__ import annotations
 
 from ..checkpoint.ckpt import CheckpointStore
 from ..device import resolve_device
+from ..distributed.sharding import make_rules, param_shardings, tree_leaves
+from .mesh import Mesh
 
 
-def resize(store: CheckpointStore, template, *, device=None,
-           step: int | None = None):
-    """Restore ``template``-shaped state onto ``device`` (the card unless
-    ``"cpu"``). Returns (state, extra, step). The restore cost is
-    O(bytes read), with zero re-layout on disk."""
-    dev = resolve_device(device)
+def resize(store: CheckpointStore, template, new_mesh: Mesh | None = None,
+           *, mode: str = "train", device=None, step: int | None = None):
+    """Restore ``template``-shaped state onto ``new_mesh``'s one device, or
+    with no mesh onto ``device`` (the card unless ``"cpu"``). Returns
+    (state, extra, step). The restore cost is O(bytes read), with zero
+    re-layout on disk."""
+    if new_mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = new_mesh.device             # raises for more than one
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device {device} is not the mesh's {dev}")
     store.wait()                          # step 3: merge pending logs
+    if new_mesh is not None:              # step 4: new mapping
+        shardings = param_shardings(template, make_rules(new_mesh), mode)
+        for leaf, sh in zip(tree_leaves(template), tree_leaves(shardings),
+                            strict=True):
+            if sh.shard_shape(leaf.shape) != tuple(leaf.shape):
+                raise ValueError(f"{sh.spec} splits a leaf of "
+                                 f"{tuple(leaf.shape)} on one device")
     return store.restore(template, step=step, device=dev)
 
 

@@ -1,18 +1,38 @@
-"""Single-card step functions: the bodies of the reference's
-``launch/steps.py:build_train_step``, ``build_prefill_step`` and
-``build_decode_step``, without a mesh, shardings or a ``StepBundle``, for
-every family: the transformer families (dense, moe, vlm), the SSM, the
-hybrid (zamba2) and the encoder-decoder (encdec, audio)."""
+"""Step functions and their builders: the port's copy of the reference's
+``launch/steps.py``, for every family: the transformer families (dense,
+moe, vlm), the SSM, the hybrid (zamba2) and the encoder-decoder (encdec,
+audio).
+
+``train_step``, ``prefill_step`` and ``serve_step`` are the single-card
+steps, with their caches (``init_cache``). The builders
+(``build_train_step``, ``build_prefill_step``, ``build_decode_step``,
+``build_step``) wrap them as the reference's do: (arch config x shape
+config x mesh rules) -> a ``StepBundle`` whose ``fn`` is the step under
+the rules' activation-sharding policy, with meta tensors standing in for
+its inputs (``param_structs``, ``input_specs``: shapes and types, no
+data) and the partition rules' shardings of its inputs and outputs. One
+card runs the ``fn`` as it is; the dry run (``launch/dryrun.py``) runs it
+on the meta stand-ins.
+"""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any, Callable
+
 import torch
 
+from ..configs.base import ModelConfig, ShapeConfig
+from ..distributed.act_sharding import activation_sharding
+from ..distributed.sharding import (MeshRules, batch_shardings,
+                                    cache_shardings, param_shardings,
+                                    replicated)
 from ..models import (RUNS, encdec, families_run_by, ssm_lm, transformer,
                       zamba2)
 from ..models.layers import PARAM_DTYPE, unembed
-from ..models.model_zoo import build_model
-from ..optim.adamw import AdamWConfig, apply_updates, leaves, tree_map
+from ..models.model_zoo import Model, build_model
+from ..optim.adamw import (AdamWConfig, apply_updates, init_state, leaves,
+                           tree_map)
 
 _ENCDEC = families_run_by("encdec")
 
@@ -134,3 +154,139 @@ def serve_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg,
     step = transformer.decode_step_v2 if optimized == "v2" \
         else transformer.decode_step_v3
     return step(params, cache, token, pos, cfg)
+
+
+# ---------------------------------------------------------------------------
+# step builders
+# ---------------------------------------------------------------------------
+@dataclass
+class StepBundle:
+    name: str
+    fn: Callable                 # the step, run as it is on one card
+    in_specs: tuple              # meta tensors (positional)
+    in_shardings: tuple
+    out_shardings: Any           # tree, or a sharding for a whole subtree
+    donate: tuple = ()           # arguments the step updates in place
+
+
+def param_structs(model: Model) -> dict:
+    """The model's parameters on meta: ``init`` run there, which draws
+    nothing (the shapes and types of the real tree, from the same code)."""
+    return model.init(0, device="meta")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Meta stand-ins for every model input of this cell, with the
+    reference's shapes and types (int32 tokens, f32 frames)."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": _meta((b, s), torch.int32)}
+        if shape.kind == "train":
+            out["labels"] = _meta((b, s), torch.int32)
+        if cfg.encoder_layers:
+            out["frames"] = _meta((b, s, cfg.d_model), torch.float32)
+        return out
+    # decode: one new token against a seq_len KV cache
+    return {"token": _meta((b,), torch.int32),
+            "pos": _meta((), torch.int32)}
+
+
+def _policy(rules: MeshRules):
+    return activation_sharding(rules.mesh, rules.data_axes, rules.model_axis)
+
+
+def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
+                     rules: MeshRules,
+                     opt: AdamWConfig | None = None) -> StepBundle:
+    """``fn(params, opt_state, batch)`` is ``train_step`` (remat "full",
+    loss_chunk 512 where cfg says none) under the policy; it updates the
+    parameters and the state in place and returns them with the
+    metrics."""
+    opt = opt or AdamWConfig()
+
+    def fn(params, opt_state, batch):
+        with _policy(rules):
+            return train_step(params, opt_state, batch, cfg, opt)
+
+    p_sds = param_structs(build_model(cfg))
+    o_sds = init_state(p_sds)
+    b_sds = input_specs(cfg, shape)
+    p_sh = param_shardings(p_sds, rules, "train")
+    o_sh = {"mu": param_shardings(o_sds["mu"], rules, "train"),
+            "nu": param_shardings(o_sds["nu"], rules, "train"),
+            "step": replicated(rules)}
+    return StepBundle(
+        name="train_step", fn=fn, in_specs=(p_sds, o_sds, b_sds),
+        in_shardings=(p_sh, o_sh, batch_shardings(b_sds, rules)),
+        # every metric is a replicated scalar
+        out_shardings=(p_sh, o_sh, replicated(rules)), donate=(0, 1))
+
+
+def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
+                       rules: MeshRules) -> StepBundle:
+    """``fn(params, batch)`` is ``prefill_step`` under the policy: the
+    last-token logits (B, V) f32 and, for the transformer families, the KV
+    cache. The reference's transformer bundle returns ``logits[:, -1]``,
+    (B,) (ROADMAP Queue 3); the port keeps the logits."""
+    def fn(params, batch):
+        with _policy(rules):
+            return prefill_step(params, batch["tokens"], cfg,
+                                frames=batch.get("frames"))
+
+    b = shape.global_batch
+    p_sds = param_structs(build_model(cfg))
+    b_sds = input_specs(cfg, shape)
+    logits = batch_shardings(_meta((b, cfg.vocab_size), torch.float32), rules)
+    if cfg.family in transformer.FAMILIES:
+        out_sh = (logits, cache_shardings(
+            init_cache(cfg, b, shape.seq_len, device="meta"), rules))
+    else:
+        out_sh = logits
+    return StepBundle(
+        name="prefill_step", fn=fn, in_specs=(p_sds, b_sds),
+        in_shardings=(param_shardings(p_sds, rules, "serve"),
+                      batch_shardings(b_sds, rules)),
+        out_shardings=out_sh)
+
+
+def build_decode_step(cfg: ModelConfig, shape: ShapeConfig,
+                      rules: MeshRules,
+                      optimized: bool | str = False) -> StepBundle:
+    """``fn(params, cache, token, pos)`` is ``serve_step`` under the
+    policy, the cache updated in place. ``optimized`` (§Perf): the
+    transformer families switch decode implementations -- "v2" ``decode_
+    step_v2``, True or "v3" ``decode_step_v3``, over KH-major caches; the
+    other families run their own step. The encoder families' cache holds
+    4096 positions of memory, as the reference's."""
+    b = shape.global_batch
+
+    def fn(params, cache, token, pos):
+        with _policy(rules):
+            return serve_step(params, cache, token, pos, cfg, optimized)
+
+    p_sds = param_structs(build_model(cfg))
+    c_sds = init_cache(cfg, b, shape.seq_len, optimized, device="meta",
+                       enc_len=4096)
+    t_sds = _meta((b,), torch.int32)
+    c_sh = cache_shardings(c_sds, rules)
+    return StepBundle(
+        name="serve_step", fn=fn,
+        in_specs=(p_sds, c_sds, t_sds, _meta((), torch.int32)),
+        in_shardings=(param_shardings(p_sds, rules, "serve"), c_sh,
+                      batch_shardings(t_sds, rules), replicated(rules)),
+        out_shardings=(batch_shardings(
+            _meta((b, cfg.vocab_size), torch.float32), rules), c_sh),
+        donate=(1,))
+
+
+def build_step(cfg: ModelConfig, shape: ShapeConfig,
+               rules: MeshRules) -> StepBundle:
+    if shape.kind == "train":
+        return build_train_step(cfg, shape, rules)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, shape, rules)
+    return build_decode_step(cfg, shape, rules)

@@ -10,7 +10,7 @@ on one card (or the CPU when asked for). It runs real steps of
     resumes from the other's,
   * elastic re-own on resume: the same checkpoint bytes are loaded onto
     whichever device runs the job (ownership remap, no data rewrite);
-    the reference's host mesh has no counterpart on one card,
+    the host mesh is the (1, 1) mesh over that device,
   * simulated failure injection (--fail-at) proving recovery works.
 
 Usage:
@@ -30,11 +30,20 @@ import torch
 from .. import state
 from ..checkpoint import CheckpointStore
 from ..configs import get_config, get_smoke_config
+from ..configs.base import ShapeConfig
 from ..data.lm_data import Prefetcher, SyntheticLM
 from ..device import resolve_device
+from ..distributed.sharding import make_rules
 from ..models.model_zoo import build_model
 from ..optim.adamw import AdamWConfig, init_state
 from . import steps as step_fns
+from .mesh import Mesh
+
+
+def make_host_mesh(device=None) -> Mesh:
+    """The (1, 1) ("data", "model") mesh over ``device`` (the card unless
+    ``"cpu"`` or ``"meta"``): one process drives one device."""
+    return Mesh(("data", "model"), (1, 1), (resolve_device(device),))
 
 
 def upload(batch: dict, dev) -> dict:
@@ -56,13 +65,18 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     step 0 or, with ``resume``, from the latest valid checkpoint in
     ``ckpt_dir``. A checkpoint is saved after every step i + 1 that is a
     multiple of max(log_every, 10); ``fail_at`` raises after step
-    ``fail_at`` runs (before its save), and the run ends there. Returns
-    (params, opt_state, the logged losses)."""
-    dev = resolve_device(device)
+    ``fail_at`` runs (before its save), and the run ends there. Each
+    step is ``build_train_step``'s on the host mesh. Returns (params,
+    opt_state, the logged losses)."""
+    mesh = make_host_mesh(device)
+    dev = mesh.device
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cfg = cfg.replace(loss_chunk=min(seq, 512))
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1),
                           total_steps=max(steps, 1))
+    step_fn = step_fns.build_train_step(
+        cfg, ShapeConfig("custom", seq, batch, "train"), make_rules(mesh),
+        opt_cfg).fn
     params = build_model(cfg).init(seed, device=dev)
     opt_state = init_state(params)
     start_step = 0
@@ -93,8 +107,7 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
                 raise AssertionError(f"the prefetcher gave step {step_idx} "
                                      f"for step {i}")
             b = upload(b, dev)
-            params, opt_state, metrics = step_fns.train_step(
-                params, opt_state, b, cfg, opt_cfg)
+            params, opt_state, metrics = step_fn(params, opt_state, b)
             if fail_at is not None and i == fail_at:
                 raise RuntimeError("injected failure")
             if (i + 1) % log_every == 0 or i == start_step:

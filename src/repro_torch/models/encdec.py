@@ -26,9 +26,9 @@ from ..device import resolve_device
 from . import check_family
 from .layers import (PARAM_DTYPE, attention_block, attention_decode,
                      attn_init, chunked_cross_entropy, cross_attention_block,
-                     cross_entropy, decode_attention_dense, embed_init, mlp,
-                     mlp_init, position_ids, remat, rmsnorm, rmsnorm_init,
-                     unembed)
+                     cross_entropy, decode_attention_dense, embed_init,
+                     generator, head_init, mlp, mlp_init, position_ids, remat,
+                     rmsnorm, rmsnorm_init, unembed)
 
 
 def _enc_layer_init(gen: torch.Generator, cfg, dev) -> dict:
@@ -50,8 +50,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
     are."""
     check_family(cfg, "encdec")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = generator(seed, dev)
     return {
         "enc_layers": [_enc_layer_init(gen, cfg, dev)
                        for _ in range(cfg.encoder_layers)],
@@ -60,9 +59,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
         "embed": embed_init(gen, cfg),
         "ln_enc": rmsnorm_init(cfg.d_model, dev),
         "ln_f": rmsnorm_init(cfg.d_model, dev),
-        "head": (torch.randn((cfg.d_model, cfg.vocab_size), generator=gen,
-                             device=dev, dtype=torch.float32) * 0.02
-                 ).to(PARAM_DTYPE),
+        "head": head_init(gen, cfg, PARAM_DTYPE),
     }
 
 

@@ -19,13 +19,38 @@ PARAM_DTYPE = torch.bfloat16
 NEG_INF = -1e30             # the reference's mask value
 
 
+class NoDraws:
+    """What the inits take for a generator on meta, which has none: its
+    ``device`` only. ``randn`` of it draws nothing."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+
+def generator(seed: int, dev: torch.device):
+    """A ``torch.Generator`` on ``dev`` seeded with ``seed``; on meta a
+    ``NoDraws``, so that the inits make leaves of the same shapes and
+    types through the same code and draw nothing."""
+    if dev.type == "meta":
+        return NoDraws(dev)
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def randn(shape, gen) -> torch.Tensor:
+    """Standard normal f32 draws of ``shape`` from ``gen`` on its device;
+    an empty meta tensor of that shape from a ``NoDraws``."""
+    if isinstance(gen, NoDraws):
+        return torch.empty(shape, dtype=torch.float32, device=gen.device)
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=torch.float32)
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
                dtype=PARAM_DTYPE) -> torch.Tensor:
     """Glorot-normal (d_in, d_out) weight drawn from ``gen`` on its
     device, in f32, then cast."""
     scale = (2.0 / (d_in + d_out)) ** 0.5
-    return (torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                        dtype=torch.float32) * scale).to(dtype)
+    return (randn((d_in, d_out), gen) * scale).to(dtype)
 
 
 def rmsnorm_init(d: int, device, dtype=PARAM_DTYPE) -> torch.Tensor:
@@ -216,9 +241,13 @@ def mlp(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def embed_init(gen: torch.Generator, cfg) -> torch.Tensor:
-    return (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                        device=gen.device, dtype=torch.float32)
-            * 0.02).to(PARAM_DTYPE)
+    return (randn((cfg.vocab_size, cfg.d_model), gen) * 0.02).to(PARAM_DTYPE)
+
+
+def head_init(gen: torch.Generator, cfg,
+              dtype=PARAM_DTYPE) -> torch.Tensor:
+    """The untied head (d, V)."""
+    return (randn((cfg.d_model, cfg.vocab_size), gen) * 0.02).to(dtype)
 
 
 def unembed(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..kernels.ssd_scan.ops import ssd
 from ..kernels.ssd_scan.ref import ssd_decode_step
-from .layers import PARAM_DTYPE, dense_init, rmsnorm, rmsnorm_init
+from .layers import PARAM_DTYPE, dense_init, randn, rmsnorm, rmsnorm_init
 
 
 def mamba_init(gen: torch.Generator, cfg) -> dict:
@@ -29,8 +29,7 @@ def mamba_init(gen: torch.Generator, cfg) -> dict:
     dev = gen.device
     return {
         "in_proj": dense_init(gen, d, 2 * din + 2 * g * n + h),
-        "conv_w": (torch.randn((cfg.ssm_conv, conv_dim), generator=gen,
-                               device=dev, dtype=torch.float32)
+        "conv_w": (randn((cfg.ssm_conv, conv_dim), gen)
                    * 0.1).to(PARAM_DTYPE),
         "conv_b": torch.zeros((conv_dim,), dtype=PARAM_DTYPE, device=dev),
         "a_log": torch.linspace(1.0, 16.0, h, dtype=torch.float32,

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .layers import PARAM_DTYPE, dense_init
+from .layers import PARAM_DTYPE, dense_init, randn
 
 
 def moe_init(gen: torch.Generator, cfg) -> dict:
@@ -27,8 +27,7 @@ def moe_init(gen: torch.Generator, cfg) -> dict:
     scale = (2.0 / (d + ff)) ** 0.5
 
     def experts(shape):
-        return (torch.randn(shape, generator=gen, device=gen.device,
-                            dtype=torch.float32) * scale).to(PARAM_DTYPE)
+        return (randn(shape, gen) * scale).to(PARAM_DTYPE)
 
     return {"router": dense_init(gen, d, e, torch.float32),
             "wi": experts((e, d, ff)), "wg": experts((e, d, ff)),
@@ -61,7 +60,9 @@ def moe_ff(p: dict, x: torch.Tensor, cfg,
     # each (token, choice)'s place in its expert's bucket, from a stable
     # sort of the choices by expert
     flat_idx = idx.reshape(-1)                                 # (T*k,)
-    counts = torch.bincount(flat_idx, minlength=e)             # (E,)
+    # bincount as a scatter, which also runs on meta (the dry run)
+    counts = torch.zeros(e, dtype=torch.int64, device=dev).index_add_(
+        0, flat_idx, torch.ones_like(flat_idx))                # (E,)
     starts = torch.cumsum(counts, 0) - counts
     order = torch.argsort(flat_idx, stable=True)
     rank_sorted = torch.arange(t * k, device=dev) - starts[flat_idx[order]]

@@ -15,8 +15,8 @@ import torch
 
 from ..device import resolve_device
 from . import check_family
-from .layers import (chunked_cross_entropy, cross_entropy, embed_init, remat,
-                     rmsnorm, rmsnorm_init, unembed)
+from .layers import (chunked_cross_entropy, cross_entropy, embed_init,
+                     generator, remat, rmsnorm, rmsnorm_init, unembed)
 from .mamba2 import mamba_block, mamba_decode, mamba_init, mamba_state_init
 
 
@@ -27,8 +27,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
     ``dt_bias``, ``d_skip``) and the distributions are."""
     check_family(cfg, "ssm_lm")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = generator(seed, dev)
     layers = [{"ln": rmsnorm_init(cfg.d_model, dev),
                "mamba": mamba_init(gen, cfg)} for _ in range(cfg.num_layers)]
     return {"layers": layers, "embed": embed_init(gen, cfg),

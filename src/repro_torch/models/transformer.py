@@ -36,8 +36,9 @@ from . import check_family, families_run_by
 from .layers import (PARAM_DTYPE, attention_block, attention_decode,
                      attn_init, check_pos, chunked_cross_entropy,
                      cross_entropy, decode_attention_khmajor, decode_scores,
-                     embed_init, mlp, mlp_init, position_ids, qkv_proj,
-                     remat, rmsnorm, rmsnorm_init, unembed)
+                     embed_init, generator, head_init, mlp, mlp_init,
+                     position_ids, qkv_proj, remat, rmsnorm, rmsnorm_init,
+                     unembed)
 from .moe import moe_ff, moe_init
 
 FAMILIES = families_run_by("transformer")
@@ -60,15 +61,12 @@ def init_params(seed: int, cfg, device=None) -> dict:
     the layout and the distributions are."""
     check_family(cfg, "transformer")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = generator(seed, dev)
     layers = [_layer_init(gen, cfg, dev) for _ in range(cfg.num_layers)]
     params = {"layers": layers, "embed": embed_init(gen, cfg),
               "ln_f": rmsnorm_init(cfg.d_model, dev)}
     if not cfg.tie_embeddings:
-        params["head"] = (torch.randn(
-            (cfg.d_model, cfg.vocab_size), generator=gen, device=dev,
-            dtype=torch.float32) * 0.02).to(PARAM_DTYPE)
+        params["head"] = head_init(gen, cfg)
     return params
 
 

@@ -27,8 +27,8 @@ from ..device import resolve_device
 from . import check_family
 from .layers import (PARAM_DTYPE, attention_block, attention_decode,
                      attn_init, chunked_cross_entropy, cross_entropy,
-                     embed_init, mlp, mlp_init, position_ids, remat, rmsnorm,
-                     rmsnorm_init, unembed)
+                     embed_init, generator, head_init, mlp, mlp_init,
+                     position_ids, remat, rmsnorm, rmsnorm_init, unembed)
 from .mamba2 import mamba_block, mamba_decode, mamba_init, mamba_state_init
 
 
@@ -56,8 +56,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
     ``dt_bias``, ``d_skip``) and the distributions are."""
     check_family(cfg, "zamba2")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    gen = generator(seed, dev)
     layers = [{"ln": rmsnorm_init(cfg.d_model, dev),
                "mamba": mamba_init(gen, cfg)} for _ in range(cfg.num_layers)]
     shared = {"ln1": rmsnorm_init(cfg.d_model, dev),
@@ -67,10 +66,7 @@ def init_params(seed: int, cfg, device=None) -> dict:
     return {"layers": layers, "shared": shared,
             "embed": embed_init(gen, cfg),
             "ln_f": rmsnorm_init(cfg.d_model, dev),
-            "head": (torch.randn((cfg.d_model, cfg.vocab_size),
-                                 generator=gen, device=dev,
-                                 dtype=torch.float32) * 0.02
-                     ).to(PARAM_DTYPE)}
+            "head": head_init(gen, cfg)}
 
 
 def _mamba_layer(lp: dict, x: torch.Tensor, cfg) -> torch.Tensor:

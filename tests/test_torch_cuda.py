@@ -448,6 +448,39 @@ def test_flash_attention_matches_plain(dev, b, h, kh, sq, sk, d, causal,
                                atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("b,s", [(2, 4096), (1, 32768)])
+def test_flash_attention_at_the_long_views_matches_blocked(dev, b, s):
+    """Kernel 5 at the long-sequence main paths' views (qwen1.5-0.5b's 16
+    heads of 64, causal, model layout): training at 2 x 4096 and prefill at
+    1 x 32768, held to blocked_mha (what the backward recomputes there;
+    the dense mha_ref would need (1, 16, 32768^2) f32 scores) at the bf16
+    bar above; and its gradients, through FlashAttention's blocked
+    recompute, equal the blocked version's own."""
+    g = torch.Generator(device=dev).manual_seed(s)
+    q, k, v = (torch.randn((b, s, 16, 64), generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    n0 = _build.launches["flash_attention"]
+    got = tf.attention(q, k, v, causal=True)
+    assert _build.launches["flash_attention"] == n0 + 1
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ref = tf.blocked_mha(qt, kt, vt, causal=True).transpose(1, 2).float()
+    bar = 2 ** -8 * tf.blocked_mha(qt, kt, vt.abs(), causal=True) \
+        .transpose(1, 2).float() + 2 ** -7 * ref.abs()
+    diff = (got.float() - ref).abs()
+    assert bool(torch.isfinite(got).all())
+    assert int((diff > bar).sum()) == 0, float(diff.max())
+    if s > 4096:
+        return
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    cot = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    grads = torch.autograd.grad(tf.attention(*ins, causal=True), ins, cot)
+    ins2 = [t.clone().requires_grad_() for t in (qt, kt, vt)]
+    want = torch.autograd.grad(tf.blocked_mha(*ins2, causal=True), ins2,
+                               cot.transpose(1, 2))
+    for x, y in zip(grads, want):
+        assert torch.equal(x, y.transpose(1, 2))
+
+
 def test_flash_attention_refuses_unaligned_bf16_rows(dev):
     q = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="aligned"):

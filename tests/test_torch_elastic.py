@@ -20,7 +20,8 @@ from repro_torch.embedding import (build_replica, lookup,  # noqa: E402
                                    refresh_after_update, select_cold_rows,
                                    select_hot_rows)
 from repro_torch.launch.elastic import resize, straggler_scales  # noqa: E402
-from repro_torch.launch.train import train, upload  # noqa: E402
+from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
+from repro_torch.launch.train import make_host_mesh, train, upload  # noqa: E402,E501
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.models.model_zoo import build_model  # noqa: E402
 
@@ -140,3 +141,24 @@ def test_resize_restores_the_state_train_saved(tmp_path):
         want = float(loss(params, batch)[0])
         got = float(loss(restored, batch)[0])
     assert got == want
+
+
+def test_resize_onto_a_mesh_maps_each_leaf_by_the_rules(tmp_path):
+    """With a mesh, ``resize`` takes each leaf's sharding from the new
+    mesh's partition rules (the reference's step 4) and restores onto the
+    mesh's one device: the host mesh's, bit for bit. A production mesh (of
+    256 devices, none here) raises before any byte is read, and so does
+    a device that is not the mesh's."""
+    store = CheckpointStore(str(tmp_path), async_flush=False)
+    g = torch.Generator().manual_seed(0)
+    tree = ({"layers": {"w": torch.randn((2, 16, 32), generator=g)}},
+            {"step": torch.tensor(3, dtype=torch.int32)})
+    store.save(7, tree).result()
+    got, _, step = resize(store, tree, make_host_mesh("cpu"))
+    assert step == 7
+    assert torch.equal(got[0]["layers"]["w"], tree[0]["layers"]["w"])
+    assert got[0]["layers"]["w"].device.type == "cpu"
+    with pytest.raises(ValueError, match="cannot place"):
+        resize(store, tree, make_production_mesh())
+    with pytest.raises(ValueError, match="not the mesh's"):
+        resize(store, tree, make_host_mesh("cpu"), device="meta")

@@ -28,13 +28,14 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.checkpoint import CheckpointStore  # noqa: E402
 from repro_torch.embedding import build_replica  # noqa: E402
 from repro_torch.launch.elastic import resize  # noqa: E402
-from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.launch.train import make_host_mesh, train  # noqa: E402
 from repro_torch.models.model_zoo import (build_model,  # noqa: E402
                                           make_batch)
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + \
+    sorted((REPO / "examples").glob("*_torch.py"))
 # the modules of the KN window slice, which the scan must reach
 KN_SLICE = ("core/dac.py", "core/cluster.py", "core/transition.py",
             "kernels/cache_transition/__init__.py",
@@ -91,6 +92,17 @@ LOOP_SLICE = ("data/__init__.py", "data/lm_data.py",
               "checkpoint/__init__.py", "checkpoint/ckpt.py", "state.py",
               "launch/train.py", "launch/elastic.py",
               "embedding/__init__.py", "embedding/hot_rows.py")
+# the modules of the launch side (meshes, partition rules, the step
+# builders, the dry run and its op analysis, the long-sequence attention)
+# and the examples, which the scan must reach as well
+LAUNCH_SLICE = ("launch/mesh.py", "launch/steps.py", "launch/dryrun.py",
+                "launch/op_analysis.py", "launch/train.py",
+                "launch/elastic.py", "distributed/__init__.py",
+                "distributed/sharding.py", "distributed/act_sharding.py",
+                "configs/base.py", "kernels/flash_attention/ref.py",
+                "kernels/flash_attention/ops.py", "device.py")
+EXAMPLES = ("quickstart_torch.py", "kvs_elasticity_torch.py",
+            "serve_paged_torch.py", "train_elastic_torch.py")
 # the card's machine has no ml_dtypes: bf16 goes through torch's views
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 # the one environment variable the port reads: the ownership sanitizer's
@@ -159,6 +171,26 @@ def test_the_scan_reaches_the_train_slice():
 def test_the_scan_reaches_the_loop_slice():
     for name in LOOP_SLICE:
         assert PORT / name in PORT_FILES, name
+
+
+def test_the_scan_reaches_the_launch_slice_and_the_examples():
+    for name in LAUNCH_SLICE:
+        assert PORT / name in PORT_FILES, name
+    for name in EXAMPLES:
+        assert REPO / "examples" / name in PORT_FILES, name
+
+
+def test_meta_only_when_asked_for(monkeypatch):
+    """resolve_device gives meta when asked, and the card otherwise (so
+    raises with none); the wrappers take plain versions on meta as on the
+    CPU, and refuse a mix."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert device.resolve_device("meta").type == "meta"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device.resolve_device()
+    assert device.on_cuda(torch.zeros(1, device="meta")) is False
+    with pytest.raises(ValueError, match="mixed"):
+        device.on_cuda(torch.zeros(1, device="meta"), torch.zeros(1))
 
 
 def test_optimizer_state_follows_its_params(monkeypatch):
@@ -237,6 +269,7 @@ def test_every_kernel_package_has_ref_and_parity_test():
     lambda: make_batch(get_smoke_config("seamless-m4t-medium"), 1, 4),
     lambda: train("qwen1.5-0.5b", steps=1, batch=1, seq=8),
     lambda: build_replica(np.zeros((4, 2), np.float32), np.array([1]), 2),
+    lambda: make_host_mesh(),
 ])
 def test_entry_points_need_a_card_unless_asked_for_cpu(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
