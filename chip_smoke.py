@@ -4,8 +4,9 @@ one KN's planned DAC windows over it, the DPM pool with its planned merge,
 the cluster over that pool by its host and compiled batch engines, the
 paged LLM serving path, the dense, MoE and VLM families at head dim 128
 with the dense-cache decode, the SSM family's prefill and recurrent
-decode, the hybrid and encoder-decoder families, and training with its
-loop (data loader, checkpoints, resume, hot-row replica).
+decode, the hybrid and encoder-decoder families, training with its
+loop (data loader, checkpoints, resume, hot-row replica), the launch side,
+and the multi-device paths over torch.distributed at world size 1.
 
 Run from the repository root with no arguments:
 
@@ -274,13 +275,12 @@ published widths:
 
 Then the launch side: the dry run and the long sequences.
 
-  dryrun        launch.dryrun.run_cell of every arch at train_4k and
-                decode_32k on the 16 x 16 mesh (cut from all 40 cells,
-                which take 68-71 s of 8 processes on a CPU), on meta tensors
-                in a pool of worker processes; each cell's status, FLOPs,
-                argument bytes per device and temp bytes. Also the two
-                long_context cells, cut as below, on the card's (1, 1)
-                mesh: their FLOPs and predicted peak memory
+  dryrun        launch.dryrun.run_cell of the two long_context cells, cut
+                as below, on the card's (1, 1) mesh, on meta tensors in two
+                worker processes: their status, FLOPs and predicted peak
+                memory, which long_context reads (the production cells run
+                in `python -m repro_torch.launch.dryrun --all` and
+                tests/test_torch_dryrun.py; nothing here reads them)
   long_context  qwen1.5-0.5b at its published widths through the launch
                 layer's bundles: build_prefill_step at 1 x 32,768 tokens
                 (PREFILL_32K's length; batch cut from 32), 24 kernel-5
@@ -293,6 +293,26 @@ Then the launch side: the dry run and the long sequences.
                 peak memory beside the dry run's prediction, the train
                 step's FLOPs over its time as a share of 989 TFLOP/s, and
                 kernel 5 timed at both views
+
+Last, the multi-device paths (launch/mesh.py's mesh of ranks,
+distributed/collectives.py) on the one card: NCCL at world size 1, joined
+through a file:// store in a temporary directory, the (1, 1) mesh of ranks
+on cuda:0 (a world of more ranks needs more cards; their partitions are
+held on the CPU by gloo ranks in tests/test_torch_multi_rank.py):
+
+  multi_rank  each collective kind the port issues (all_gather,
+              reduce_scatter, all_to_all, all_reduce) through NCCL on a
+              bf16 CUDA tensor, equal to its input at one rank;
+              moe_ff_sharded on one olmoe-1b-7b MoE layer at its published
+              widths (d 2048, 64 experts top-8, ff 1024, bf16) over 4 x 2048
+              tokens against moe_ff on the same inputs (the same ops; their
+              index_add_ sums in an unfixed order, so within MOE_PATH_BAR
+              of max |y|), its drops and the collectives' calls and bytes;
+              qwen1.5-0.5b at its published widths through the mesh-of-ranks
+              build_train_step, 2 steps of 4 x 2048 tokens, against
+              train_step from the same parameters and batch: step 1's loss
+              and grad_norm within 1e-5 relative, step 2's loss within 2e-2,
+              every kernel-5 launch of step 1 held to its plain version
 
 Every failure raises. The last line of standard output is
 {"ok": true, "device": {...}}; the line before it lists the kernels, each
@@ -321,13 +341,15 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))
 
-from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.distributed import collectives, sharding  # noqa: E402
 from repro_torch.distributed.sharding import make_rules  # noqa: E402
 from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
 from repro_torch.core import clht, log  # noqa: E402
@@ -370,7 +392,7 @@ from repro_torch import optim  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.serve import PagedServer  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
-from repro_torch.models import (encdec, layers, mamba2,  # noqa: E402
+from repro_torch.models import (encdec, layers, mamba2, moe,  # noqa: E402
                                 ssm_lm, transformer, zamba2)
 from repro_torch.models.model_zoo import build_model, make_batch  # noqa: E402,E501
 from torch_cases import (MERGE_CASES, TRANSITION_CASES,  # noqa: E402
@@ -511,11 +533,22 @@ LONG_TRAIN_B, LONG_TRAIN_S, LONG_TRAIN_STEPS = 2, 4096, 2
 LONG_CUT = (f"prefill {LONG_PREFILL_B} x {LONG_PREFILL_S} (PREFILL_32K's "
             f"batch cut from 32), train {LONG_TRAIN_B} x {LONG_TRAIN_S} "
             "(TRAIN_4K's batch cut from 256), one fixed batch")
-# the dry run's cells on the card's host: every arch at two shapes (all
-# 40 cells take 68-71 s over 8 processes on a CPU, past the phase's 60 s)
-DRYRUN_SHAPES = ("train_4k", "decode_32k")
-DRYRUN_CUT = ("every arch at train_4k and decode_32k on the 16 x 16 mesh, "
-              "cut from all 40 (arch x shape) cells")
+# the dry run's cells on the card's host: the two that long_context reads
+# (the 40 production cells take 68-71 s over 8 processes on a CPU, and the
+# CLI and tests/test_torch_dryrun.py run them)
+DRYRUN_CUT = ("long_context's two cut cells on the (1, 1) mesh; the "
+              "production cells left to the CLI and the CPU tests")
+# the multi-device paths at world size 1 over NCCL: olmoe-1b-7b's MoE layer
+# at its published widths on MULTI_B x MULTI_S tokens, and qwen1.5-0.5b's
+# train step on the same count, MULTI_STEPS steps
+MULTI_B, MULTI_S, MULTI_STEPS = 4, 2048, 2
+# moe_ff_sharded against moe_ff, in max |diff| / max |y|: the same ops on
+# the same inputs, but index_add_ adds each token's 8 bf16 contributions
+# with atomics in an unfixed order (a few bf16 ulps of a partial sum)
+MOE_PATH_BAR = 2.0 ** -6
+# step 1's loss and grad_norm (relative), step 2's loss (absolute, the
+# reference's sharded-step bar, tests/test_system.py:126)
+STEP1_TOL, STEP2_TOL = 1e-5, 2e-2
 SEAMLESS = "seamless-m4t-medium"
 ENC_B, ENC_FRAMES, ENC_TOKENS, ENC_REPS = 4, 1500, 256, 3
 # training: qwen1.5-0.5b and zamba2-1.2b at their published widths, steps
@@ -5549,21 +5582,15 @@ class Smoke:
                                      LONG_TRAIN_B, "train")}
 
     def dryrun(self) -> None:
-        """launch.dryrun.run_cell on meta tensors, on the card's host: every
-        arch at DRYRUN_SHAPES on the 16 x 16 mesh, and long_context's two
-        cut cells on the (1, 1) mesh (their predictions), over a pool of
-        worker processes. Every cell must be OK."""
+        """launch.dryrun.run_cell on meta tensors, on the card's host:
+        long_context's two cut cells on the (1, 1) mesh (their
+        predictions), in two worker processes. Both must be OK."""
         t0 = time.perf_counter()
         host = train_mod.make_host_mesh("meta")
         cut = self._long_cells()
-        # the slowest cells first (the SSM families' train steps run a
-        # chunk loop a layer), so that no long cell starts last
-        archs = sorted(ARCHS, key=lambda a: get_config(a).family
-                       not in dryrun_mod.LONG_OK_FAMILIES)
-        jobs = [(a, s, {}) for s in DRYRUN_SHAPES for a in archs]
-        jobs += [(ARCH, "prefill_32k", {"shape": cut["prefill"],
-                                        "mesh": host}),
-                 (ARCH, "train_4k", {"shape": cut["train"], "mesh": host})]
+        jobs = [(ARCH, "prefill_32k", {"shape": cut["prefill"],
+                                       "mesh": host}),
+                (ARCH, "train_4k", {"shape": cut["train"], "mesh": host})]
         procs = min(len(jobs), os.cpu_count() or 1)
         recs = dryrun_mod.run_cells(jobs, procs)
         bad = [(r["arch"], r["shape"], r.get("error")) for r in recs
@@ -5578,8 +5605,8 @@ class Smoke:
                   "bytes": rec["bytes"],
                   "argument_bytes_per_device": mem["argument_bytes"],
                   "temp_bytes": mem["temp_bytes"], "run_s": rec["compile_s"]})
-        self.predicted = {"prefill": recs[-2], "train": recs[-1]}
-        emit({"phase": "dryrun", "cells": len(jobs) - 2, "cut": DRYRUN_CUT,
+        self.predicted = {"prefill": recs[0], "train": recs[1]}
+        emit({"phase": "dryrun", "cells": len(jobs), "cut": DRYRUN_CUT,
               "processes": procs, "host": self.card,
               "seconds": time.perf_counter() - t0})
 
@@ -5727,6 +5754,178 @@ class Smoke:
         torch.cuda.empty_cache()
         return rows
 
+    # ----------------------------------------- 22. the multi-device paths
+    def multi_rank(self) -> None:
+        """The mesh-of-ranks paths on the card: NCCL at world size 1
+        through a file:// store in a temporary directory, the (1, 1) mesh
+        of ranks on cuda:0, then the collectives through NCCL
+        (_nccl_collectives), the expert-parallel MoE (_multi_rank_moe)
+        and the partitioned train step (_multi_rank_step). The group is
+        destroyed at the phase's end, whatever happens."""
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            dev = mesh_mod.init_ranks(1, 0, f"file://{tmp}/store",
+                                      device="cuda:0", timeout=120)
+            try:
+                mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+                if mesh.device != dev or dist.get_backend() != "nccl":
+                    raise AssertionError(f"multi_rank: the mesh is on "
+                                         f"{mesh.device} over "
+                                         f"{dist.get_backend()}")
+                nccl = self._nccl_collectives(dev)
+                moe_out = self._multi_rank_moe(mesh)
+                step_out = self._multi_rank_step(mesh)
+            finally:
+                dist.destroy_process_group()
+        emit({"phase": "multi_rank", "card": self.card,
+              "nccl": str(torch.cuda.nccl.version()),
+              "world_size": 1, "mesh": [1, 1], "collectives": nccl,
+              "moe": moe_out, "step": step_out,
+              "seconds": time.perf_counter() - t_phase})
+
+    @staticmethod
+    def _nccl_collectives(dev) -> dict:
+        """Each collective kind the port issues, through the collectives
+        module's own calls on the world's group (which skip a group of one
+        rank), on a bf16 CUDA tensor: at one rank each gives back its
+        input. Their calls and bytes, and the seconds."""
+        t0 = time.perf_counter()
+        collectives.reset_counts()
+        x = torch.randn((1024, 64), device=dev).to(torch.bfloat16)
+        outs = {"all_gather": collectives._gather(x, 0, None, 1),
+                "reduce_scatter": collectives._scatter_sum(x, 0, None, 1),
+                "all_to_all": collectives._exchange(x, 0, 1, None, 1),
+                "all_reduce": collectives._sum(x, None)}
+        torch.cuda.synchronize()
+        bad = [k for k, y in outs.items() if not torch.equal(y, x)]
+        if bad or any(collectives.calls[k] != 1 for k in outs):
+            raise AssertionError(f"multi_rank: NCCL collectives {bad} did "
+                                 f"not give back their input "
+                                 f"({collectives.calls})")
+        out = {"calls": dict(collectives.calls),
+               "bytes": dict(collectives.nbytes),
+               "seconds": time.perf_counter() - t0}
+        collectives.reset_counts()
+        return out
+
+    def _multi_rank_moe(self, mesh) -> dict:
+        """moe_ff_sharded on one olmoe-1b-7b MoE layer at its published
+        widths (random weights from SEED) over MULTI_B x MULTI_S bf16
+        tokens, against moe_ff on the same inputs, and moe_ff against
+        itself (index_add_'s unfixed order, the floor under the bar)."""
+        t0 = time.perf_counter()
+        cfg = get_config(OLMOE)
+        gen = torch.Generator(device=self.dev).manual_seed(SEED)
+        p = moe.moe_init(gen, cfg)
+        x = torch.randn((MULTI_B, MULTI_S, cfg.d_model), generator=gen,
+                        device=self.dev).to(torch.bfloat16)
+        with torch.no_grad():
+            # first: the warm-up of the shared ops, and the floor's other side
+            y_again, _ = moe.moe_ff(p, x, cfg)
+            collectives.reset_counts()
+            (y_sh, aux_sh), sec_sh = synced(
+                moe.moe_ff_sharded, p, x, cfg, mesh, ("data",), "model",
+                cfg.moe_capacity_factor)
+            calls = dict(collectives.calls)
+            (y, aux), sec = synced(moe.moe_ff, p, x, cfg)
+        scale = float(y.float().abs().max())
+        gap = float((y_sh.float() - y.float()).abs().max()) / scale
+        floor = float((y_again.float() - y.float()).abs().max()) / scale
+        t = MULTI_B * MULTI_S
+        k, e = cfg.experts_per_token, cfg.num_experts
+        capacity = max(int(t * k / e * cfg.moe_capacity_factor), 1)
+        counts = torch.round(aux_sh["expert_load"] * t * k).long()
+        drops = int(torch.clamp(counts - capacity, min=0).sum())
+        out = {"arch": OLMOE, "tokens": [MULTI_B, MULTI_S],
+               "experts": e, "top_k": k, "capacity": capacity,
+               "dropped": drops, "dropped_share": drops / (t * k),
+               "bit_equal": bool(torch.equal(y_sh, y)),
+               "max_diff_over_max_y": gap, "moe_ff_vs_itself": floor,
+               "bar": MOE_PATH_BAR,
+               "aux_equal": all(torch.equal(aux_sh[a], aux[a])
+                                for a in aux),
+               "collective_calls": calls, "sharded_s": sec_sh,
+               "moe_ff_s": sec, "seconds": time.perf_counter() - t0}
+        if gap > MOE_PATH_BAR or tuple(y_sh.shape) != tuple(x.shape) or \
+                not bool(torch.isfinite(y_sh).all()):
+            emit({"phase": "multi_rank_moe", **out})
+            raise AssertionError(f"multi_rank: moe_ff_sharded parts from "
+                                 f"moe_ff by {gap} of max |y|")
+        del p, x, y, y_sh, y_again
+        torch.cuda.empty_cache()
+        return out
+
+    def _multi_rank_step(self, mesh) -> dict:
+        """qwen1.5-0.5b at its published widths: MULTI_STEPS steps of the
+        mesh-of-ranks build_train_step (the state placed by its
+        in_shardings) and as many of train_step alone from the same
+        parameters and batch (uncounted). Step 1 held (held_step); its
+        loss and grad_norm within STEP1_TOL relative, step 2's loss
+        within STEP2_TOL."""
+        t0 = time.perf_counter()
+        cfg = get_config(ARCH)
+        opt = optim.AdamWConfig(warmup_steps=1)
+        params = build_model(cfg).init(SEED, device=mesh.device)
+        batch = make_batch(cfg, MULTI_B, MULTI_S, gen=torch.Generator(
+            device=self.dev).manual_seed(SEED))
+        bundle = steps.build_train_step(
+            cfg, ShapeConfig("multi_rank", MULTI_S, MULTI_B, "train"),
+            make_rules(mesh), opt)
+        p_sh, o_sh, b_sh = bundle.in_shardings
+        p_local = sharding.place(params, p_sh)
+        o_local = sharding.place(optim.init_state(params), o_sh)
+        b_local = sharding.place(batch, b_sh)
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        collectives.reset_counts()
+        got, secs = [], []
+        with self.held_step("multi_rank_step") as held:
+            (p_local, o_local, m), sec = synced(bundle.fn, p_local, o_local,
+                                                b_local)
+        got.append({k: float(v) for k, v in m.items()})
+        secs.append(sec)
+        for _ in range(MULTI_STEPS - 1):
+            (p_local, o_local, m), sec = synced(bundle.fn, p_local, o_local,
+                                                b_local)
+            got.append({k: float(v) for k, v in m.items()})
+            secs.append(sec)
+        launches = _build.launches["flash_attention"]
+        calls = dict(collectives.calls)
+        self.tally("multi_rank_step", dict(_build.launches))
+        finite = self._finite(p_local, m["loss"])
+        del p_local, o_local, b_local
+        want = []
+        o_state = optim.init_state(params)
+        with uncounted():
+            for _ in range(MULTI_STEPS):
+                params, o_state, m = steps.train_step(params, o_state, batch,
+                                                      cfg, opt)
+                want.append({k: float(v) for k, v in m.items()})
+        del params, o_state, batch
+        torch.cuda.empty_cache()
+        per_step = 2 * cfg.num_layers
+        rel = {k: abs(got[0][k] - want[0][k]) / abs(want[0][k])
+               for k in ("loss", "grad_norm")}
+        out = {"arch": ARCH, "tokens": [MULTI_B, MULTI_S],
+               "steps": MULTI_STEPS, "loss": [g["loss"] for g in got],
+               "grad_norm": [g["grad_norm"] for g in got],
+               "train_step_loss": [w["loss"] for w in want],
+               "train_step_grad_norm": [w["grad_norm"] for w in want],
+               "step1_rel_diff": rel,
+               "step2_loss_diff": abs(got[1]["loss"] - want[1]["loss"]),
+               "tolerances": [STEP1_TOL, STEP2_TOL],
+               "flash_attention_launches": launches, **held,
+               "collective_calls": calls, "step_s": secs,
+               "seconds": time.perf_counter() - t0}
+        if max(rel.values()) > STEP1_TOL or \
+                out["step2_loss_diff"] > STEP2_TOL or not finite or \
+                launches != per_step * MULTI_STEPS or \
+                held["flash_attention_held"] != per_step:
+            emit({"phase": "multi_rank_step", **out})
+            raise AssertionError(f"multi_rank: the partitioned step parts "
+                                 f"from train_step or its launches: {out}")
+        return out
+
     def _ssd_row(self, args, label: str):
         """The kernels line's row for kernel 7 on a prefill call's
         (x, dt, a, b, c, d), x, b and c strided views of the conv's output,
@@ -5854,6 +6053,7 @@ def main() -> int:
     smoke.hot_rows()
     smoke.dryrun()
     kernels += smoke.long_context()
+    smoke.multi_rank()
     emit({"total_s": time.perf_counter() - t_start})
     # launches on the main path, summed over every phase that ran it
     emit({"launches_by_phase": smoke.phase_counts})

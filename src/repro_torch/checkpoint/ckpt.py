@@ -17,6 +17,13 @@ Checkpoints are written the way DINOMO writes data:
   * a restore puts the same bytes on the device it is given (ownership
     re-mapped, nothing on disk moves).
 
+On a mesh of ranks (``launch/mesh.py:make_mesh``) both take the tree's
+shardings: ``save`` gathers each leaf whole and rank 0 writes the files
+and manifest one process writes for the same values, byte for byte, while
+the other ranks wait at a barrier; ``restore`` has every rank read each
+leaf and keep its own block, so a checkpoint saved under one mesh restores
+under any other.
+
 Layout (the reference's):
   <dir>/segments/<step>/<leaf>.npy
   <dir>/MANIFEST-<step>.json            (sealed by rename)
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..distributed import collectives
 
 # numpy can't natively hold bf16/fp8: store such tensors as raw uint
 # views and restore the logical dtype from metadata. Each entry: the
@@ -164,10 +172,19 @@ class CheckpointStore:
                   bytes_written=size, crc_passes=1, crc_bytes=size)
         return fname, crc, stored.shape, logical
 
-    def save(self, step: int, tree, extra: dict | None = None) -> Future:
+    def save(self, step: int, tree, extra: dict | None = None,
+             shardings=None) -> Future:
         """Persist ``tree`` asynchronously; returns a Future that resolves
         when the manifest is sealed. Every leaf is copied to the host
-        before this returns."""
+        before this returns.
+
+        With ``shardings`` (a matching tree of ``NamedSharding`` on a mesh
+        of ranks, every rank calling with its blocks) each leaf is gathered
+        whole (an all_gather) and rank 0 writes it; the save is done on
+        every rank when this returns, the others having waited at a
+        barrier for rank 0's manifest."""
+        if shardings is not None:
+            return self._save_gathered(step, tree, extra, shardings)
         t0 = time.perf_counter()
         leaves = [(name, _to_storage(leaf))
                   for name, leaf in _leaf_paths(tree)]
@@ -201,6 +218,22 @@ class CheckpointStore:
         fut = self._pool.submit(flush)
         with self._lock:
             self._pending.append(fut)
+        return fut
+
+    def _save_gathered(self, step: int, tree, extra, shardings) -> Future:
+        shs = [sh for _, sh in _leaf_paths(shardings)]
+        mesh = shs[0].mesh
+        whole = [sh.gather(leaf) for (_, leaf), sh in
+                 zip(_leaf_paths(tree), shs, strict=True)]
+        if mesh.place.coords == (0,) * len(mesh.sizes):
+            rebuilt = _unflatten(tree, iter(whole))
+            del whole
+            self.save(step, rebuilt, extra).result()
+        else:
+            del whole
+        collectives.barrier(mesh)
+        fut: Future = Future()
+        fut.set_result(step)
         return fut
 
     def wait(self):
@@ -256,12 +289,26 @@ class CheckpointStore:
                 return step
         return None
 
-    def restore(self, template, step: int | None = None, device=None):
+    def restore(self, template, step: int | None = None, device=None,
+                shardings=None):
         """Restore into the structure of ``template`` (its leaves are not
         read), every leaf a tensor on ``device`` (the card unless
         ``"cpu"``): the same bytes, re-owned by whichever device loads
         them. Returns (tree, extra, step); the latest valid step when
-        ``step`` is None."""
+        ``step`` is None.
+
+        With ``shardings`` (a matching tree of ``NamedSharding`` on a mesh
+        of ranks) each rank reads every leaf and keeps its block, a
+        contiguous copy on its device (the mesh's; ``device``, if given,
+        must be that one)."""
+        shs = None
+        if shardings is not None:
+            shs = [sh for _, sh in _leaf_paths(shardings)]
+            mesh_dev = shs[0].mesh.device
+            if device is not None and resolve_device(device) != mesh_dev:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh_dev}")
+            device = mesh_dev
         dev = resolve_device(device)
         if step is None:
             step = self.latest_valid()
@@ -272,12 +319,17 @@ class CheckpointStore:
             raise IOError(f"checkpoint {step} failed validation")
         seg_dir = os.path.join(self.dir, "segments", str(step))
         arrays = []
-        for name, _ in _leaf_paths(template):
+        for i, (name, _) in enumerate(_leaf_paths(template)):
             ent = manifest["entries"][name]
             t0 = time.perf_counter()
             arr = np.load(os.path.join(seg_dir, ent["file"]))
             t1 = time.perf_counter()
-            arrays.append(_from_storage(arr, ent["dtype"], dev))
+            if shs is None:
+                arrays.append(_from_storage(arr, ent["dtype"], dev))
+            else:
+                block = shs[i].local(_from_storage(arr, ent["dtype"], "cpu"))
+                arrays.append(block.to(dev, copy=True, memory_format=torch.
+                                       contiguous_format))
             self._add(load_s=t1 - t0, upload_s=time.perf_counter() - t1,
                       bytes_read=arr.nbytes)
         if dev.type == "cuda":

@@ -12,11 +12,15 @@ data and sequence over model -- sequence-sharded KV is the dense-cache
 analogue of DINOMO page ownership.
 
 A spec is a tuple of the reference's ``PartitionSpec`` entries: None, an
-axis name, or a tuple of two or more names (a tuple of one is its name,
-as JAX's ``PartitionSpec`` holds it); ``NamedSharding`` pairs it with a
-mesh (``launch/mesh.py``). On one card nothing is partitioned: the rules give
-the dry run its per-device sizes and ``launch/elastic.py:resize`` its
-mapping.
+axis name, or a tuple of two or more names in mesh order (a tuple of one
+is its name, as JAX's ``PartitionSpec`` holds it); ``NamedSharding`` pairs
+it with a mesh (``launch/mesh.py``). On a mesh with no ranks the rules give
+the dry run its per-device sizes; on a mesh of ranks they place real
+shards: ``NamedSharding.local`` cuts a rank's block out of a whole leaf,
+``gather`` rebuilds the whole from the blocks, ``reduce`` sums the ranks'
+shares of a whole leaf's gradient into the rank's block, and ``place`` /
+``gather_tree`` do the first two over a tree (the port's
+``jax.device_put(tree, shardings)`` and its inverse).
 
 The port keeps a model's layers as a list of one tree per layer where
 the reference stacks them on a leading, scan-indexed axis. A leaf of
@@ -34,6 +38,7 @@ from dataclasses import dataclass
 import torch
 
 from ..launch.mesh import Mesh
+from . import collectives
 
 
 @dataclass(frozen=True)
@@ -55,6 +60,53 @@ class NamedSharding:
                                  f"divide over {entry} ({n})")
             out[i] //= n
         return tuple(out)
+
+    def _sharded(self):
+        """(dim, axes) of each sharded dim."""
+        for i, entry in enumerate(self.spec):
+            if entry is not None:
+                yield i, (entry if isinstance(entry, tuple) else (entry,))
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole leaf ``full`` (a view): on each
+        sharded dim the block at the rank's row-major position along the
+        dim's axes."""
+        self.shard_shape(full.shape)
+        out = full
+        for i, axes in self._sharded():
+            n = self.mesh.size_of(axes)
+            if n > 1:
+                size = out.shape[i] // n
+                out = out.narrow(i, self.mesh.index(axes) * size, size)
+        return out
+
+    def gather(self, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf from every rank's block: an all_gather over each
+        sharded dim's axes."""
+        out = local
+        for i, axes in self._sharded():
+            out = collectives.all_gather(out, i, axes, self.mesh)
+        return out
+
+    def reduce(self, share: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the sum over every rank of ``share`` (a
+        whole leaf's gradient as one rank holds it, collectives.py's
+        convention): a sum reduce-scatter over each sharded dim's axes,
+        then a psum over the axes the spec leaves out."""
+        out = share
+        used = set()
+        for i, axes in self._sharded():
+            out = collectives.reduce_scatter(out, i, axes, self.mesh)
+            used.update(axes)
+        rest = tuple(a for a in self.mesh.axis_names if a not in used)
+        return collectives.psum(out, rest, self.mesh) if rest else out
+
+    def first_holder(self) -> bool:
+        """Whether this rank is the first of those holding its block:
+        coordinate 0 along every axis the spec leaves out."""
+        used = {a for _, axes in self._sharded() for a in axes}
+        return all(self.mesh.coord(a) == 0 for a in self.mesh.axis_names
+                   if a not in used)
 
 
 @dataclass(frozen=True)
@@ -151,6 +203,50 @@ def _map(fn, node, path=(), layers=None):
     return fn(node, path, layers)
 
 
+def _zip_map(fn, tree, shardings):
+    """``fn(leaf, sharding)`` over a tree of dicts, tuples and lists and
+    the matching tree of ``NamedSharding``, in ``tree``'s shape."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        if len(tree) != len(shardings):
+            raise ValueError(f"{len(tree)} entries against "
+                             f"{len(shardings)} shardings")
+        return type(tree)(_zip_map(fn, v, s)
+                          for v, s in zip(tree, shardings))
+    return fn(tree, shardings)
+
+
+def zip_leaves(tree, shardings):
+    """(leaf, sharding) of every leaf of ``tree``, matched to the tree of
+    ``NamedSharding`` by key and index, in ``tree``'s order."""
+    pairs = []
+    _zip_map(lambda t, s: pairs.append((t, s)), tree, shardings)
+    return pairs
+
+
+def place(tree, shardings):
+    """Each rank's blocks of a tree of whole leaves, as contiguous copies
+    on the mesh's device (the port's ``jax.device_put(tree,
+    shardings)``)."""
+    return _zip_map(lambda t, s: s.local(t).to(s.mesh.device, copy=True,
+                                               memory_format=torch.
+                                               contiguous_format),
+                    tree, shardings)
+
+
+def gather_tree(tree, shardings):
+    """The whole leaves of a tree of this rank's blocks (``place``'s
+    inverse); every rank must call it."""
+    return _zip_map(lambda t, s: s.gather(t), tree, shardings)
+
+
+def reduce_tree(shares, shardings):
+    """Each rank's blocks of the sums over the ranks of a tree of whole
+    leaves' shares (``NamedSharding.reduce``: a tree of gradients)."""
+    return _zip_map(lambda t, s: s.reduce(t), shares, shardings)
+
+
 def tree_leaves(tree):
     """Every leaf of nested dicts, tuples and lists, in order."""
     if isinstance(tree, dict):
@@ -214,6 +310,20 @@ def batch_shardings(tree, rules: MeshRules):
         spec = batch_spec(leaf.shape[0], rules)
         return NamedSharding(rules.mesh,
                              spec + (None,) * (len(leaf.shape) - 1))
+    return _map(one, tree)
+
+
+def token_shardings(tree, rules: MeshRules):
+    """A batch on a mesh of ranks, in the one activation layout
+    (``act_sharding.py``): the rows of every leaf over all data axes, and
+    the sequence of a (B, S) leaf (tokens, labels, mask) over the model
+    axis; an encoder's frames (B, S_enc, d) by rows only."""
+    def one(leaf, path, layers):
+        spec = (_entry(rules.data_axes),)
+        if len(leaf.shape) == 2:
+            spec += (rules.model_axis,)
+        return NamedSharding(rules.mesh,
+                             spec + (None,) * (len(leaf.shape) - len(spec)))
     return _map(one, tree)
 
 

@@ -1,5 +1,5 @@
 """Elastic restore: DINOMO's lightweight reconfiguration applied to
-training state, on one card. The port's copy of the reference's
+training state. The port's copy of the reference's
 ``launch/elastic.py``.
 
 A checkpoint restores wherever the job now runs by *re-owning* its
@@ -14,10 +14,12 @@ analogue:
   5. resume -- restore + re-own, no data reorganization
 
 Step 4 maps each leaf to the new mesh's partition rules
-(``distributed/sharding.py``), as the reference's. The port restores onto
-one device: a mesh of one (``launch/train.py:make_host_mesh``), where
-every leaf's shard is the whole leaf, or, with no mesh, the device asked
-for. A mesh of more devices raises.
+(``distributed/sharding.py``), as the reference's. On a mesh of ranks of
+any size (``launch/mesh.py:make_mesh``) every rank reads each leaf and
+keeps its block by those rules, whatever mesh saved it; on a mesh of one
+device (``launch/train.py:make_host_mesh``) every leaf's shard is the
+whole leaf; with no mesh the state goes to the device asked for. A mesh
+with no devices or ranks raises.
 """
 
 from __future__ import annotations
@@ -30,24 +32,28 @@ from .mesh import Mesh
 
 def resize(store: CheckpointStore, template, new_mesh: Mesh | None = None,
            *, mode: str = "train", device=None, step: int | None = None):
-    """Restore ``template``-shaped state onto ``new_mesh``'s one device, or
-    with no mesh onto ``device`` (the card unless ``"cpu"``). Returns
-    (state, extra, step). The restore cost is O(bytes read), with zero
-    re-layout on disk."""
+    """Restore ``template``-shaped state onto ``new_mesh``: each rank's
+    blocks of it on a mesh of ranks (every rank calls), the whole on a
+    mesh's one device; or with no mesh onto ``device`` (the card unless
+    ``"cpu"``). Returns (state, extra, step). The restore cost is O(bytes
+    read), with zero re-layout on disk."""
     if new_mesh is None:
         dev = resolve_device(device)
     else:
-        dev = new_mesh.device             # raises for more than one
+        dev = new_mesh.device             # raises with no device or rank
         if device is not None and resolve_device(device) != dev:
             raise ValueError(f"device {device} is not the mesh's {dev}")
     store.wait()                          # step 3: merge pending logs
-    if new_mesh is not None:              # step 4: new mapping
-        shardings = param_shardings(template, make_rules(new_mesh), mode)
-        for leaf, sh in zip(tree_leaves(template), tree_leaves(shardings),
-                            strict=True):
-            if sh.shard_shape(leaf.shape) != tuple(leaf.shape):
-                raise ValueError(f"{sh.spec} splits a leaf of "
-                                 f"{tuple(leaf.shape)} on one device")
+    if new_mesh is None:
+        return store.restore(template, step=step, device=dev)
+    shardings = param_shardings(template, make_rules(new_mesh), mode)
+    if new_mesh.place is not None:        # step 4: new mapping
+        return store.restore(template, step=step, shardings=shardings)
+    for leaf, sh in zip(tree_leaves(template), tree_leaves(shardings),
+                        strict=True):
+        if sh.shard_shape(leaf.shape) != tuple(leaf.shape):
+            raise ValueError(f"{sh.spec} splits a leaf of "
+                             f"{tuple(leaf.shape)} on one device")
     return store.restore(template, step=step, device=dev)
 
 

@@ -13,6 +13,11 @@ its inputs (``param_structs``, ``input_specs``: shapes and types, no
 data) and the partition rules' shardings of its inputs and outputs. One
 card runs the ``fn`` as it is; the dry run (``launch/dryrun.py``) runs it
 on the meta stand-ins.
+
+On a mesh of ranks (``launch/mesh.py:make_mesh``) ``build_train_step``'s
+``fn`` is the partitioned step: each rank runs its rows and its chunk of
+the sequence with explicit collectives (``sharded_train_step``). The
+prefill and decode builders raise there (ROADMAP Queue 2 item 9).
 """
 
 from __future__ import annotations
@@ -23,10 +28,11 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
-from ..distributed.act_sharding import activation_sharding
+from ..distributed.act_sharding import activation_sharding, ranks
 from ..distributed.sharding import (MeshRules, batch_shardings,
-                                    cache_shardings, param_shardings,
-                                    replicated)
+                                    cache_shardings, gather_tree,
+                                    param_shardings, reduce_tree,
+                                    replicated, token_shardings)
 from ..models import (RUNS, encdec, families_run_by, ssm_lm, transformer,
                       zamba2)
 from ..models.layers import PARAM_DTYPE, unembed
@@ -48,13 +54,22 @@ def value_and_grad(params: dict, batch: dict, cfg):
     ``torch.autograd.grad``, a tree shaped like ``params`` (zeros for a
     parameter the loss does not read, as under ``jax.grad``), computed on
     aliases of the parameters so that theirs stay untouched. The metrics
-    come detached."""
+    come detached.
+
+    Under an activation-sharding policy on a mesh of ranks, ``params`` are
+    whole, ``batch`` is the rank's block and the loss the whole batch's
+    (on every rank); the backward starts from 1 / mesh.size, so that the
+    gradients are the rank's shares (``distributed/collectives.py``),
+    which sum over the ranks to the loss's gradient."""
     # leaves of the graph: aliases of the parameters, which an update may
     # then write in place once the graph is freed
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     loss, metrics = build_model(cfg).loss(live, batch)
     flat = [t for _, t in leaves(live)]
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    pol = ranks()
+    seed = None if pol is None else torch.full_like(loss, 1 / pol.mesh.size)
+    grads = torch.autograd.grad(loss, flat, grad_outputs=seed,
+                                allow_unused=True)
     it = iter([torch.zeros_like(t) if g is None else g
                for t, g in zip(flat, grads)])
     del live, flat
@@ -77,12 +92,72 @@ def train_step(params: dict, opt_state: dict, batch: dict, cfg,
     once more in the backward's recompute of each checkpointed block; the
     backward differentiates their plain versions."""
     _check_family(cfg)
-    cfg = cfg.replace(remat="full" if cfg.remat == "none" else cfg.remat,
-                      loss_chunk=cfg.loss_chunk or 512)
+    cfg = _step_cfg(cfg)
     _, metrics, grads = value_and_grad(params, batch, cfg)
     params, opt_state, opt_metrics = apply_updates(params, grads, opt_state,
                                                    opt or AdamWConfig())
     return params, opt_state, {**metrics, **opt_metrics}
+
+
+def _step_cfg(cfg):
+    """The model as the reference's train step runs it: remat "full" where
+    cfg says "none", loss_chunk 512 where it says 0."""
+    return cfg.replace(remat="full" if cfg.remat == "none" else cfg.remat,
+                       loss_chunk=cfg.loss_chunk or 512)
+
+
+# the families whose layers carry state along the sequence (the SSM scan),
+# or attend over an encoder's whole memory, run on meshes whose model axis
+# is 1 only: data-parallel, with FSDP at rest
+WHOLE_SEQUENCE = ("ssm", "hybrid", "encdec", "audio")
+
+
+def sharded_train_step(p_local: dict, o_local: dict, b_local: dict, cfg,
+                       opt: AdamWConfig, rules: MeshRules, p_sh,
+                       tokens: tuple):
+    """``train_step`` partitioned over a mesh of ranks (``rules.mesh``):
+    ``p_local`` and ``o_local`` hold the rank's blocks of the parameters
+    and moments by their train specs ``p_sh`` (FSDP at rest), ``b_local``
+    its rows and sequence chunk of the (B, S) ``tokens``
+    (``token_shardings``). The rank
+
+      1. gathers the whole parameter tree, once a step and outside
+         autograd (``gather_tree``: an all_gather a sharded dim of each
+         leaf). A layer-by-layer gather would hold one layer at a time
+         but would run again inside each checkpointed block's recompute,
+         twice the gathers; the whole tree costs a replica of the
+         parameters on every rank for the step;
+      2. runs ``value_and_grad`` on its block under the policy: its
+         attention, MoE and loss exchange what they need, and its
+         gradients are its shares of the whole loss's;
+      3. reduce-scatters each gradient to its block by the leaf's train
+         spec and sums it over the axes the spec leaves out
+         (``NamedSharding.reduce``): the sum of the shares, which is the
+         gradient of the loss, the mean over every token of the batch;
+      4. runs AdamW on its blocks, the global norm summed once over the
+         mesh.
+
+    Updates ``p_local`` and ``o_local`` in place and returns them with
+    the metrics, scalars equal on every rank."""
+    _, metrics, grads = sharded_value_and_grad(p_local, b_local,
+                                               _step_cfg(cfg), rules, p_sh,
+                                               tokens)
+    p_local, o_local, opt_metrics = apply_updates(p_local, grads, o_local,
+                                                  opt, shardings=p_sh)
+    return p_local, o_local, {**metrics, **opt_metrics}
+
+
+def sharded_value_and_grad(p_local: dict, b_local: dict, cfg,
+                           rules: MeshRules, p_sh, tokens: tuple):
+    """Steps 1-3 of ``sharded_train_step`` with ``cfg`` as it is: (loss,
+    metrics, the rank's blocks of the gradients), the loss and metrics
+    the whole batch's on every rank."""
+    with torch.no_grad():
+        whole = gather_tree(p_local, p_sh)
+    with _policy(rules, tokens):
+        loss, metrics, grads = value_and_grad(whole, b_local, cfg)
+    del whole
+    return loss, metrics, reduce_tree(grads, p_sh)
 
 
 def prefill_step(params: dict, tokens: torch.Tensor, cfg,
@@ -195,8 +270,31 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
             "pos": _meta((), torch.int32)}
 
 
-def _policy(rules: MeshRules):
-    return activation_sharding(rules.mesh, rules.data_axes, rules.model_axis)
+def _policy(rules: MeshRules, tokens: tuple | None = None):
+    return activation_sharding(rules.mesh, rules.data_axes, rules.model_axis,
+                               tokens)
+
+
+def _no_ranks(rules: MeshRules, what: str) -> None:
+    if rules.mesh.place is not None:
+        raise NotImplementedError(
+            f"{what} on a mesh of ranks is not ported yet (ROADMAP Queue 2 "
+            "item 9); build it on a mesh with no ranks or one device")
+
+
+def _check_ranks(cfg: ModelConfig, shape: ShapeConfig,
+                 rules: MeshRules) -> None:
+    """Raise where the partitioned step cannot run ``shape`` on the mesh
+    of ranks."""
+    m, d = rules.model_size, rules.data_size
+    if cfg.family in WHOLE_SEQUENCE and m > 1:
+        raise NotImplementedError(
+            f"family {cfg.family!r} on a model axis of {m}: its scan over a "
+            "sequence split across ranks is not ported yet (ROADMAP Queue "
+            "2 item 9); use a mesh whose model axis is 1")
+    if shape.global_batch % d or shape.seq_len % m:
+        raise ValueError(f"{shape.global_batch} x {shape.seq_len} tokens do "
+                         f"not divide over {d} data x {m} model ranks")
 
 
 def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
@@ -205,13 +303,17 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     """``fn(params, opt_state, batch)`` is ``train_step`` (remat "full",
     loss_chunk 512 where cfg says none) under the policy; it updates the
     parameters and the state in place and returns them with the
-    metrics."""
+    metrics.
+
+    On a mesh of ranks ``fn(p_local, o_local, b_local)`` is
+    ``sharded_train_step``: it takes and updates the rank's blocks of the
+    parameters and moments by ``in_shardings`` (``sharding.place`` cuts
+    them from whole trees) and of the batch, rows over the data axes and
+    the sequence over the model axis (``token_shardings``). The dense,
+    MoE and VLM families run on any mesh whose ranks divide the batch and
+    the sequence; the SSM, hybrid and encoder-decoder families on a model
+    axis of 1 (data-parallel), and raise on a larger one."""
     opt = opt or AdamWConfig()
-
-    def fn(params, opt_state, batch):
-        with _policy(rules):
-            return train_step(params, opt_state, batch, cfg, opt)
-
     p_sds = param_structs(build_model(cfg))
     o_sds = init_state(p_sds)
     b_sds = input_specs(cfg, shape)
@@ -219,9 +321,22 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     o_sh = {"mu": param_shardings(o_sds["mu"], rules, "train"),
             "nu": param_shardings(o_sds["nu"], rules, "train"),
             "step": replicated(rules)}
+    if rules.mesh.place is None:
+        def fn(params, opt_state, batch):
+            with _policy(rules):
+                return train_step(params, opt_state, batch, cfg, opt)
+        b_sh = batch_shardings(b_sds, rules)
+    else:
+        _check_ranks(cfg, shape, rules)
+        tokens = (shape.global_batch, shape.seq_len)
+
+        def fn(p_local, o_local, b_local):
+            return sharded_train_step(p_local, o_local, b_local, cfg, opt,
+                                      rules, p_sh, tokens)
+        b_sh = token_shardings(b_sds, rules)
     return StepBundle(
         name="train_step", fn=fn, in_specs=(p_sds, o_sds, b_sds),
-        in_shardings=(p_sh, o_sh, batch_shardings(b_sds, rules)),
+        in_shardings=(p_sh, o_sh, b_sh),
         # every metric is a replicated scalar
         out_shardings=(p_sh, o_sh, replicated(rules)), donate=(0, 1))
 
@@ -231,7 +346,10 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
     """``fn(params, batch)`` is ``prefill_step`` under the policy: the
     last-token logits (B, V) f32 and, for the transformer families, the KV
     cache. The reference's transformer bundle returns ``logits[:, -1]``,
-    (B,) (ROADMAP Queue 3); the port keeps the logits."""
+    (B,) (ROADMAP Queue 3); the port keeps the logits. Raises on a mesh
+    of ranks."""
+    _no_ranks(rules, "the prefill step")
+
     def fn(params, batch):
         with _policy(rules):
             return prefill_step(params, batch["tokens"], cfg,
@@ -261,7 +379,9 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig,
     transformer families switch decode implementations -- "v2" ``decode_
     step_v2``, True or "v3" ``decode_step_v3``, over KH-major caches; the
     other families run their own step. The encoder families' cache holds
-    4096 positions of memory, as the reference's."""
+    4096 positions of memory, as the reference's. Raises on a mesh of
+    ranks."""
+    _no_ranks(rules, "the decode step")
     b = shape.global_batch
 
     def fn(params, cache, token, pos):

@@ -10,7 +10,9 @@ on one card (or the CPU when asked for). It runs real steps of
     resumes from the other's,
   * elastic re-own on resume: the same checkpoint bytes are loaded onto
     whichever device runs the job (ownership remap, no data rewrite);
-    the host mesh is the (1, 1) mesh over that device,
+    the host mesh is the (1, 1) mesh over that device (a world of more
+    ranks gets the reference's (n/2, 2) mesh of ranks, on which ``train``
+    does not run yet: ROADMAP Queue 2 item 9),
   * simulated failure injection (--fail-at) proving recovery works.
 
 Usage:
@@ -26,6 +28,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import state
 from ..checkpoint import CheckpointStore
@@ -37,12 +40,19 @@ from ..distributed.sharding import make_rules
 from ..models.model_zoo import build_model
 from ..optim.adamw import AdamWConfig, init_state
 from . import steps as step_fns
-from .mesh import Mesh
+from .mesh import Mesh, make_mesh
 
 
 def make_host_mesh(device=None) -> Mesh:
-    """The (1, 1) ("data", "model") mesh over ``device`` (the card unless
-    ``"cpu"`` or ``"meta"``): one process drives one device."""
+    """The reference's host mesh: in an initialised world of n > 1 ranks
+    the (n // 2, n // (n // 2)) ("data", "model") mesh of ranks
+    (``make_mesh``, this rank on ``device``); otherwise the (1, 1) mesh over
+    ``device`` (the card unless ``"cpu"`` or ``"meta"``), one process
+    driving one device."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        n = dist.get_world_size()
+        d = max(n // 2, 1)
+        return make_mesh((d, n // d), ("data", "model"), device=device)
     return Mesh(("data", "model"), (1, 1), (resolve_device(device),))
 
 
@@ -69,6 +79,10 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
     step is ``build_train_step``'s on the host mesh. Returns (params,
     opt_state, the logged losses)."""
     mesh = make_host_mesh(device)
+    if mesh.place is not None:
+        raise NotImplementedError("launch/train.py:train on a mesh of ranks "
+                                  "is not ported yet (ROADMAP Queue 2 item "
+                                  "9); run it in one process")
     dev = mesh.device
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cfg = cfg.replace(loss_chunk=min(seq, 512))

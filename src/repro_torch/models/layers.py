@@ -6,6 +6,13 @@ Functional, as in the reference: parameters are plain dicts of tensors,
 weights stored (d_in, d_out) so a layer is ``x @ w``; every layer is
 ``f(params, x, ...) -> y``. Parameters are bf16; norms, softmax and
 rotary math run in f32, with the reference's casts in the same places.
+
+Under an activation-sharding policy on a mesh of ranks
+(``distributed/act_sharding.py``) each rank holds its rows and its chunk
+of the sequence: positions start at the chunk's first, attention moves
+its inputs to the heads layout or gathers the sequence
+(``attention_block``), and the losses are the means over the whole
+batch.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ from __future__ import annotations
 import torch
 import torch.utils.checkpoint
 
+from ..distributed import act_sharding
 from ..kernels.flash_attention.ops import attention
 
 PARAM_DTYPE = torch.bfloat16
@@ -85,8 +93,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def position_ids(b: int, s: int, device) -> torch.Tensor:
-    """The positions 0..s-1 of each of b rows, (B, S) int32."""
-    return torch.arange(s, dtype=torch.int32,
+    """The positions 0..s-1 of each of b rows, (B, S) int32; on a mesh of
+    ranks those of the rank's chunk of s positions
+    (``act_sharding.seq_start``)."""
+    p0 = act_sharding.seq_start(s)
+    return torch.arange(p0, p0 + s, dtype=torch.int32,
                         device=device)[None, :].expand(b, s)
 
 
@@ -119,10 +130,30 @@ def qkv_proj(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
 def attention_block(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Full-sequence attention (prefill): the flash_attention kernel on
-    the card."""
+    the card.
+
+    On a mesh of ranks x holds the rank's S/M positions. Where the heads
+    and the KV heads divide the model axis, q, k and v go to the heads
+    layout (``act_sharding.constrain_heads``, an all-to-all) and the
+    kernel attends over the whole sequence for the rank's H/M heads, Sq ==
+    Sk as on one card; the output comes back by the inverse all-to-all.
+    Otherwise q, k and v are gathered over the model axis and every rank
+    attends over the whole sequence for every head, keeping its own
+    positions of the output: M times the attention work of the heads
+    layout, and its backward sums the ranks' shares of the gathered
+    inputs (llama3.2-3b's smoke config, 6 heads and 2 KV heads on M = 4,
+    takes this path)."""
     q, k, v = qkv_proj(p, x, cfg, positions)
-    out = attention(q, k, v, causal=causal)
-    b, s, _, _ = out.shape
+    b, s = x.shape[:2]
+    if act_sharding.head_sharding_active(cfg.num_heads) and \
+            act_sharding.head_sharding_active(cfg.num_kv_heads):
+        out = act_sharding.release_heads(attention(
+            *(act_sharding.constrain_heads(t) for t in (q, k, v)),
+            causal=causal))
+    else:
+        out = act_sharding.local_sequence(attention(
+            *(act_sharding.gather_sequence(t) for t in (q, k, v)),
+            causal=causal))
     return out.reshape(b, s, -1) @ p["wo"]
 
 
@@ -261,13 +292,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """logits: (B, S, V) f32; labels: (B, S) int. The mean negative
     log-likelihood of the labels under an f32 log-softmax; with ``mask``
-    (B, S), the masked sum over ``max(mask.sum(), 1)``."""
+    (B, S), the masked sum over ``max(mask.sum(), 1)``. On a mesh of ranks
+    the sums and counts are the whole batch's."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if mask is not None:
         nll = nll * mask
-        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+        return act_sharding.mesh_sum(nll.sum()) / torch.clamp(
+            act_sharding.mesh_sum(mask.sum()), min=1.0)
+    if act_sharding.ranks() is None:
+        return nll.mean()
+    return act_sharding.token_mean(nll.sum(), nll.numel())
 
 
 def chunked_cross_entropy(params: dict, x: torch.Tensor, labels: torch.Tensor,
@@ -277,7 +312,9 @@ def chunked_cross_entropy(params: dict, x: torch.Tensor, labels: torch.Tensor,
     (B, chunk, V) logits are made at a time: the chunks' summed NLL over
     B * S, added chunk by chunk in order, as the reference's scan. When S
     is not a multiple of the chunk, the dense ``cross_entropy`` of the
-    whole logits, with no mask, as the reference's."""
+    whole logits, with no mask, as the reference's. On a mesh of ranks
+    x holds the rank's tokens, and their summed NLL over the mesh is
+    divided by the whole batch's count (``act_sharding.token_mean``)."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if s % chunk:
@@ -289,4 +326,4 @@ def chunked_cross_entropy(params: dict, x: torch.Tensor, labels: torch.Tensor,
         nll = -torch.gather(logp, -1,
                             labels[:, c0:c0 + chunk].long()[..., None])
         total = total + nll.sum()
-    return total / (b * s)
+    return act_sharding.token_mean(total, b * s)

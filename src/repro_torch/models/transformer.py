@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..distributed.act_sharding import constrain
 from ..kernels.decode_attention.ops import merge_partials
 from ..kernels.decode_attention.ref import normalize
 from ..kernels.flash_attention.ops import attention
@@ -90,14 +91,17 @@ def _block(lp: dict, x: torch.Tensor, cfg, positions: torch.Tensor):
 def hidden(params: dict, tokens: torch.Tensor, cfg):
     """tokens: (B, S) int -> final normed hidden (B, S, d), aux: the
     layers' mean ``load_balance`` and ``router_z`` (0 outside the MoE
-    family). Each block is checkpointed under ``cfg.remat == "full"``."""
+    family). Each block is checkpointed under ``cfg.remat == "full"``. On
+    a mesh of ranks, tokens are the rank's block (``act_sharding``), and
+    so is every layer's output (``constrain`` checks it)."""
     check_family(cfg, "transformer")
     b, s = tokens.shape
-    x = params["embed"][tokens.long()]
+    x = constrain(params["embed"][tokens.long()])
     positions = position_ids(b, s, x.device)
     lb, rz = [], []
     for lp in params["layers"]:
         x, aux = remat(cfg, _block, lp, x, cfg, positions)
+        x = constrain(x)
         if aux is not None:
             lb.append(aux["load_balance"])
             rz.append(aux["router_z"])

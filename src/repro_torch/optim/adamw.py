@@ -9,6 +9,11 @@ f32 and casts each parameter back to its own type. The reference's train
 step donates the parameters and the state; here they are updated in
 place.
 
+On a mesh of ranks the parameters, gradients and moments are each rank's
+blocks (``distributed/sharding.py``): ``apply_updates`` stays elementwise
+on them, and ``global_norm`` given their shardings sums every element once
+over the mesh.
+
 Weight decay follows the rank a leaf has in the reference's tree, where
 each layer list is stacked on a leading axis (``state.reference_ndim``):
 a layer's (d,) norm or bias is decayed there, as an (L, d) leaf, and so
@@ -25,6 +30,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..distributed import collectives
+from ..distributed.sharding import zip_leaves
 from ..state import reference_ndim
 
 
@@ -87,21 +94,36 @@ def init_state(params) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shardings=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, summed leaf by
-    leaf."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for _, x in leaves(tree)))
+    leaf. With ``shardings`` (a matching tree of ``NamedSharding`` on a
+    mesh of ranks) the leaves are the rank's blocks: a block held by
+    several ranks (a leaf replicated over some axes) adds on the first of
+    them only, and the sum is all-reduced over the mesh, so every element
+    of the whole tree counts once."""
+    if shardings is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for _, x in leaves(tree)))
+    pairs = zip_leaves(tree, shardings)
+    blocks = [torch.sum(torch.square(x.float())) for x, sh in pairs
+              if sh.first_holder()]
+    mesh = pairs[0][1].mesh
+    total = sum(blocks) if blocks else torch.zeros(
+        (), dtype=torch.float32, device=mesh.device)
+    return torch.sqrt(collectives.psum(total, mesh.axis_names, mesh))
 
 
-def apply_updates(params, grads, state: dict, cfg: AdamWConfig):
+def apply_updates(params, grads, state: dict, cfg: AdamWConfig,
+                  shardings=None):
     """One AdamW step with the gradients clipped to a global norm of
     ``grad_clip``. ``params``, ``state["mu"]``, ``state["nu"]`` and
     ``state["step"]`` are updated in place (the reference's step donates
-    them) and returned: (params, state, {"grad_norm", "lr"})."""
+    them) and returned: (params, state, {"grad_norm", "lr"}). On a mesh of
+    ranks every tree holds the rank's blocks and ``shardings`` the
+    parameters' (``global_norm``)."""
     with torch.no_grad():
         step = state["step"] + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, shardings)
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         lr = schedule(cfg, step)

@@ -1891,3 +1891,76 @@ def test_hot_row_lookup_on_the_card_equals_the_gather(dev):
 def optim_leaves(tree):
     from repro_torch.optim.adamw import leaves
     return leaves(tree)
+
+
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    """NCCL at world size 1, joined through a file:// store under
+    tmp_path, and the (1, 1) mesh of ranks on cuda:0; the group is
+    destroyed after the test."""
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+    init_ranks(1, 0, f"file://{tmp_path}/store", device="cuda:0",
+               timeout=120)
+    try:
+        yield make_mesh((1, 1), ("data", "model"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_moe_ff_sharded_over_nccl_matches_moe_ff(nccl_mesh):
+    """olmoe's smoke MoE layer in bf16 on 2 x 64 tokens: moe_ff_sharded on
+    the NCCL mesh of one rank against moe_ff, within 2^-6 of max |y| (the
+    same ops; index_add_ adds in an unfixed order on the card), the aux
+    terms equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+    cfg = get_smoke_config("olmoe-1b-7b")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.moe_init(g, cfg)
+    x = torch.randn((2, 64, cfg.d_model), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    y, aux = moe.moe_ff(p, x, cfg)
+    y_sh, aux_sh = moe.moe_ff_sharded(p, x, cfg, nccl_mesh, ("data",),
+                                      "model", cfg.moe_capacity_factor)
+    gap = float((y_sh.float() - y.float()).abs().max())
+    assert gap <= 2.0 ** -6 * float(y.float().abs().max())
+    for k in aux:
+        assert torch.equal(aux_sh[k], aux[k]), k
+
+
+def test_bundle_step_over_nccl_matches_train_step(nccl_mesh):
+    """qwen's smoke config in f32: two steps of the mesh-of-ranks
+    build_train_step on the NCCL mesh (state placed by its in_shardings)
+    against train_step from the same parameters and batch: step 1's loss
+    and grad_norm within 1e-5 relative, step 2's loss within 2e-2, and
+    kernel 5 launched twice a layer a step."""
+    from repro_torch import optim
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+    from repro_torch.models.model_zoo import build_model, make_batch
+    cfg = get_smoke_config("qwen1.5-0.5b")
+    params = optim.adamw.tree_map(lambda t: t.float(),
+                                  build_model(cfg).init(0))
+    batch = make_batch(cfg, 2, 64)
+    opt = optim.AdamWConfig(lr=1e-3, warmup_steps=1)
+    bundle = steps.build_train_step(cfg, ShapeConfig("t", 64, 2, "train"),
+                                    sharding.make_rules(nccl_mesh), opt)
+    p_sh, o_sh, b_sh = bundle.in_shardings
+    p_local = sharding.place(params, p_sh)
+    o_local = sharding.place(optim.init_state(params), o_sh)
+    b_local = sharding.place(batch, b_sh)
+    state_ = optim.init_state(params)
+    n0 = _build.launches["flash_attention"]
+    got, want = [], []
+    for _ in range(2):
+        p_local, o_local, m = bundle.fn(p_local, o_local, b_local)
+        got.append({k: float(v) for k, v in m.items()})
+    assert _build.launches["flash_attention"] == n0 + 4 * cfg.num_layers
+    for _ in range(2):
+        params, state_, m = steps.train_step(params, state_, batch, cfg, opt)
+        want.append({k: float(v) for k, v in m.items()})
+    for k in ("loss", "grad_norm"):
+        assert abs(got[0][k] - want[0][k]) <= 1e-5 * abs(want[0][k]), k
+    assert abs(got[1]["loss"] - want[1]["loss"]) <= 2e-2
