@@ -549,6 +549,14 @@ MOE_PATH_BAR = 2.0 ** -6
 # step 1's loss and grad_norm (relative), step 2's loss (absolute, the
 # reference's sharded-step bar, tests/test_system.py:126)
 STEP1_TOL, STEP2_TOL = 1e-5, 2e-2
+# the rest of the multi-device paths on the (1, 1) mesh of ranks: the
+# prefill bundles on MULTI_B x MULTI_S tokens and MULTI_DECODE steps of
+# the decode bundles after them; the SSD carry over MULTI_PIECES pieces
+# of mamba2's layer-0 sequence; qwen's decode with its cache cut into
+# MULTI_PIECES owners, within OWNERS_TOL of max |logit| of the whole-cache
+# step (DECODE_IMPL_TOL, the bar between two decode implementations)
+MULTI_DECODE, MULTI_PIECES = 16, 4
+OWNERS_TOL = DECODE_IMPL_TOL
 SEAMLESS = "seamless-m4t-medium"
 ENC_B, ENC_FRAMES, ENC_TOKENS, ENC_REPS = 4, 1500, 256, 3
 # training: qwen1.5-0.5b and zamba2-1.2b at their published widths, steps
@@ -3697,7 +3705,7 @@ class Smoke:
         self.tally(phase, dict(_build.launches))
         peak = torch.cuda.max_memory_allocated() / 2**30
         del logits, kv
-        with uncounted(), recorded(transformer, "attention") as calls:
+        with uncounted(), recorded(layers, "attention") as calls:
             model.prefill(params, tokens)
         err = max(attn_path_err(
             [(f"{phase}.flash_attention.layer{li}", out,
@@ -5584,14 +5592,15 @@ class Smoke:
     def dryrun(self) -> None:
         """launch.dryrun.run_cell on meta tensors, on the card's host:
         long_context's two cut cells on the (1, 1) mesh (their
-        predictions), in two worker processes. Both must be OK."""
+        predictions), in this process (two spawned workers took 10-15 s
+        to start beside 5-7 s of cells). Both must be OK."""
         t0 = time.perf_counter()
         host = train_mod.make_host_mesh("meta")
         cut = self._long_cells()
         jobs = [(ARCH, "prefill_32k", {"shape": cut["prefill"],
                                        "mesh": host}),
                 (ARCH, "train_4k", {"shape": cut["train"], "mesh": host})]
-        procs = min(len(jobs), os.cpu_count() or 1)
+        procs = 1
         recs = dryrun_mod.run_cells(jobs, procs)
         bad = [(r["arch"], r["shape"], r.get("error")) for r in recs
                if r["status"] != "OK"]
@@ -5669,7 +5678,7 @@ class Smoke:
             self.tally("long_prefill", dict(_build.launches))
             pre_peak = self._peak_against_prediction("prefill", base)
             del logits, kv
-            with uncounted(), recorded(transformer, "attention") as calls:
+            with uncounted(), recorded(layers, "attention") as calls:
                 pre.fn(params, batch)
             qkv, out = calls[0]
             del calls
@@ -5774,13 +5783,20 @@ class Smoke:
                                          f"{dist.get_backend()}")
                 nccl = self._nccl_collectives(dev)
                 moe_out = self._multi_rank_moe(mesh)
-                step_out = self._multi_rank_step(mesh)
+                step_out = self._multi_rank_step(mesh, ARCH,
+                                                 "multi_rank_step")
+                t_paths = time.perf_counter()
+                zamba_out = self._multi_rank_step(mesh, ZAMBA,
+                                                  "multi_rank_zamba2_step")
+                paths = self._multi_rank_paths(mesh)
+                paths_s = time.perf_counter() - t_paths
             finally:
                 dist.destroy_process_group()
         emit({"phase": "multi_rank", "card": self.card,
               "nccl": str(torch.cuda.nccl.version()),
               "world_size": 1, "mesh": [1, 1], "collectives": nccl,
-              "moe": moe_out, "step": step_out,
+              "moe": moe_out, "step": step_out, "zamba2_step": zamba_out,
+              **paths, "paths_s": paths_s,
               "seconds": time.perf_counter() - t_phase})
 
     @staticmethod
@@ -5855,15 +5871,22 @@ class Smoke:
         torch.cuda.empty_cache()
         return out
 
-    def _multi_rank_step(self, mesh) -> dict:
-        """qwen1.5-0.5b at its published widths: MULTI_STEPS steps of the
+    def _multi_rank_step(self, mesh, arch: str, phase: str) -> dict:
+        """``arch`` at its published widths (qwen1.5-0.5b, or zamba2-1.2b:
+        its mamba layers through the SSD carry's path, its shared block's
+        rotary positions the rank's): MULTI_STEPS steps of the
         mesh-of-ranks build_train_step (the state placed by its
         in_shardings) and as many of train_step alone from the same
-        parameters and batch (uncounted). Step 1 held (held_step); its
-        loss and grad_norm within STEP1_TOL relative, step 2's loss
-        within STEP2_TOL."""
+        parameters and batch (uncounted). Step 1 held (held_step): every
+        kernel-5 and kernel-7 launch; its loss and grad_norm within
+        STEP1_TOL relative, step 2's loss within STEP2_TOL."""
         t0 = time.perf_counter()
-        cfg = get_config(ARCH)
+        cfg = get_config(arch)
+        _, groups, _ = zamba2._group_shape(cfg)
+        per_step = ({"flash_attention": 2 * cfg.num_layers}
+                    if cfg.family == "dense" else
+                    {"flash_attention": groups,
+                     "ssd_scan": 2 * cfg.num_layers})
         opt = optim.AdamWConfig(warmup_steps=1)
         params = build_model(cfg).init(SEED, device=mesh.device)
         batch = make_batch(cfg, MULTI_B, MULTI_S, gen=torch.Generator(
@@ -5879,7 +5902,7 @@ class Smoke:
         _build.reset_counts()
         collectives.reset_counts()
         got, secs = [], []
-        with self.held_step("multi_rank_step") as held:
+        with self.held_step(phase) as held:
             (p_local, o_local, m), sec = synced(bundle.fn, p_local, o_local,
                                                 b_local)
         got.append({k: float(v) for k, v in m.items()})
@@ -5889,9 +5912,9 @@ class Smoke:
                                                 b_local)
             got.append({k: float(v) for k, v in m.items()})
             secs.append(sec)
-        launches = _build.launches["flash_attention"]
+        launches = {k: _build.launches[k] for k in per_step}
         calls = dict(collectives.calls)
-        self.tally("multi_rank_step", dict(_build.launches))
+        self.tally(phase, dict(_build.launches))
         finite = self._finite(p_local, m["loss"])
         del p_local, o_local, b_local
         want = []
@@ -5903,10 +5926,9 @@ class Smoke:
                 want.append({k: float(v) for k, v in m.items()})
         del params, o_state, batch
         torch.cuda.empty_cache()
-        per_step = 2 * cfg.num_layers
         rel = {k: abs(got[0][k] - want[0][k]) / abs(want[0][k])
                for k in ("loss", "grad_norm")}
-        out = {"arch": ARCH, "tokens": [MULTI_B, MULTI_S],
+        out = {"arch": arch, "tokens": [MULTI_B, MULTI_S],
                "steps": MULTI_STEPS, "loss": [g["loss"] for g in got],
                "grad_norm": [g["grad_norm"] for g in got],
                "train_step_loss": [w["loss"] for w in want],
@@ -5914,16 +5936,230 @@ class Smoke:
                "step1_rel_diff": rel,
                "step2_loss_diff": abs(got[1]["loss"] - want[1]["loss"]),
                "tolerances": [STEP1_TOL, STEP2_TOL],
-               "flash_attention_launches": launches, **held,
+               "launches": launches, "launches_per_step": per_step, **held,
                "collective_calls": calls, "step_s": secs,
                "seconds": time.perf_counter() - t0}
         if max(rel.values()) > STEP1_TOL or \
                 out["step2_loss_diff"] > STEP2_TOL or not finite or \
-                launches != per_step * MULTI_STEPS or \
-                held["flash_attention_held"] != per_step:
-            emit({"phase": "multi_rank_step", **out})
+                launches != {k: v * MULTI_STEPS for k, v in
+                             per_step.items()} or \
+                held["flash_attention_held"] != per_step["flash_attention"] \
+                or held["ssd_scan_held"] != per_step.get("ssd_scan", 0):
+            emit({"phase": phase, **out})
             raise AssertionError(f"multi_rank: the partitioned step parts "
                                  f"from train_step or its launches: {out}")
+        return out
+
+    def _multi_rank_paths(self, mesh) -> dict:
+        """The prefill and decode bundles on the (1, 1) mesh of ranks for
+        qwen1.5-0.5b and mamba2-2.7b at their published widths, each equal
+        to prefill_step and serve_step (_bundles_on_ranks); between them,
+        with mamba2's weights, the SSD carry on one card (_carry_on_card)
+        and, with qwen's prefilled cache, the ownership merge
+        (_owners_on_card)."""
+        return {"qwen_bundles": self._bundles_on_ranks(mesh, ARCH),
+                "mamba2_bundles": self._bundles_on_ranks(mesh, SSM_ARCH)}
+
+    def _bundles_on_ranks(self, mesh, arch: str) -> dict:
+        """build_prefill_step on MULTI_B x MULTI_S tokens (the parameters
+        and tokens placed by its in_shardings; every kernel launch held,
+        held_step), then MULTI_DECODE greedy steps of build_decode_step
+        (qwen: v1 and v3 over a cache of MULTI_S + MULTI_DECODE slots that
+        holds the prefill's KV; mamba2: from a zero state), each call equal
+        to the one-card step's on the same inputs (uncounted)."""
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        rules = make_rules(mesh)
+        params = build_model(cfg).init(SEED, device=mesh.device)
+        tokens = torch.randint(0, cfg.vocab_size, (MULTI_B, MULTI_S),
+                               generator=torch.Generator(
+                                   device=self.dev).manual_seed(SEED),
+                               device=self.dev)
+        pre = steps.build_prefill_step(
+            cfg, ShapeConfig("multi_rank", MULTI_S, MULTI_B, "prefill"),
+            rules)
+        p_sh, b_sh = pre.in_shardings
+        p_local = sharding.place(params, p_sh)
+        b_local = sharding.place({"tokens": tokens}, b_sh)
+        phase = f"multi_rank_prefill_{cfg.family}"
+        # set every count to 0 just before the main path
+        _build.reset_counts()
+        collectives.reset_counts()
+        with self.held_step(phase) as held:
+            out, prefill_s = synced(pre.fn, p_local, b_local)
+        launches = {k: c for k, c in _build.launches.items() if c}
+        self.tally(phase, dict(_build.launches))
+        calls = dict(collectives.calls)
+        logits, kv = out if isinstance(out, tuple) else (out, None)
+        with uncounted(), torch.no_grad():
+            want = steps.prefill_step(params, tokens, cfg)
+        want_logits, want_kv = want if kv is not None else (want, None)
+        prefill_equal = torch.equal(logits, want_logits) and (
+            kv is None or all(torch.equal(kv[k], want_kv[k]) for k in kv))
+        del want, want_kv
+        res = {"arch": arch, "tokens": [MULTI_B, MULTI_S],
+               "prefill_s": prefill_s, "prefill_launches": launches,
+               **held, "prefill_collective_calls": calls,
+               "prefill_equal": prefill_equal}
+        per_call = ({"flash_attention": cfg.num_layers}
+                    if cfg.family == "dense" else
+                    {"ssd_scan": cfg.num_layers})
+        if cfg.family == "ssm":
+            res["carry"] = self._carry_on_card(params, tokens, cfg)
+        slots = MULTI_S + MULTI_DECODE
+        decodes = {}
+        for impl in ((False, "v3") if cfg.family == "dense" else (False,)):
+            dec = steps.build_decode_step(
+                cfg, ShapeConfig("multi_rank", slots, MULTI_B, "decode"),
+                rules, impl)
+            _, c_sh, t_sh, _ = dec.in_shardings
+            cache = steps.init_cache(cfg, MULTI_B, slots, impl,
+                                     device=mesh.device)
+            if kv is not None:
+                for k in ("k", "v"):
+                    dst = cache[k][:, :, :MULTI_S] if not impl else \
+                        cache[k][:, :, :, :MULTI_S]
+                    dst.copy_(kv[k] if not impl else kv[k].transpose(2, 3))
+            ref_cache = optim.adamw.tree_map(torch.clone, cache)
+            c_local = sharding.place(cache, c_sh)
+            del cache
+            tok = logits.argmax(-1)
+            equal, secs = True, []
+            for t in range(MULTI_DECODE):
+                (lg, c_local), sec = synced(dec.fn, p_local, c_local,
+                                            t_sh.local(tok), MULTI_S + t)
+                secs.append(sec)
+                with uncounted(), torch.no_grad():
+                    lg_ref, ref_cache = steps.serve_step(
+                        params, ref_cache, tok, MULTI_S + t, cfg, impl)
+                equal = equal and torch.equal(lg, lg_ref)
+                tok = lg.argmax(-1)
+            equal = equal and all(
+                torch.equal(a, b) for a, b in
+                zip(sharding.tree_leaves(c_local),
+                    sharding.tree_leaves(ref_cache)))
+            decodes[impl or "v1"] = {"equal": equal, "step_s": secs}
+            if impl == "v3":
+                res["owners"] = self._owners_on_card(params, ref_cache,
+                                                     logits.argmax(-1), cfg)
+            del c_local, ref_cache
+        res["decode"] = decodes
+        res["seconds"] = time.perf_counter() - t0
+        del params, p_local, logits, kv
+        torch.cuda.empty_cache()
+        bad = (not prefill_equal or launches != per_call
+               or any(not d["equal"] for d in decodes.values())
+               or held["flash_attention_held"]
+               != per_call.get("flash_attention", 0)
+               or held["ssd_scan_held"] != per_call.get("ssd_scan", 0))
+        if bad:
+            emit({"phase": phase, **res})
+            raise AssertionError(f"multi_rank: the bundles on the mesh of "
+                                 f"ranks part from the one-card steps: {res}")
+        return res
+
+    def _carry_on_card(self, params, tokens, cfg) -> dict:
+        """mamba2's layer-0 SSD inputs at the prefill's shape, cut into
+        MULTI_PIECES pieces along the sequence: each piece through kernel 7
+        from a zero state, then ``carry`` with every piece's
+        ``piece_state`` (the functions each rank of a model axis calls),
+        against kernel 7 over the whole sequence at kernel 7's bar
+        (ssd_path_err); the pieces without the carry must fail it. Every
+        launch held to ssd_chunked. Uncounted."""
+        t0 = time.perf_counter()
+        lp = params["layers"][0]
+        with uncounted(), torch.no_grad():
+            x = params["embed"][tokens.long()]
+            with recorded(mamba2, "ssd") as calls:
+                mamba2.mamba_block(lp["mamba"],
+                                   layers.rmsnorm(lp["ln"], x, cfg.norm_eps),
+                                   cfg)
+            args = [t.contiguous() for t in calls[0][0]]
+            del calls, x
+            xs, dt, a, b, c, d = args
+            size = MULTI_S // MULTI_PIECES
+            held = []
+
+            def scan(*part):
+                n0 = _build.launches["ssd_scan"]
+                y = ssd_k.ssd(*part, chunk=SSM_CHUNK)
+                if _build.launches["ssd_scan"] != n0 + 1:
+                    raise AssertionError("carry: a piece launched no kernel")
+                held.append(ssd_path_err([(f"carry.piece{len(held)}", y,
+                                           ssd_k.ssd_chunked(*part,
+                                                             SSM_CHUNK))]))
+                return y
+
+            whole = scan(*args)
+            cut = [slice(i * size, (i + 1) * size)
+                   for i in range(MULTI_PIECES)]
+            pieces = [[t[:, sl].contiguous() if t.dim() > 1 else t
+                       for t in args] for sl in cut]
+            ys = [scan(*p) for p in pieces]
+            made = [ssd_k.piece_state(p[0], p[1], p[2], p[3])
+                    for p in pieces]
+            states = torch.stack([st for st, _ in made])
+            decays = torch.stack([dc for _, dc in made])
+            got = torch.cat([ssd_k.carry(y, p[1], a, p[4], states, decays, i)
+                             for i, (y, p) in enumerate(zip(ys, pieces))],
+                            dim=1)
+            err = ssd_path_err([("carry", got, whole)])
+            try:
+                ssd_path_err([("lost_carry", torch.cat(ys, dim=1), whole)])
+                lost_rejected = False
+            except AssertionError:
+                lost_rejected = True
+            lost_gap = float((torch.cat(ys, dim=1).float() - whole.float())
+                             .abs().max())
+        if not lost_rejected:
+            raise AssertionError("carry: the bar does not reject the pieces "
+                                 "without their carried state")
+        return {"shape": list(xs.shape), "state": int(b.shape[-1]),
+                "pieces": MULTI_PIECES, "max_abs_err": err,
+                "max_abs_y": float(whole.float().abs().max()),
+                "bar": [SSD_PATH_RTOL, SSD_PATH_ATOL_OF_MAX],
+                "lost_carry_gap": lost_gap, "lost_carry_rejected": True,
+                "launches_held": len(held), "held_max_err": max(held),
+                "seconds": time.perf_counter() - t0}
+
+    def _owners_on_card(self, params, cache, tok, cfg) -> dict:
+        """One v3 decode step of qwen at position MULTI_S over its
+        prefilled KH-major cache, with the cache's MULTI_S + MULTI_DECODE
+        slots cut into MULTI_PIECES owners: each owner's partial
+        (layers.owner_partial) merged by layers.merge_owners, the functions
+        the ranks of a model axis call on their blocks, against the step
+        over the whole cache, within OWNERS_TOL of max |logit|.
+        Uncounted."""
+        t0 = time.perf_counter()
+        slots = cache["k"].shape[3]
+        size = slots // MULTI_PIECES
+
+        def owners(q, k, v, length, layout, name="k", own=None):
+            return layers.merge_owners(
+                [layers.owner_partial(q, k[:, :, i * size:(i + 1) * size],
+                                      v[:, :, i * size:(i + 1) * size],
+                                      length, i * size)
+                 for i in range(MULTI_PIECES)], q, own)
+
+        with uncounted(), torch.no_grad():
+            whole, _ = steps.serve_step(
+                params, optim.adamw.tree_map(torch.clone, cache), tok,
+                MULTI_S, cfg, "v3")
+            with mock.patch.object(transformer, "cache_attend", owners):
+                owned, _ = steps.serve_step(
+                    params, optim.adamw.tree_map(torch.clone, cache), tok,
+                    MULTI_S, cfg, "v3")
+        gap = float((owned - whole).abs().max()) / \
+            float(whole.abs().max())
+        out = {"owners": MULTI_PIECES, "slots_per_owner": size,
+               "pos": MULTI_S, "max_diff_over_max_logit": gap,
+               "bar": OWNERS_TOL, "top1_equal": bool(torch.equal(
+                   owned.argmax(-1), whole.argmax(-1))),
+               "seconds": time.perf_counter() - t0}
+        if gap > OWNERS_TOL or not bool(torch.isfinite(owned).all()):
+            emit({"phase": "multi_rank_owners", **out})
+            raise AssertionError(f"multi_rank: the owners' merge parts from "
+                                 f"the whole-cache step by {gap}")
         return out
 
     def _ssd_row(self, args, label: str):

@@ -66,11 +66,15 @@ class Prefetcher:
     """Background-thread prefetch: overlaps host data synthesis with
     device compute. ``next()`` gives (step, batch) in step order from
     ``start_step`` and raises what the source raised; ``close()`` stops
-    and joins the thread."""
+    and joins the thread. ``local``, where given, is applied to each batch
+    in the thread: a rank's block of the whole batch (``launch/train.py``
+    on a mesh of ranks)."""
 
     def __init__(self, source: SyntheticLM, start_step: int = 0,
-                 depth: int = 2, shard: int = 0, num_shards: int = 1):
+                 depth: int = 2, shard: int = 0, num_shards: int = 1,
+                 local=None):
         self.source = source
+        self._local = local
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._step = start_step
@@ -85,6 +89,8 @@ class Prefetcher:
             try:
                 batch = self.source.batch(step, self._shard,
                                           self._num_shards)
+                if self._local is not None:
+                    batch = self._local(batch)
             except Exception as e:      # handed to next(), which raises it
                 batch = e
             while not self._stop.is_set():

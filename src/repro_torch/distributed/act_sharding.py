@@ -33,7 +33,22 @@ by a collective:
     layout, each rank's experts with every rank's tokens for them;
     ``release_experts`` moves them back;
   * ``seq_start`` is the rank's first position, ``token_mean`` the mean of
-    a per-token sum over the whole batch.
+    a per-token sum over the whole batch;
+  * ``halo`` gives the SSM's causal conv the previous rank's last
+    positions (a ``shift``, point to point), ``gather_model`` stacks a
+    tensor of every rank of the model axis (the SSD's carried states, the
+    decode's attention partials), ``last_position`` gives every rank the
+    sequence's last position, and ``reshard_sequence`` moves a tensor of
+    the sequence layout to a cache's spec.
+
+The decode steps hold another layout, ``"rows"``: the batch rows over the
+data axes that divide them, every model rank holding the same rows whole,
+and the caches by their partition rules (``Policy.cache``: the dim of each
+cache leaf's per-layer block that the model axis splits, read by
+``cache_split``). ``ranks`` answers for the sequence layout only, so that
+the functions above stay the identity there; ``rows`` answers for the
+rows layout, and ``model_coord``, ``gather_model``, ``model_gather`` and
+``model_sum`` serve both.
 """
 
 from __future__ import annotations
@@ -53,6 +68,8 @@ class Policy:
     data_axes: tuple
     model_axis: str
     tokens: tuple | None = None     # the step's global (B, S)
+    layout: str = "sequence"        # or "rows" (the decode steps)
+    cache: dict | None = None       # rows: leaf name -> the split dim
 
 
 _policy: contextvars.ContextVar = contextvars.ContextVar(
@@ -61,24 +78,43 @@ _policy: contextvars.ContextVar = contextvars.ContextVar(
 
 @contextlib.contextmanager
 def activation_sharding(mesh, data_axes: tuple, model_axis: str,
-                        tokens: tuple | None = None):
+                        tokens: tuple | None = None, *,
+                        layout: str = "sequence", cache: dict | None = None):
     """Install the policy for the block; ``tokens``, the global (B, S) of
     the step's tokens, lets ``constrain`` check activations on a mesh of
-    ranks."""
+    ranks. ``layout`` "rows" (a decode step) with ``cache``, the dim of
+    each cache leaf's per-layer block that the model axis splits, by the
+    leaf's name (``cache_split``)."""
+    if layout not in ("sequence", "rows"):
+        raise ValueError(f"unknown activation layout {layout!r}")
     token = _policy.set(Policy(mesh, tuple(data_axes), model_axis,
-                               None if tokens is None else tuple(tokens)))
+                               None if tokens is None else tuple(tokens),
+                               layout, dict(cache or {})))
     try:
         yield
     finally:
         _policy.reset(token)
 
 
-def ranks() -> Policy | None:
-    """The policy when its mesh is a mesh of ranks, else None."""
+def _on_ranks() -> Policy | None:
     pol = _policy.get()
     if pol is None or pol.mesh.place is None:
         return None
     return pol
+
+
+def ranks() -> Policy | None:
+    """The policy when its mesh is a mesh of ranks and the activations are
+    in the sequence layout, else None."""
+    pol = _on_ranks()
+    return pol if pol is not None and pol.layout == "sequence" else None
+
+
+def rows() -> Policy | None:
+    """The policy when its mesh is a mesh of ranks and the activations are
+    in the rows layout (a decode step), else None."""
+    pol = _on_ranks()
+    return pol if pol is not None and pol.layout == "rows" else None
 
 
 def _model(pol: Policy) -> int:
@@ -188,3 +224,90 @@ def mesh_sum(x: torch.Tensor) -> torch.Tensor:
     if pol is None:
         return x
     return collectives.psum(x, pol.mesh.axis_names, pol.mesh)
+
+
+def model_coord() -> tuple[int, int]:
+    """(this rank's coordinate on the model axis, the axis' size) under a
+    policy on a mesh of ranks, either layout; (0, 1) otherwise."""
+    pol = _on_ranks()
+    if pol is None:
+        return 0, 1
+    return pol.mesh.coord(pol.model_axis), _model(pol)
+
+
+def gather_model(x: torch.Tensor) -> torch.Tensor:
+    """x of every rank of the model axis stacked on a new leading dim, in
+    rank order, (M, ...); x[None] without ranks. Backward: each rank's
+    slice summed back to it."""
+    pol = _on_ranks()
+    if pol is None:
+        return x[None]
+    return collectives.all_gather(x[None], 0, pol.model_axis, pol.mesh)
+
+
+def model_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model axis' blocks of x concatenated on ``dim``, in rank order;
+    x without ranks."""
+    pol = _on_ranks()
+    if pol is None:
+        return x
+    return collectives.all_gather(x, dim, pol.model_axis, pol.mesh)
+
+
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of x over the model axis; x without ranks."""
+    pol = _on_ranks()
+    if pol is None:
+        return x
+    return collectives.psum(x, pol.model_axis, pol.mesh)
+
+
+def halo(x: torch.Tensor, k: int) -> torch.Tensor | None:
+    """The previous model rank's last ``k`` positions of x (B, S/M, ...),
+    zeros on the first rank: what a causal window of k + 1 positions
+    reads before the rank's first. None without ranks in the sequence
+    layout or on a model axis of 1, where the caller pads as on one
+    card."""
+    pol = ranks()
+    if pol is None or _model(pol) == 1:
+        return None
+    if x.shape[1] < k:
+        raise ValueError(f"a rank's {x.shape[1]} positions hold less than "
+                         f"the {k} that the next rank's window reads")
+    return collectives.shift(x[:, x.shape[1] - k:], pol.model_axis,
+                             pol.mesh)
+
+
+def last_position(x: torch.Tensor) -> torch.Tensor:
+    """x[:, -1:] of the whole sequence, (B, 1, ...), on every rank: under
+    the sequence layout the last model rank's, by an all_gather of each
+    rank's last position."""
+    pol = ranks()
+    last = x[:, -1:]
+    if pol is None:
+        return last
+    return collectives.all_gather(last, 1, pol.model_axis, pol.mesh)[:, -1:]
+
+
+def reshard_sequence(x: torch.Tensor, seq_dim: int,
+                     dim: int | None) -> torch.Tensor:
+    """x of the sequence layout (its ``seq_dim`` split over the model axis)
+    as the block of a spec that splits ``dim`` over it instead (an
+    all-to-all), or whole where ``dim`` is None (an all_gather)."""
+    pol = ranks()
+    if pol is None or dim == seq_dim:
+        return x
+    if dim is None:
+        return collectives.all_gather(x, seq_dim, pol.model_axis, pol.mesh)
+    return collectives.all_to_all(x, dim, seq_dim, pol.model_axis, pol.mesh)
+
+
+def cache_split(name: str) -> int | None:
+    """The dim of cache leaf ``name``'s per-layer block that the model axis
+    splits, under a rows policy on a model axis of more than one rank;
+    None otherwise (the block is the whole leaf's along every dim but the
+    rows)."""
+    pol = rows()
+    if pol is None or _model(pol) == 1:
+        return None
+    return pol.cache.get(name)

@@ -4,7 +4,9 @@ inserts implicitly in the reference, and of the ``lax.all_to_all`` and
 ``lax.pmean`` in its ``moe_ff_sharded``.
 
 ``all_gather``, ``reduce_scatter`` (a sum), ``all_to_all`` (tiled, as
-``lax.all_to_all(..., tiled=True)``), ``psum`` and ``pmean``: each runs
+``lax.all_to_all(..., tiled=True)``), ``psum``, ``pmean`` and ``shift``
+(each rank's tensor to the next rank along an axis, point to point, as
+``lax.ppermute`` by one): each runs
 over the process group of ``axes`` (a name or a tuple in mesh order; the
 ranks in row-major order along them), and is the identity, issuing
 nothing, where those axes hold one position. A sharded dim is cut into
@@ -12,7 +14,8 @@ equal blocks, block i on the i-th rank; a dim that does not divide raises.
 
 Each is autograd-aware, with its transpose for a backward: all_gather's is
 a sum reduce-scatter, reduce_scatter's an all_gather, all_to_all's the
-inverse all-to-all, psum's a psum and pmean's a pmean. Under that
+inverse all-to-all, psum's a psum, pmean's a pmean and shift's the
+shift the other way. Under that
 convention the gradient a rank holds is its share: the gradient of a
 tensor is the sum of the ranks' shares, as the objective is the sum of
 what each rank backpropagates. A loss that every rank holds whole is
@@ -30,7 +33,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-KINDS = ("all_gather", "reduce_scatter", "all_to_all", "all_reduce")
+KINDS = ("all_gather", "reduce_scatter", "all_to_all", "all_reduce",
+         "send_recv")
 calls = dict.fromkeys(KINDS, 0)
 nbytes = dict.fromkeys(KINDS, 0)
 
@@ -84,6 +88,25 @@ def _sum(x, group):
     return out
 
 
+def _send_recv(x, group, n, index, step):
+    """x sent to position index + step of the group and the tensor of
+    position index - step received, zeros where there is none (a group
+    of one position issues nothing)."""
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    reqs = []
+    if 0 <= index + step < n:
+        _count("send_recv", x)
+        peer = dist.get_process_group_ranks(group)[index + step]
+        reqs.append(dist.isend(x, peer, group=group))
+    if 0 <= index - step < n:
+        peer = dist.get_process_group_ranks(group)[index - step]
+        reqs.append(dist.irecv(out, peer, group=group))
+    for r in reqs:
+        r.wait()
+    return out
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, n):
@@ -126,6 +149,17 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _sum(g, ctx.group), None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, index):
+        ctx.args = (group, n, index)
+        return _send_recv(x, group, n, index, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _send_recv(g, *ctx.args, -1), None, None, None
 
 
 def _over(mesh, axes):
@@ -173,6 +207,15 @@ def pmean(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     a pmean."""
     n = mesh.size_of(axes)
     return x if n == 1 else psum(x, axes, mesh) / n
+
+
+def shift(x: torch.Tensor, axis, mesh) -> torch.Tensor:
+    """The ``x`` of the rank before this one along ``axis`` (``lax.ppermute``
+    from each position to the next); zeros on the first rank, which has
+    none, and wherever ``axis`` holds one position. Backward: the shift
+    the other way, the first rank's gradient dropped."""
+    group, n = _over(mesh, axis)
+    return _Shift.apply(x, group, n, mesh.index(axis) if n > 1 else 0)
 
 
 def barrier(mesh) -> None:

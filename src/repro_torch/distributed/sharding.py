@@ -228,17 +228,52 @@ def zip_leaves(tree, shardings):
 def place(tree, shardings):
     """Each rank's blocks of a tree of whole leaves, as contiguous copies
     on the mesh's device (the port's ``jax.device_put(tree,
-    shardings)``)."""
-    return _zip_map(lambda t, s: s.local(t).to(s.mesh.device, copy=True,
-                                               memory_format=torch.
-                                               contiguous_format),
-                    tree, shardings)
+    shardings)``); a leaf that is a plain number (the encoder-decoder
+    cache's ``enc_len``) as it is."""
+    def one(t, s):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return s.local(t).to(s.mesh.device, copy=True,
+                             memory_format=torch.contiguous_format)
+    return _zip_map(one, tree, shardings)
 
 
 def gather_tree(tree, shardings):
     """The whole leaves of a tree of this rank's blocks (``place``'s
-    inverse); every rank must call it."""
-    return _zip_map(lambda t, s: s.gather(t), tree, shardings)
+    inverse), plain numbers as they are; every rank must call it.
+
+    ``NamedSharding.gather`` leaf by leaf in effect, in as few collectives
+    as the specs allow: in each round, every leaf still split takes its
+    first split dim, and the leaves split over the same axes and of one
+    type go through one all_gather of their blocks, flattened and
+    concatenated (a tree of serve specs, split on one dim over the model
+    axis, in one all_gather a type)."""
+    pairs = zip_leaves(tree, shardings)
+    whole = [t for t, _ in pairs]
+    todo = {i: list(s._sharded()) for i, (t, s) in enumerate(pairs)
+            if isinstance(t, torch.Tensor)}
+    while any(todo.values()):
+        groups = {}
+        for i, dims in todo.items():
+            if dims:
+                groups.setdefault((dims[0][1], whole[i].dtype), []).append(i)
+        for (axes, _), idx in groups.items():
+            mesh = pairs[idx[0]][1].mesh
+            if mesh.size_of(axes) == 1:      # the block is whole there
+                for i in idx:
+                    todo[i].pop(0)
+                continue
+            flat = torch.cat([whole[i].reshape(-1) for i in idx])
+            parts = collectives.all_gather(flat[None], 0, axes, mesh)
+            start = 0
+            for i in idx:
+                t, (dim, _) = whole[i], todo[i].pop(0)
+                blocks = parts[:, start:start + t.numel()]
+                start += t.numel()
+                whole[i] = torch.cat(blocks.reshape(-1, *t.shape).unbind(0),
+                                     dim)
+    it = iter(whole)
+    return _zip_map(lambda t, s: next(it), tree, shardings)
 
 
 def reduce_tree(shares, shardings):

@@ -6,6 +6,12 @@ the chunked algorithm the kernel computes, which the wrapper runs on CPU
 tensors; ``ssd_decode_step`` is one token of the recurrence, which the
 decode path runs on every device.
 
+``piece_state`` and ``carry`` lift the chunked algorithm's carried state
+from chunks to pieces of a sequence (the ranks of a model axis, each
+holding one piece): a piece scanned from a zero state is exact once
+``carry`` adds what the pieces before it leave in its state, C_t .
+exp(cum_t) . h_in, h_in folded from their final states and total decays.
+
 Shapes: x (B, S, H, P); dt (B, S, H); a, d (H,); b, c (B, S, G, N) with
 H % G == 0 (head h reads group h // (H / G)). Everything is computed in
 f32 and y comes back in x's type.
@@ -92,3 +98,37 @@ def ssd_chunked(x, dt, a, b, c, d, chunk: int):
     y = (y_intra + y_inter).reshape(bsz, s, h, p) \
         + d.float()[None, None, :, None] * x.float()
     return y.to(x.dtype)
+
+
+def piece_state(x, dt, a, b):
+    """The final state (B, H, N, P) f32 that a piece x (B, T, H, P) leaves
+    when scanned from a zero state, and its total decay exp(sum_t dt_t a)
+    (B, H) f32."""
+    hg = x.shape[2] // b.shape[2]
+    da = dt.float() * a.float()[None, None, :]              # (B, T, H)
+    cum = torch.cumsum(da, dim=1)
+    w = torch.exp(cum[:, -1:] - cum) * dt.float()           # (B, T, H)
+    bh = torch.repeat_interleave(b, hg, dim=2).float()      # (B, T, H, N)
+    state = torch.einsum("bthn,bthp->bhnp", bh * w[..., None], x.float())
+    return state, torch.exp(cum[:, -1])
+
+
+def carry(y, dt, a, c, states, decays, index: int):
+    """y (B, T, H, P) of piece ``index`` scanned from a zero state, plus
+    C_t . exp(cum_t) . h_in, where h_in is the state the pieces before it
+    leave: ``states`` (M, B, H, N, P) and ``decays`` (M, B, H), every
+    piece's ``piece_state``, folded in order (h = h * decay_j + state_j,
+    j < index). Returns y's type. Every entry of ``states`` and ``decays``
+    takes part in the result, those at or after ``index`` times 0, so that
+    each rank's graph holds the gather that made them."""
+    hg = y.shape[2] // c.shape[2]
+    h_in = torch.zeros_like(states[0])
+    for j in range(states.shape[0]):
+        keep = float(j < index)
+        h_in = h_in * (keep * decays[j] + (1.0 - keep))[..., None, None] \
+            + keep * states[j]
+    cum = torch.cumsum(dt.float() * a.float()[None, None, :], dim=1)
+    ch = torch.repeat_interleave(c, hg, dim=2).float()      # (B, T, H, N)
+    y_in = torch.exp(cum)[..., None] * torch.einsum("bthn,bhnp->bthp", ch,
+                                                    h_in)
+    return (y.float() + y_in).to(y.dtype)

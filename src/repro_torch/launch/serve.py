@@ -34,9 +34,9 @@ from ..kvcache.paged_store import (PagedKVController, decode_over_owners,
                                    owner_partials, pool_append, pool_init,
                                    stack_owners)
 from ..kvcache.prefix_cache import PrefixCache
-from ..models.layers import qkv_proj, rmsnorm, unembed
+from ..models.layers import qkv_proj, rmsnorm, self_partial, unembed
 from ..models.model_zoo import build_model
-from ..models.transformer import FAMILIES, feed_forward, self_partial
+from ..models.transformer import FAMILIES, feed_forward
 
 
 class PagedServer:

@@ -14,10 +14,15 @@ data) and the partition rules' shardings of its inputs and outputs. One
 card runs the ``fn`` as it is; the dry run (``launch/dryrun.py``) runs it
 on the meta stand-ins.
 
-On a mesh of ranks (``launch/mesh.py:make_mesh``) ``build_train_step``'s
-``fn`` is the partitioned step: each rank runs its rows and its chunk of
-the sequence with explicit collectives (``sharded_train_step``). The
-prefill and decode builders raise there (ROADMAP Queue 2 item 9).
+On a mesh of ranks (``launch/mesh.py:make_mesh``) every builder's ``fn``
+is partitioned, for every family: each rank gathers the parameters whole
+once a call, then runs its block with explicit collectives. The train
+step (``sharded_train_step``) and the prefill run the rank's rows and its
+chunk of the sequence (the SSM scan carries its state across the model
+axis, the encoder-decoder gathers its memory); the decode step runs the
+rank's rows against its blocks of the cache by the partition rules (each
+rank the owner of a range of positions, its attention partials merged
+across the model axis; a recurrent state split on one of its dims).
 """
 
 from __future__ import annotations
@@ -28,8 +33,9 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
-from ..distributed.act_sharding import activation_sharding, ranks
-from ..distributed.sharding import (MeshRules, batch_shardings,
+from ..distributed.act_sharding import (activation_sharding, last_position,
+                                        ranks, reshard_sequence)
+from ..distributed.sharding import (MeshRules, batch_shardings, batch_spec,
                                     cache_shardings, gather_tree,
                                     param_shardings, reduce_tree,
                                     replicated, token_shardings)
@@ -106,12 +112,6 @@ def _step_cfg(cfg):
                        loss_chunk=cfg.loss_chunk or 512)
 
 
-# the families whose layers carry state along the sequence (the SSM scan),
-# or attend over an encoder's whole memory, run on meshes whose model axis
-# is 1 only: data-parallel, with FSDP at rest
-WHOLE_SEQUENCE = ("ssm", "hybrid", "encdec", "audio")
-
-
 def sharded_train_step(p_local: dict, o_local: dict, b_local: dict, cfg,
                        opt: AdamWConfig, rules: MeshRules, p_sh,
                        tokens: tuple):
@@ -172,7 +172,11 @@ def prefill_step(params: dict, tokens: torch.Tensor, cfg,
 
     The reference's transformer step returns ``logits[:, -1]`` of those
     (B, V) logits, the last vocabulary entry of each row, shape (B,)
-    (ROADMAP Queue 3); the port returns the logits themselves."""
+    (ROADMAP Queue 3); the port returns the logits themselves.
+
+    Under a policy on a mesh of ranks tokens are the rank's block (B/D,
+    S/M), the logits are those of the sequence's last position on every
+    rank of the model axis, and the KV the rank's positions'."""
     _check_family(cfg)
     if (frames is not None) != (cfg.family in _ENCDEC):
         raise ValueError(f"family {cfg.family!r}: the encoder-decoder "
@@ -186,7 +190,7 @@ def prefill_step(params: dict, tokens: torch.Tensor, cfg,
         x = zamba2.hidden(params, tokens, cfg)
     else:
         x = encdec.hidden(params, frames, tokens, cfg)
-    return unembed(params, x[:, -1:], cfg)[:, 0]
+    return unembed(params, last_position(x), cfg)[:, 0]
 
 
 def init_cache(cfg, batch: int, max_len: int, optimized: bool | str = False,
@@ -275,23 +279,11 @@ def _policy(rules: MeshRules, tokens: tuple | None = None):
                                tokens)
 
 
-def _no_ranks(rules: MeshRules, what: str) -> None:
-    if rules.mesh.place is not None:
-        raise NotImplementedError(
-            f"{what} on a mesh of ranks is not ported yet (ROADMAP Queue 2 "
-            "item 9); build it on a mesh with no ranks or one device")
-
-
-def _check_ranks(cfg: ModelConfig, shape: ShapeConfig,
-                 rules: MeshRules) -> None:
-    """Raise where the partitioned step cannot run ``shape`` on the mesh
-    of ranks."""
+def _check_ranks(shape: ShapeConfig, rules: MeshRules) -> None:
+    """Raise where the partitioned step cannot split ``shape``'s tokens on
+    the mesh of ranks: rows over the data axes, the sequence over the
+    model axis."""
     m, d = rules.model_size, rules.data_size
-    if cfg.family in WHOLE_SEQUENCE and m > 1:
-        raise NotImplementedError(
-            f"family {cfg.family!r} on a model axis of {m}: its scan over a "
-            "sequence split across ranks is not ported yet (ROADMAP Queue "
-            "2 item 9); use a mesh whose model axis is 1")
     if shape.global_batch % d or shape.seq_len % m:
         raise ValueError(f"{shape.global_batch} x {shape.seq_len} tokens do "
                          f"not divide over {d} data x {m} model ranks")
@@ -309,10 +301,8 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
     ``sharded_train_step``: it takes and updates the rank's blocks of the
     parameters and moments by ``in_shardings`` (``sharding.place`` cuts
     them from whole trees) and of the batch, rows over the data axes and
-    the sequence over the model axis (``token_shardings``). The dense,
-    MoE and VLM families run on any mesh whose ranks divide the batch and
-    the sequence; the SSM, hybrid and encoder-decoder families on a model
-    axis of 1 (data-parallel), and raise on a larger one."""
+    the sequence over the model axis (``token_shardings``). Every family
+    runs on any mesh whose ranks divide the batch and the sequence."""
     opt = opt or AdamWConfig()
     p_sds = param_structs(build_model(cfg))
     o_sds = init_state(p_sds)
@@ -327,7 +317,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
                 return train_step(params, opt_state, batch, cfg, opt)
         b_sh = batch_shardings(b_sds, rules)
     else:
-        _check_ranks(cfg, shape, rules)
+        _check_ranks(shape, rules)
         tokens = (shape.global_batch, shape.seq_len)
 
         def fn(p_local, o_local, b_local):
@@ -341,34 +331,82 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig,
         out_shardings=(p_sh, o_sh, replicated(rules)), donate=(0, 1))
 
 
+def _split_dim(sharding, rules: MeshRules, lead: int) -> int | None:
+    """The dim that ``sharding``'s spec splits over the model axis, less
+    ``lead`` leading dims (a stacked leaf's layer dim); None if none."""
+    for i, entry in enumerate(sharding.spec):
+        if rules.model_axis in (entry if isinstance(entry, tuple)
+                                else (entry,)):
+            return i - lead
+    return None
+
+
+def _cache_split_dims(c_sh, rules: MeshRules) -> dict:
+    """Each cache leaf's name -> the dim of its per-layer block that the
+    model axis splits (``act_sharding.cache_split``): the stacked KV
+    leaves less their layer dim, the recurrent states of the ``mamba``
+    list as they are."""
+    out = {}
+    for name, sh in c_sh.items():
+        if name == "mamba":
+            out.update({k: _split_dim(s, rules, 0)
+                        for k, s in sh[0].items()})
+        elif sh.spec:
+            out[name] = _split_dim(sh, rules, 1)
+    return out
+
+
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
                        rules: MeshRules) -> StepBundle:
     """``fn(params, batch)`` is ``prefill_step`` under the policy: the
     last-token logits (B, V) f32 and, for the transformer families, the KV
     cache. The reference's transformer bundle returns ``logits[:, -1]``,
-    (B,) (ROADMAP Queue 3); the port keeps the logits. Raises on a mesh
-    of ranks."""
-    _no_ranks(rules, "the prefill step")
+    (B,) (ROADMAP Queue 3); the port keeps the logits.
 
-    def fn(params, batch):
-        with _policy(rules):
-            return prefill_step(params, batch["tokens"], cfg,
-                                frames=batch.get("frames"))
-
+    On a mesh of ranks ``fn(p_local, b_local)`` takes the rank's blocks of
+    the parameters by their serve specs (gathered whole once a call) and
+    of the batch by ``token_shardings``; it returns the rank's rows of the
+    logits (the last position's, on every rank of the model axis) and,
+    for the transformer families, its block of the KV cache by
+    ``cache_shardings``: its own positions where the rules split the
+    sequence, else moved there by an all-to-all over the model axis."""
     b = shape.global_batch
     p_sds = param_structs(build_model(cfg))
     b_sds = input_specs(cfg, shape)
+    p_sh = param_shardings(p_sds, rules, "serve")
     logits = batch_shardings(_meta((b, cfg.vocab_size), torch.float32), rules)
+    c_sh = None
     if cfg.family in transformer.FAMILIES:
-        out_sh = (logits, cache_shardings(
-            init_cache(cfg, b, shape.seq_len, device="meta"), rules))
+        c_sh = cache_shardings(init_cache(cfg, b, shape.seq_len,
+                                          device="meta"), rules)
+    if rules.mesh.place is None:
+        def fn(params, batch):
+            with _policy(rules):
+                return prefill_step(params, batch["tokens"], cfg,
+                                    frames=batch.get("frames"))
+        b_sh = batch_shardings(b_sds, rules)
     else:
-        out_sh = logits
+        _check_ranks(shape, rules)
+        tokens = (b, shape.seq_len)
+        dims = None if c_sh is None else \
+            {k: _split_dim(s, rules, 0) for k, s in c_sh.items()}
+
+        def fn(p_local, b_local):
+            with torch.no_grad():
+                whole = gather_tree(p_local, p_sh)
+                with _policy(rules, tokens):
+                    out = prefill_step(whole, b_local["tokens"], cfg,
+                                       frames=b_local.get("frames"))
+                    if dims is None:
+                        return out
+                    # (L, B, S, KH, D): the sequence is dim 2
+                    return out[0], {k: reshard_sequence(t, 2, dims[k])
+                                    for k, t in out[1].items()}
+        b_sh = token_shardings(b_sds, rules)
     return StepBundle(
         name="prefill_step", fn=fn, in_specs=(p_sds, b_sds),
-        in_shardings=(param_shardings(p_sds, rules, "serve"),
-                      batch_shardings(b_sds, rules)),
-        out_shardings=out_sh)
+        in_shardings=(p_sh, b_sh),
+        out_shardings=logits if c_sh is None else (logits, c_sh))
 
 
 def build_decode_step(cfg: ModelConfig, shape: ShapeConfig,
@@ -379,24 +417,47 @@ def build_decode_step(cfg: ModelConfig, shape: ShapeConfig,
     transformer families switch decode implementations -- "v2" ``decode_
     step_v2``, True or "v3" ``decode_step_v3``, over KH-major caches; the
     other families run their own step. The encoder families' cache holds
-    4096 positions of memory, as the reference's. Raises on a mesh of
-    ranks."""
-    _no_ranks(rules, "the decode step")
+    4096 positions of memory, as the reference's.
+
+    On a mesh of ranks ``fn(p_local, c_local, token, pos)`` takes the
+    rank's blocks of the parameters (serve specs, gathered whole once a
+    call), of the cache by ``cache_shardings`` and of the token's rows by
+    ``batch_shardings``, and runs in the rows layout: every model rank
+    holds the rows whole and its blocks of the cache, which it updates in
+    place (the owner of ``pos`` writes the token's K and V where the rules
+    split positions). What crosses ranks in a step grows with the rows and
+    the model's widths, never with the cache (``layers.cache_attend``,
+    ``mamba2._ssd_decode``), except where the rules split a KV cache on
+    its head dim (a rank's positions fewer than the head's dims): its
+    scores are summed over the model axis."""
     b = shape.global_batch
-
-    def fn(params, cache, token, pos):
-        with _policy(rules):
-            return serve_step(params, cache, token, pos, cfg, optimized)
-
     p_sds = param_structs(build_model(cfg))
+    p_sh = param_shardings(p_sds, rules, "serve")
     c_sds = init_cache(cfg, b, shape.seq_len, optimized, device="meta",
                        enc_len=4096)
     t_sds = _meta((b,), torch.int32)
     c_sh = cache_shardings(c_sds, rules)
+    if rules.mesh.place is None:
+        def fn(params, cache, token, pos):
+            with _policy(rules):
+                return serve_step(params, cache, token, pos, cfg, optimized)
+    else:
+        rows = batch_spec(b, rules)[0]
+        rows = () if rows is None else \
+            (rows if isinstance(rows, tuple) else (rows,))
+        dims = _cache_split_dims(c_sh, rules)
+
+        def fn(p_local, c_local, token, pos):
+            with torch.no_grad():
+                whole = gather_tree(p_local, p_sh)
+                with activation_sharding(rules.mesh, rows, rules.model_axis,
+                                         layout="rows", cache=dims):
+                    return serve_step(whole, c_local, token, pos, cfg,
+                                      optimized)
     return StepBundle(
         name="serve_step", fn=fn,
         in_specs=(p_sds, c_sds, t_sds, _meta((), torch.int32)),
-        in_shardings=(param_shardings(p_sds, rules, "serve"), c_sh,
+        in_shardings=(p_sh, c_sh,
                       batch_shardings(t_sds, rules), replicated(rules)),
         out_shardings=(batch_shardings(
             _meta((b, cfg.vocab_size), torch.float32), rules), c_sh),

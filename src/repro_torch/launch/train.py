@@ -1,6 +1,6 @@
 """Training driver: the port's copy of the reference's ``launch/train.py``,
-on one card (or the CPU when asked for). It runs real steps of
-``steps.train_step`` with:
+on one card (or the CPU when asked for), or on a mesh of ranks. It runs
+real steps of ``steps.build_train_step``'s step with:
 
   * deterministic restart-safe data (step-indexed batches from
     ``SyntheticLM``, made ahead by the ``Prefetcher``'s thread and
@@ -10,9 +10,12 @@ on one card (or the CPU when asked for). It runs real steps of
     resumes from the other's,
   * elastic re-own on resume: the same checkpoint bytes are loaded onto
     whichever device runs the job (ownership remap, no data rewrite);
-    the host mesh is the (1, 1) mesh over that device (a world of more
-    ranks gets the reference's (n/2, 2) mesh of ranks, on which ``train``
-    does not run yet: ROADMAP Queue 2 item 9),
+    the host mesh is the (1, 1) mesh over that device, or in a world of
+    more ranks the reference's (n/2, 2) mesh of ranks: there each rank
+    holds its blocks of the state by their train specs, the prefetcher
+    gives it its block of every batch, the step is the partitioned one,
+    and the checkpoints are saved gathered and restored each rank its
+    blocks (``CheckpointStore.save`` / ``restore`` with shardings),
   * simulated failure injection (--fail-at) proving recovery works.
 
 Usage:
@@ -36,9 +39,9 @@ from ..configs import get_config, get_smoke_config
 from ..configs.base import ShapeConfig
 from ..data.lm_data import Prefetcher, SyntheticLM
 from ..device import resolve_device
-from ..distributed.sharding import make_rules
+from ..distributed.sharding import make_rules, param_shardings, place
 from ..models.model_zoo import build_model
-from ..optim.adamw import AdamWConfig, init_state
+from ..optim.adamw import AdamWConfig, init_state, tree_map
 from . import steps as step_fns
 from .mesh import Mesh, make_mesh
 
@@ -69,49 +72,68 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
           batch: int = 8, seq: int = 128, ckpt_dir: str | None = None,
           resume: bool = False, fail_at: int | None = None,
           log_every: int = 10, lr: float = 3e-4, seed: int = 0,
-          device=None):
+          device=None, dtype=None):
     """``steps`` training steps of ``arch`` (its smoke config unless
     ``smoke`` is False) on ``device`` (the card unless ``"cpu"``), from
     step 0 or, with ``resume``, from the latest valid checkpoint in
     ``ckpt_dir``. A checkpoint is saved after every step i + 1 that is a
     multiple of max(log_every, 10); ``fail_at`` raises after step
     ``fail_at`` runs (before its save), and the run ends there. Each
-    step is ``build_train_step``'s on the host mesh. Returns (params,
-    opt_state, the logged losses)."""
+    step is ``build_train_step``'s on the host mesh. ``dtype``
+    torch.float32 makes every parameter f32 (the model's types unless
+    given). Returns (params, opt_state, the logged losses): on a mesh of
+    ranks, this rank's blocks of the state, which every rank calls
+    ``train`` for; the rank of coordinate 0 alone prints."""
     mesh = make_host_mesh(device)
-    if mesh.place is not None:
-        raise NotImplementedError("launch/train.py:train on a mesh of ranks "
-                                  "is not ported yet (ROADMAP Queue 2 item "
-                                  "9); run it in one process")
     dev = mesh.device
+    rules = make_rules(mesh)
+    say = print if mesh.place is None or dist.get_rank() == 0 \
+        else (lambda *_: None)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cfg = cfg.replace(loss_chunk=min(seq, 512))
     opt_cfg = AdamWConfig(lr=lr, warmup_steps=max(steps // 10, 1),
                           total_steps=max(steps, 1))
-    step_fn = step_fns.build_train_step(
-        cfg, ShapeConfig("custom", seq, batch, "train"), make_rules(mesh),
-        opt_cfg).fn
+    bundle = step_fns.build_train_step(
+        cfg, ShapeConfig("custom", seq, batch, "train"), rules, opt_cfg)
+    step_fn = bundle.fn
     params = build_model(cfg).init(seed, device=dev)
+    if dtype is not None:
+        params = tree_map(lambda t: t.to(dtype), params)
     opt_state = init_state(params)
+    template = state.checkpoint_template(params, opt_state, cfg)
+    # one process calls the store as it always has; a mesh of ranks adds
+    # the checkpoint's shardings, f32 parameters their type
+    sharded = {}
+    typed = {} if dtype is None else {"dtype": dtype}
+    cut = None
+    if mesh.place is not None:
+        p_sh, o_sh, b_sh = bundle.in_shardings
+        params, opt_state = place(params, p_sh), place(opt_state, o_sh)
+        sharded = {"shardings": param_shardings(template, rules, "train")}
+
+        def cut(host):
+            """The rank's block of a host batch (rows and sequence)."""
+            return {k: np.ascontiguousarray(
+                b_sh[k].local(torch.from_numpy(v)).numpy())
+                for k, v in host.items()}
     start_step = 0
     store = None
     if ckpt_dir:
         store = CheckpointStore(ckpt_dir)
         latest = store.latest_valid() if resume else None
         if latest is not None:
-            template = state.checkpoint_template(params, opt_state, cfg)
             del params, opt_state
             tree, _, start_step = store.restore(template, step=latest,
-                                                device=dev)
-            params, opt_state = state.from_checkpoint(tree, cfg, dev)
+                                                device=dev, **sharded)
+            params, opt_state = state.from_checkpoint(tree, cfg, dev, **typed)
             del tree
-            print(f"[train] resumed from step {start_step} "
-                  f"(elastic re-own onto {dev})")
+            say(f"[train] resumed from step {start_step} "
+                f"(elastic re-own onto {dev})")
 
     src = SyntheticLM(cfg.vocab_size, seq, batch, seed=seed,
                       encdec_d_model=cfg.d_model
                       if cfg.encoder_layers else 0)
-    pf = Prefetcher(src, start_step=start_step)
+    pf = Prefetcher(src, start_step=start_step, local=cut)
     losses = []
     t0 = time.time()
     try:
@@ -127,25 +149,25 @@ def train(arch: str, *, smoke: bool = True, steps: int = 50,
             if (i + 1) % log_every == 0 or i == start_step:
                 loss = float(metrics["loss"])
                 losses.append(loss)
-                print(f"[train] step {i + 1} loss {loss:.4f} "
-                      f"lr {float(metrics['lr']):.2e} "
-                      f"gnorm {float(metrics['grad_norm']):.2f}")
+                say(f"[train] step {i + 1} loss {loss:.4f} "
+                    f"lr {float(metrics['lr']):.2e} "
+                    f"gnorm {float(metrics['grad_norm']):.2f}")
             if store and (i + 1) % max(log_every, 10) == 0:
                 store.save(i + 1, state.checkpoint_tree(params, opt_state,
-                                                        cfg))
+                                                        cfg), **sharded)
     except RuntimeError as e:
         if "injected failure" not in str(e):
             raise
-        print(f"[train] simulated failure at step {fail_at}; "
-              "restart with --resume to recover from the last "
-              "sealed checkpoint")
+        say(f"[train] simulated failure at step {fail_at}; "
+            "restart with --resume to recover from the last "
+            "sealed checkpoint")
     finally:
         pf.close()
         if store:
             store.wait()
     dt = time.time() - t0
-    print(f"[train] {steps} steps in {dt:.1f}s "
-          f"({steps / max(dt, 1e-9):.2f} it/s)")
+    say(f"[train] {steps} steps in {dt:.1f}s "
+        f"({steps / max(dt, 1e-9):.2f} it/s)")
     return params, opt_state, losses
 
 

@@ -16,6 +16,17 @@ each decoder layer is checkpointed, as the reference's scan bodies.
 Serving: the cache holds the decoder's self-attention KV, (L, B, S, KH, D)
 each, written in place a token at a time, and the cross-attention KV of
 the memory, (L, B, S_enc, KH, D) each, which ``prepare_cross`` fills once.
+
+On a mesh of ranks (``distributed/act_sharding.py``) the frames come whole
+to every rank of the model axis (rows over the data axes only). The
+encoder runs on the rank's S_enc/M frames in the sequence layout, as the
+decoder runs on its S/M tokens, its attention in the heads layout; the
+memory is then gathered whole to every rank (one all_gather of (B, S_enc,
+d) a step), and each rank's decoder positions attend over all of it. The
+encoder's work is not repeated on the M ranks, and the gather's backward
+sums each rank's share of the memory's gradient back to its frames. A
+decode step reads its self and cross caches by their partition rules
+(``layers.cache_attend``).
 """
 
 from __future__ import annotations
@@ -23,12 +34,14 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..distributed import act_sharding
 from . import check_family
 from .layers import (PARAM_DTYPE, attention_block, attention_decode,
-                     attn_init, chunked_cross_entropy, cross_attention_block,
-                     cross_entropy, decode_attention_dense, embed_init,
-                     generator, head_init, mlp, mlp_init, position_ids, remat,
-                     rmsnorm, rmsnorm_init, unembed)
+                     attn_init, cache_attend, cache_slots,
+                     chunked_cross_entropy, cross_attention_block,
+                     cross_entropy, embed_init, generator, head_init, mlp,
+                     mlp_init, position_ids, remat, rmsnorm, rmsnorm_init,
+                     unembed)
 
 
 def _enc_layer_init(gen: torch.Generator, cfg, dev) -> dict:
@@ -67,14 +80,17 @@ def encode(params: dict, frames: torch.Tensor, cfg) -> torch.Tensor:
     """frames: (B, S_enc, d) precomputed frontend embeddings, cast to bf16
     before layer 0 -> the normed memory (B, S_enc, d). Self-attention is
     non-causal: on the card one flash_attention launch a layer with
-    Sq = Sk = S_enc."""
+    Sq = Sk = S_enc. On a mesh of ranks each rank encodes its S_enc/M
+    frames and the memory is gathered whole."""
     check_family(cfg, "encdec")
+    frames = act_sharding.local_sequence(frames)
     b, s, _ = frames.shape
     positions = position_ids(b, s, frames.device)
     x = frames.to(PARAM_DTYPE)
     for lp in params["enc_layers"]:
         x = remat(cfg, _enc_layer, lp, x, cfg, positions)
-    return rmsnorm(params["ln_enc"], x, cfg.norm_eps)
+    return act_sharding.gather_sequence(
+        rmsnorm(params["ln_enc"], x, cfg.norm_eps))
 
 
 def _enc_layer(lp: dict, x: torch.Tensor, cfg,
@@ -175,7 +191,7 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg):
     check_family(cfg, "encdec")
     b = token.shape[0]
     x = params["embed"][token.long()[:, None]]
-    xlen = cache["xk"].shape[2]
+    xlen = cache_slots(cache["xk"][0], "bskd", "xk")
     for li, lp in enumerate(params["dec_layers"]):
         y, _, _ = attention_decode(lp["self"],
                                    rmsnorm(lp["ln1"], x, cfg.norm_eps), cfg,
@@ -183,7 +199,8 @@ def decode_step(params: dict, cache: dict, token: torch.Tensor, pos, cfg):
         h = x + y
         hq = rmsnorm(lp["lnx"], h, cfg.norm_eps)
         q = (hq @ lp["cross"]["wq"]).view(b, cfg.num_heads, cfg.hd)
-        o = decode_attention_dense(q, cache["xk"][li], cache["xv"][li], xlen)
+        o = cache_attend(q, cache["xk"][li], cache["xv"][li], xlen, "bskd",
+                         "xk")
         h = h + o.reshape(b, 1, -1) @ lp["cross"]["wo"]
         x = h + mlp(lp["mlp"], rmsnorm(lp["ln2"], h, cfg.norm_eps), cfg)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)

@@ -12,7 +12,12 @@ Under an activation-sharding policy on a mesh of ranks
 of the sequence: positions start at the chunk's first, attention moves
 its inputs to the heads layout or gathers the sequence
 (``attention_block``), and the losses are the means over the whole
-batch.
+batch. A decode step holds the rows layout there: the token whole on
+every model rank, each dense KV cache split by its partition rules, on
+its positions (each rank an owner of a range of them, whose partials are
+merged across the model axis: DINOMO's ownership partitioning, as the
+paged server's page owners on one card), its KV heads or its head dim
+(``cache_attend``, ``write_token``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 import torch.utils.checkpoint
 
 from ..distributed import act_sharding
+from ..kernels.decode_attention.ops import merge_partials
+from ..kernels.decode_attention.ref import normalize
 from ..kernels.flash_attention.ops import attention
 
 PARAM_DTYPE = torch.bfloat16
@@ -145,16 +152,22 @@ def attention_block(p: dict, x: torch.Tensor, cfg, positions: torch.Tensor,
     takes this path)."""
     q, k, v = qkv_proj(p, x, cfg, positions)
     b, s = x.shape[:2]
+    return attend(q, k, v, cfg, causal).reshape(b, s, -1) @ p["wo"]
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg,
+           causal: bool = True) -> torch.Tensor:
+    """The flash_attention kernel over q (B, S, H, D), k, v (B, S, KH, D);
+    on a mesh of ranks over the rank's S/M positions, in the heads layout
+    or over the gathered sequence (``attention_block``)."""
     if act_sharding.head_sharding_active(cfg.num_heads) and \
             act_sharding.head_sharding_active(cfg.num_kv_heads):
-        out = act_sharding.release_heads(attention(
+        return act_sharding.release_heads(attention(
             *(act_sharding.constrain_heads(t) for t in (q, k, v)),
             causal=causal))
-    else:
-        out = act_sharding.local_sequence(attention(
-            *(act_sharding.gather_sequence(t) for t in (q, k, v)),
-            causal=causal))
-    return out.reshape(b, s, -1) @ p["wo"]
+    return act_sharding.local_sequence(attention(
+        *(act_sharding.gather_sequence(t) for t in (q, k, v)),
+        causal=causal))
 
 
 def cross_attention_block(p: dict, x: torch.Tensor, mem_k: torch.Tensor,
@@ -224,28 +237,192 @@ def decode_attention_khmajor(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def decode_attention_dense(q: torch.Tensor, k_cache: torch.Tensor,
-                           v_cache: torch.Tensor, length) -> torch.Tensor:
-    """One-token decode against a dense KV cache. q: (B, H, D); caches:
-    (B, Smax, KH, D), read through their (B, KH, S, D) views, no copy;
-    length: an int, () or (B,) tensor."""
-    return decode_attention_khmajor(q, k_cache.transpose(1, 2),
-                                    v_cache.transpose(1, 2), length)
+def decode_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, length):
+    """The un-normalised flash partial (acc (B, H, D), m (B, H), l (B, H))
+    over a (B, KH, S, D) cache's positions below ``length``; a partial of
+    no position is (0, NEG_INF, 0), which a merge weighs 0."""
+    b, h, d = q.shape
+    s, valid = decode_scores(q, k_cache, length)
+    m = s.amax(dim=3)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(valid[:, None, None, :], p, 0.0)
+    l = p.sum(dim=3)
+    acc = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return acc.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
+
+
+def self_partial(q: torch.Tensor, k_new: torch.Tensor,
+                 v_new: torch.Tensor):
+    """The flash partial (acc, m, l) of the token's own just-computed KV,
+    to merge with the cache's (decode_step_v3, the paged server).
+    q: (B, H, D); k_new, v_new: (B, KH, D)."""
+    b, h, d = q.shape
+    kh = k_new.shape[1]
+    group = h // kh
+    qr = q.float().reshape(b, kh, group, d)
+    s = torch.einsum("bkgd,bkd->bkg", qr, k_new.float()) * d ** -0.5
+    acc = v_new.float()[:, :, None, :].expand(b, kh, group, d)
+    return (acc.reshape(b, h, d), s.reshape(b, h),
+            torch.ones((b, h), dtype=torch.float32, device=q.device))
+
+
+def _split_role(layout: str, name: str):
+    """(the role of the dim that the model axis splits in a cache block of
+    ``layout``: "s" positions, "k" KV heads, "d" the head dim, or None;
+    this rank's model coordinate)."""
+    dim = act_sharding.cache_split(name)
+    index, _ = act_sharding.model_coord()
+    return (None if dim is None else layout[dim]), index
+
+
+def cache_slots(cache: torch.Tensor, layout: str, name: str = "k") -> int:
+    """The positions of the whole cache whose block (or whole) is
+    ``cache``, a KV cache (B, ...) of ``layout``: "bskd" dense (B, S, KH,
+    D) or "bksd" KH-major (B, KH, S, D)."""
+    role, _ = _split_role(layout, name)
+    slots = cache.shape[layout.index("s")]
+    return slots * act_sharding.model_coord()[1] if role == "s" else slots
+
+
+def write_token(cache: torch.Tensor, tok: torch.Tensor, pos: int,
+                layout: str, name: str = "k") -> None:
+    """Write the token's ``tok`` (..., KH, D) at position ``pos`` of
+    ``cache`` (..., then a block of ``layout``, leading dims such as the
+    layers' matching tok's), in place, in the cache's type. On a mesh of
+    ranks only this rank's part: on positions, the owner of ``pos`` alone
+    writes; on KV heads or the head dim, each rank its slice of tok."""
+    role, index = _split_role(layout, name)
+    s_dim = layout.index("s") - len(layout)
+    if role == "s":
+        size = cache.shape[s_dim]
+        if pos // size != index:
+            return
+        pos -= index * size
+    elif role is not None:
+        t_dim = -2 if role == "k" else -1
+        size = cache.shape[layout.index(role) - len(layout)]
+        tok = tok.narrow(t_dim, index * size, size)
+    cache.select(s_dim, pos).copy_(tok.to(cache.dtype))
+
+
+def cache_attend(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, length, layout: str,
+                 name: str = "k", own=None) -> torch.Tensor:
+    """One-token decode attention of q (B, H, D) over the positions below
+    ``length`` (an int) of a KV cache of ``layout`` ("bskd" or "bksd"),
+    and, with ``own`` (the token's k, v (B, KH, D)), over the token itself
+    merged as its own partial (``decode_step_v3``). Returns (B, H, D) in
+    q's type.
+
+    On a mesh of ranks (the rows layout) the caches are this rank's
+    blocks of cache leaf ``name`` (``act_sharding.cache_split``):
+      * on positions, each rank is the owner of S/M of them: its partial
+        over those below ``length``, the M partials stacked over the model
+        axis (B x H x (D + 2) floats a rank) and merged;
+      * on KV heads, each rank attends for its H/M query heads, and the
+        outputs are gathered (B x H x D / M a rank);
+      * on the head dim, the scores are a sum over the model axis (B x H x
+        S floats a rank, the one exchange that grows with the cache: the
+        rules pick the head dim only where a rank's positions number
+        fewer than the head's dims), each rank weighs its slice of the
+        values, and the slices are gathered.
+    """
+    if layout == "bskd":
+        k_cache, v_cache = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
+    role, index = _split_role(layout, name)
+    if role == "k":
+        # the rank's KV heads' query heads: GQA groups are contiguous
+        kh = k_cache.shape[1]
+        hq = q.shape[1] // act_sharding.model_coord()[1]
+        q = q.narrow(1, index * hq, hq)
+        if own is not None:
+            own = tuple(t.narrow(1, index * kh, kh) for t in own)
+        return act_sharding.model_gather(
+            _attend_whole(q, k_cache, v_cache, length, own), 1)
+    if role == "s":
+        part = owner_partial(q, k_cache, v_cache, length,
+                             index * k_cache.shape[2])
+        stacked = [act_sharding.gather_model(t) for t in part]
+        return merge_owners(list(zip(*(t.unbind(0) for t in stacked))), q,
+                            own)
+    if role == "d":
+        return _attend_head_dim(q, k_cache, v_cache, length, own, index)
+    return _attend_whole(q, k_cache, v_cache, length, own)
+
+
+def owner_partial(q: torch.Tensor, k_block: torch.Tensor,
+                  v_block: torch.Tensor, length: int, start: int):
+    """The partial (acc, m, l) of the owner of positions start.. of a
+    KH-major cache (its block (B, KH, S_o, D)) over those below
+    ``length``."""
+    local = min(max(length - start, 0), k_block.shape[2])
+    return decode_partial(q, k_block, v_block, local)
+
+
+def merge_owners(parts, q: torch.Tensor, own=None) -> torch.Tensor:
+    """The attention output (B, H, D) in q's type from every owner's
+    partial, in the owners' order, merged with the token's own (``own``:
+    its k, v (B, KH, D)) where given."""
+    parts = list(parts)
+    if own is not None:
+        parts.append(self_partial(q, *own))
+    return normalize(*merge_partials(parts)).to(q.dtype)
+
+
+def _attend_whole(q, k_cache, v_cache, length, own):
+    """The one-card decode attention over KH-major caches: softmax of the
+    scores, or with ``own`` the cache's partial merged with the token's."""
+    if own is None:
+        return decode_attention_khmajor(q, k_cache, v_cache, length)
+    return merge_owners([decode_partial(q, k_cache, v_cache, length)], q,
+                        own)
+
+
+def _attend_head_dim(q, k_cache, v_cache, length, own, index):
+    """``cache_attend`` over KH-major blocks split on the head dim."""
+    b, h, d = q.shape
+    kh, slots, dr = k_cache.shape[1:]
+    qr = q.to(k_cache.dtype).float().reshape(b, kh, h // kh, d)
+    qr = qr.narrow(3, index * dr, dr)
+    s = act_sharding.model_sum(torch.einsum("bkgd,bksd->bkgs", qr,
+                                            k_cache.float())) * d ** -0.5
+    valid = torch.arange(slots, device=q.device)[None, :] < length
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    if own is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(),
+                           v_cache.float()).reshape(b, h, dr).to(q.dtype)
+        return act_sharding.model_gather(out, 2)
+    m = s.amax(dim=3)
+    p = torch.where(valid[:, None, None, :], torch.exp(s - m[..., None]),
+                    0.0)
+    acc = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    acc_own, m_own, l_own = self_partial(q, *own)
+    acc_own = acc_own.narrow(2, index * dr, dr)
+    parts = [(acc.reshape(b, h, dr), m.reshape(b, h),
+              p.sum(dim=3).reshape(b, h)), (acc_own, m_own, l_own)]
+    return act_sharding.model_gather(
+        normalize(*merge_partials(parts)).to(q.dtype), 2)
 
 
 def attention_decode(p: dict, x: torch.Tensor, cfg, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos):
+                     cache_v: torch.Tensor, pos, name: str = "k"):
     """x: (B, 1, d); caches (B, Smax, KH, D). Writes the token's k and v
     at ``pos`` into the caches (in place: the reference's update is
     functional and its caches donated) and attends over positions
-    0..pos. Returns (y (B, 1, d), cache_k, cache_v)."""
+    0..pos. Returns (y (B, 1, d), cache_k, cache_v). On a mesh of ranks
+    the caches are this rank's blocks of cache leaf ``name``
+    (``write_token``, ``cache_attend``)."""
     b = x.shape[0]
-    pos = check_pos(pos, cache_k.shape[1])
+    pos = check_pos(pos, cache_slots(cache_k, "bskd", name))
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = qkv_proj(p, x, cfg, positions)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
-    out = decode_attention_dense(q[:, 0], cache_k, cache_v, pos + 1)
+    write_token(cache_k, k[:, 0], pos, "bskd", name)
+    write_token(cache_v, v[:, 0], pos, "bskd", name)
+    out = cache_attend(q[:, 0], cache_k, cache_v, pos + 1, "bskd", name)
     return out.reshape(b, 1, -1) @ p["wo"], cache_k, cache_v
 
 

@@ -53,12 +53,23 @@ def moe_ff(p: dict, x: torch.Tensor, cfg,
     conditions; the layout makes the batch and the sequence divide), this
     is ``moe_ff_sharded``; otherwise the whole batch is gathered to every
     rank, routed at the whole batch's capacity as the reference routes
-    it, and each rank keeps its block of the output."""
+    it, and each rank keeps its block of the output. In a decode step (the
+    rows layout) x is the rank's rows, whole on every model rank: the rows
+    are gathered over the data axes and routed at the whole batch's
+    capacity, and each rank keeps its rows."""
     if capacity_factor is None:
         capacity_factor = cfg.moe_capacity_factor
     pol = act_sharding.ranks()
     if pol is None:
-        return _moe_ff_single(p, x, cfg, capacity_factor)
+        rows = act_sharding.rows()
+        if rows is None:
+            return _moe_ff_single(p, x, cfg, capacity_factor)
+        # a decode step: the rows over the data axes, whole on every model
+        # rank; route the whole batch, keep the rank's rows
+        b = x.shape[0]
+        xg = collectives.all_gather(x, 0, rows.data_axes, rows.mesh)
+        y, aux = _moe_ff_single(p, xg, cfg, capacity_factor)
+        return y.narrow(0, rows.mesh.index(rows.data_axes) * b, b), aux
     mesh, data_axes, model_axis = pol.mesh, pol.data_axes, pol.model_axis
     m = mesh.shape[model_axis]
     if m > 1 and cfg.num_experts % m == 0:

@@ -29,17 +29,14 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
-from ..distributed.act_sharding import constrain
-from ..kernels.decode_attention.ops import merge_partials
-from ..kernels.decode_attention.ref import normalize
-from ..kernels.flash_attention.ops import attention
+from ..distributed.act_sharding import constrain, last_position
 from . import check_family, families_run_by
-from .layers import (PARAM_DTYPE, attention_block, attention_decode,
-                     attn_init, check_pos, chunked_cross_entropy,
-                     cross_entropy, decode_attention_khmajor, decode_scores,
-                     embed_init, generator, head_init, mlp, mlp_init,
-                     position_ids, qkv_proj, remat, rmsnorm, rmsnorm_init,
-                     unembed)
+from .layers import (PARAM_DTYPE, attend, attention_block, attention_decode,
+                     attn_init, cache_attend, cache_slots, check_pos,
+                     chunked_cross_entropy, cross_entropy, embed_init,
+                     generator, head_init, mlp, mlp_init, position_ids,
+                     qkv_proj, remat, rmsnorm, rmsnorm_init, unembed,
+                     write_token)
 from .moe import moe_ff, moe_init
 
 FAMILIES = families_run_by("transformer")
@@ -139,7 +136,9 @@ def loss_fn(params: dict, batch: dict, cfg, aux_weight: float = 0.01):
 def prefill(params: dict, tokens: torch.Tensor, cfg):
     """Full-sequence forward returning the *last-token* logits (B, V) f32
     and the KV of every layer, {"k", "v"}: (L, B, S, KH, D) bf16 (the
-    (B, S, V) logits never materialise)."""
+    (B, S, V) logits never materialise). On a mesh of ranks tokens are the
+    rank's block (B/D, S/M): the KV is its positions', and the logits the
+    sequence's last position's on every rank."""
     check_family(cfg, "transformer")
     b, s = tokens.shape
     x = params["embed"][tokens.long()]
@@ -148,12 +147,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg):
     for lp in params["layers"]:
         q, k, v = qkv_proj(lp["attn"], rmsnorm(lp["ln1"], x, cfg.norm_eps),
                            cfg, positions)
-        o = attention(q, k, v, causal=True)
+        o = attend(q, k, v, cfg)
         h = x + o.reshape(b, s, -1) @ lp["attn"]["wo"]
         x = h + feed_forward(lp, h, cfg)[0]
         ks.append(k.to(PARAM_DTYPE))
         vs.append(v.to(PARAM_DTYPE))
-    x = rmsnorm(params["ln_f"], x[:, -1:], cfg.norm_eps)
+    x = rmsnorm(params["ln_f"], last_position(x), cfg.norm_eps)
     logits = unembed(params, x, cfg)[:, 0]
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
@@ -220,47 +219,17 @@ def decode_step_v2(params: dict, cache: dict, token: torch.Tensor, pos,
     its token's (B, KH, D) slice in place, then attends over 0..pos."""
     check_family(cfg, "transformer")
     ck_all, cv_all = cache["k"], cache["v"]
-    pos = check_pos(pos, ck_all.shape[3])
+    pos = check_pos(pos, cache_slots(ck_all[0], "bksd"))
     b = token.shape[0]
     x = _embed_token(params, token)
     for li, lp in enumerate(params["layers"]):
         q, k, v = _token_qkv(lp, x, cfg, pos)
-        ck_all[li, :, :, pos] = k[:, 0].to(ck_all.dtype)
-        cv_all[li, :, :, pos] = v[:, 0].to(cv_all.dtype)
-        o = decode_attention_khmajor(q[:, 0], ck_all[li], cv_all[li], pos + 1)
+        write_token(ck_all[li], k[:, 0], pos, "bksd")
+        write_token(cv_all[li], v[:, 0], pos, "bksd")
+        o = cache_attend(q[:, 0], ck_all[li], cv_all[li], pos + 1, "bksd")
         h = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]
         x = h + feed_forward(lp, h, cfg)[0]
     return _head(params, x, cfg), cache
-
-
-def _decode_attn_partial(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor, length):
-    """The un-normalised flash partial (acc (B, H, D), m (B, H), l (B, H))
-    over a (B, KH, S, D) pool slice's positions below ``length``."""
-    b, h, d = q.shape
-    s, valid = decode_scores(q, k_cache, length)
-    m = s.amax(dim=3)
-    p = torch.exp(s - m[..., None])
-    p = torch.where(valid[:, None, None, :], p, 0.0)
-    l = p.sum(dim=3)
-    acc = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return acc.reshape(b, h, d), m.reshape(b, h), l.reshape(b, h)
-
-
-def self_partial(q: torch.Tensor, k_new: torch.Tensor,
-                 v_new: torch.Tensor):
-    """The flash partial (acc, m, l) of the token's own just-computed KV,
-    to merge with the cache's (decode_step_v3, the paged server).
-    q: (B, H, D); k_new, v_new: (B, KH, D)."""
-    b, h, d = q.shape
-    kh = k_new.shape[1]
-    group = h // kh
-    qr = q.float().reshape(b, kh, group, d)
-    s = torch.einsum("bkgd,bkd->bkg", qr, k_new.float()) * d ** -0.5
-    acc = v_new.float()[:, :, None, :].expand(b, kh, group, d)
-    return (acc.reshape(b, h, d), s.reshape(b, h),
-            torch.ones((b, h), dtype=torch.float32, device=q.device))
 
 
 def decode_step_v3(params: dict, cache: dict, token: torch.Tensor, pos,
@@ -271,21 +240,20 @@ def decode_step_v3(params: dict, cache: dict, token: torch.Tensor, pos,
     appended at pos once, after the loop."""
     check_family(cfg, "transformer")
     ck_all, cv_all = cache["k"], cache["v"]
-    pos = check_pos(pos, ck_all.shape[3])
+    pos = check_pos(pos, cache_slots(ck_all[0], "bksd"))
     b = token.shape[0]
     x = _embed_token(params, token)
     ks, vs = [], []
     for li, lp in enumerate(params["layers"]):
         q, k, v = _token_qkv(lp, x, cfg, pos)
         k0, v0 = k[:, 0], v[:, 0]                              # (B, KH, D)
-        parts = [_decode_attn_partial(q[:, 0], ck_all[li], cv_all[li], pos),
-                 self_partial(q[:, 0], k0, v0)]
-        o = normalize(*merge_partials(parts)).to(x.dtype)
+        o = cache_attend(q[:, 0], ck_all[li], cv_all[li], pos, "bksd",
+                         own=(k0, v0)).to(x.dtype)
         h = x + o.reshape(b, 1, -1) @ lp["attn"]["wo"]
         x = h + feed_forward(lp, h, cfg)[0]
         ks.append(k0)
         vs.append(v0)
     # one append for all layers
-    ck_all[:, :, :, pos] = torch.stack(ks).to(ck_all.dtype)
-    cv_all[:, :, :, pos] = torch.stack(vs).to(cv_all.dtype)
+    write_token(ck_all, torch.stack(ks), pos, "bksd")
+    write_token(cv_all, torch.stack(vs), pos, "bksd")
     return _head(params, x, cfg), cache

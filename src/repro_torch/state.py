@@ -258,14 +258,24 @@ def checkpoint_template(params: dict, opt_state: dict, cfg) -> tuple:
     return _checkpoint(params, opt_state, cfg, lambda t: t.to("meta"))
 
 
-def from_checkpoint(tree: tuple, cfg, device=None) -> tuple[dict, dict]:
+def from_checkpoint(tree: tuple, cfg, device=None,
+                    dtype=None) -> tuple[dict, dict]:
     """(params, opt_state) on ``device`` from ``checkpoint_tree``'s layout
     (a restored checkpoint, the reference's or the port's), every tensor a
     copy: ``params_from_jax`` and ``opt_state_from_jax`` of its two
-    halves."""
+    halves. With ``dtype`` torch.float32 every parameter is float32, kept
+    exactly (a checkpoint of f32 parameters, ``launch/train.py``'s
+    ``dtype``)."""
     params, opt_state = tree
-    return (params_from_jax(params, cfg, device),
-            opt_state_from_jax(opt_state, cfg, device))
+    if dtype is None:
+        params = params_from_jax(params, cfg, device)
+    elif dtype == torch.float32:
+        dev = resolve_device(device)
+        params = _carry(params, cfg, lambda a, _: _f32(a, dev))
+    else:
+        raise ValueError(f"parameters of {dtype}: the model's types or "
+                         "torch.float32")
+    return params, opt_state_from_jax(opt_state, cfg, device)
 
 
 def _leaves(node):

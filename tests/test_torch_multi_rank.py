@@ -12,8 +12,12 @@ the reference's own 2 x 4 step (run in a subprocess with 8 host devices).
 Beyond them: every collective, forward and gradient, against one process;
 the f32 2 x 4 steps against one rank's (the loss within 1e-5 relative,
 every gradient leaf within 1e-4 of its max |g|); the data-parallel SSM
-step; and the raises. The ranks run ``tests/torch_multi_rank_cases.py``;
-inputs come from numpy seeds and the weights from the JAX package through
+step; and the builders' checks. The SSM, hybrid and encoder-decoder
+families on a model axis > 1, the prefill and decode bundles and the
+training loop on a mesh of ranks are held in
+``test_torch_multi_rank_paths.py`` and ``test_torch_multi_rank_twins.py``.
+The ranks run ``tests/torch_multi_rank_cases.py``; inputs come from numpy
+seeds and the weights from the JAX package through
 ``state.params_from_jax``.
 """
 
@@ -117,12 +121,11 @@ def test_place_gather_and_global_norm(tmp_path, mshape):
     ``global_norm`` of the blocks equals the whole tree's, each element
     counted once (the replicated ``odd`` leaf and the model-only ones
     included); ``make_host_mesh`` is the reference's (n/2, 2) mesh of
-    ranks, on which ``train`` raises."""
+    ranks."""
     outs = mr.run_ranks(tmp_path, world(mshape), mr.norm_case, mshape, 3)
     for o in outs:
         assert o["round_trip"]
         assert o["host_mesh"] == (4, 2)
-        assert "Queue 2 item 9" in o["train_raises"]
         np.testing.assert_allclose(o["norm"], o["whole_norm"], rtol=1e-6)
     assert outs[0]["local_shapes"] == outs[0]["shard_shapes"]
     assert {o["odd_holder"] for o in outs} == {True, False}
@@ -320,7 +323,7 @@ def test_remesh_restore(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# what does not run on a mesh of ranks yet, and the mesh's own checks
+# the builders' and the mesh's own checks
 # ---------------------------------------------------------------------------
 def fake_ranks(shape):
     """A mesh of ranks as one rank sees it, with no groups: enough for the
@@ -329,33 +332,25 @@ def fake_ranks(shape):
         (0,) * len(shape), torch.device("cpu"), {}))
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-1.2b",
-                                  "seamless-m4t-medium"])
-def test_whole_sequence_families_raise_on_a_model_axis(arch):
-    """The SSM, hybrid and encoder-decoder families run data-parallel
-    only: on a model axis > 1 the partitioned step raises, naming ROADMAP
-    Queue 2 item 9; on a model axis of 1 it builds."""
-    cfg = get_smoke_config(arch)
-    shape = ShapeConfig("t", S, B, "train")
-    with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
-        steps.build_train_step(cfg, shape,
-                               sharding.make_rules(fake_ranks((2, 4))))
-    steps.build_train_step(cfg, shape, sharding.make_rules(fake_ranks((4, 1))))
-
-
 def test_what_a_mesh_of_ranks_refuses(tmp_path):
-    """The prefill and decode builders raise on a mesh of ranks (ROADMAP
-    Queue 2 item 9), and so does a batch that does not divide; in a world
-    of one gloo rank, ``make_mesh`` refuses a shape of another size and a
-    device whose backend is not the world's."""
-    cfg = get_smoke_config("qwen1.5-0.5b")
+    """On a mesh of ranks every builder builds for every family, and the
+    train and prefill builders refuse a batch or a sequence that does not
+    divide; in a world of one gloo rank, ``make_mesh`` refuses a shape of
+    another size and a device whose backend is not the world's."""
     rules = sharding.make_rules(fake_ranks((2, 4)))
-    for build, kind in ((steps.build_prefill_step, "prefill"),
-                        (steps.build_decode_step, "decode")):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 9"):
-            build(cfg, ShapeConfig("p", S, B, kind), rules)
+    for arch in ("qwen1.5-0.5b", "mamba2-2.7b", "zamba2-1.2b",
+                 "seamless-m4t-medium"):
+        cfg = get_smoke_config(arch)
+        for kind in ("train", "prefill", "decode"):
+            bundle = steps.build_step(cfg, ShapeConfig("p", S, B, kind),
+                                      rules)
+            assert callable(bundle.fn)
+    cfg = get_smoke_config("qwen1.5-0.5b")
     with pytest.raises(ValueError, match="do not divide"):
         steps.build_train_step(cfg, ShapeConfig("t", S, 3, "train"), rules)
+    with pytest.raises(ValueError, match="do not divide"):
+        steps.build_prefill_step(cfg, ShapeConfig("p", 30, B, "prefill"),
+                                 rules)
     mesh_mod.init_ranks(1, 0, f"file://{tmp_path}/store", device="cpu",
                         timeout=mr.JOIN_S)
     try:

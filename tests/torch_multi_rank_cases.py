@@ -39,7 +39,14 @@ JOIN_S = 120
 AXES = ("data", "model")
 
 
+# the ranks' scheduling priority below their parent's: a world's ranks
+# outnumber the cores the suite's other workers share, and the suite's time
+# is its slowest worker's
+RANK_NICE = 10
+
+
 def _rank_main(rank, world, out_dir, fn):
+    os.nice(RANK_NICE)
     torch.set_num_threads(1)
     args = torch.load(os.path.join(out_dir, "args.pt"), weights_only=False)
     init_ranks(world, rank, f"file://{os.path.join(out_dir, 'store')}",
@@ -95,6 +102,7 @@ COLLECTIVES = {
     "psum": (lambda x, m: collectives.psum(x, "data", m), (4, 5)),
     "pmean": (lambda x, m: collectives.pmean(x, ("data", "model"), m),
               (4, 5)),
+    "shift": (lambda x, m: collectives.shift(x, "model", m), (2, 3, 4)),
 }
 EMULATED = {   # name -> (kind, dims, axes)
     "all_gather": ("all_gather", (1,), ("model",)),
@@ -104,6 +112,7 @@ EMULATED = {   # name -> (kind, dims, axes)
     "all_to_all": ("all_to_all", (0, 1), ("model",)),
     "psum": ("psum", (), ("data",)),
     "pmean": ("pmean", (), ("data", "model")),
+    "shift": ("shift", (), ("model",)),
 }
 
 
@@ -156,13 +165,18 @@ def emulate(name, xs, ws, mshape):
             y = torch.stack([xs[q] for q in g]).sum(0).chunk(n, dims[0])[me]
         elif kind == "all_to_all":
             y = torch.cat([xs[q].chunk(n, dims[0])[me] for q in g], dims[1])
+        elif kind == "shift":
+            y = xs[g[me - 1]] if me else 0 * xs[r]
         else:
             y = torch.stack([xs[q] for q in g]).sum(0)
             if kind == "pmean":
                 y = y / n
         ys.append(y)
     total = sum((y * torch.from_numpy(w)).sum() for y, w in zip(ys, ws))
-    grads = torch.autograd.grad(total, xs)
+    # a shift's last rank sends its input nowhere: its gradient is 0
+    grads = torch.autograd.grad(total, xs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(xs, grads)]
     return [y.detach().numpy() for y in ys], [g.numpy() for g in grads]
 
 
@@ -181,11 +195,6 @@ def norm_case(rank, mshape, seed):
     sh = sharding.param_shardings(tree, sharding.make_rules(mesh), "train")
     local = sharding.place(tree, sh)
     back = sharding.gather_tree(local, sh)
-    try:
-        train_mod.train("qwen1.5-0.5b", steps=1, device="cpu")
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
     return {"local_shapes": [tuple(t.shape) for _, t in adamw.leaves(local)],
             "shard_shapes": [s.shard_shape(t.shape) for (_, t), s in
                              zip(adamw.leaves(tree),
@@ -195,8 +204,7 @@ def norm_case(rank, mshape, seed):
             "norm": float(adamw.global_norm(local, sh)),
             "whole_norm": float(adamw.global_norm(tree)),
             "odd_holder": sh["odd"].first_holder(),
-            "host_mesh": train_mod.make_host_mesh("cpu").sizes,
-            "train_raises": raised}
+            "host_mesh": train_mod.make_host_mesh("cpu").sizes}
 
 
 # ---------------------------------------------------------------------------
