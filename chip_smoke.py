@@ -12,7 +12,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels (src/repro_torch/csrc/*.cu, nvcc for
+It first runs the port's static analysis over the checkout
+(repro_torch.analysis: its six AST passes, as ``python -m
+repro_torch.analysis --strict`` runs them) and stops on any finding. Then
+it builds the port's CUDA kernels (src/repro_torch/csrc/*.cu, nvcc for
 sm_90a, into build/repro_torch/), holds every kernel against its plain
 torch version on the card (kernels C and 4 also on the adversarial
 inputs of tests/torch_cases.py), then serves the repo's own dataset -- 2^25
@@ -347,6 +350,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tests"))
 
+from repro_torch import analysis  # noqa: E402
+from repro_torch.analysis.passes import ALL_PASSES  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.distributed import collectives, sharding  # noqa: E402
@@ -1040,6 +1045,19 @@ class Smoke:
         if cap != (9, 0):
             raise RuntimeError(f"needs an sm_90 card, found {cap}")
         return smi
+
+    def static_analysis(self) -> None:
+        """The port's six AST passes over this checkout, in this process;
+        any finding stops the run."""
+        t0 = time.perf_counter()
+        corpus = analysis.Corpus(ROOT)
+        findings = analysis.run_passes(corpus, ALL_PASSES)
+        if findings:
+            raise AssertionError("static analysis findings:\n" + "\n".join(
+                f.render() for f in findings))
+        emit({"phase": "static_analysis", "findings": 0,
+              "passes": len(ALL_PASSES), "files": corpus.files_read,
+              "s": time.perf_counter() - t0})
 
     def build_kernels(self) -> None:
         t0 = time.perf_counter()
@@ -6238,6 +6256,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smoke = Smoke()
     smoke.environment()
+    smoke.static_analysis()
     smoke.build_kernels()
     smoke.check_kernels()
     smoke.check_attention()

@@ -151,24 +151,30 @@ def _conv_decode(p: dict, xbc: torch.Tensor, conv: torch.Tensor, dtype):
     conv window (B, K-1, C). The window is f32 (the conv state's type
     promotes the concat). Where the rules split the window's channels
     over the model axis, each rank convolves its channels and the outputs
-    are gathered: (B, C) a layer."""
+    are gathered: (B, C) a layer. Where they split its K - 1 positions (a
+    model axis that divides K - 1 and not the channels), each rank
+    gathers the window's positions, convolves the whole window and keeps
+    its block of the new one: (B, K-1, C) a layer, and the output is
+    whole on every rank."""
     dim = act_sharding.cache_split("conv")
     w, b = p["conv_w"], p["conv_b"]
+    positions = conv.shape[1]
     if dim == 2:
         c = conv.shape[2]
         xbc, w, b = (_block_of(xbc, 2, c), _block_of(w, 1, c),
                      _block_of(b, 0, c))
-    elif dim is not None:
-        raise NotImplementedError(
-            "a conv state split over its K - 1 positions (a model axis that "
-            "divides K - 1 and not the channels) is not supported")
+    elif dim == 1:
+        conv = act_sharding.model_gather(conv, 1)
     wtype = torch.promote_types(conv.dtype, xbc.dtype)
     window = torch.cat([conv.to(wtype), xbc.to(wtype)], dim=1)
     out = torch.einsum("bkc,kc->bc", window.float(), w.float()) + b.float()
     out = F.silu(out).to(dtype)
-    if dim is not None:
+    new = window[:, 1:]
+    if dim == 2:
         out = act_sharding.model_gather(out, 1)
-    return out, window[:, 1:]
+    elif dim == 1:
+        new = _block_of(new, 1, positions)
+    return out, new
 
 
 def _ssd_decode(state, xs, dtv, a, bmat, cmat, d_skip):

@@ -101,6 +101,16 @@ LAUNCH_SLICE = ("launch/mesh.py", "launch/steps.py", "launch/dryrun.py",
                 "distributed/sharding.py", "distributed/act_sharding.py",
                 "configs/base.py", "kernels/flash_attention/ref.py",
                 "kernels/flash_attention/ops.py", "device.py")
+# the modules of the static analysis (its core, CLI and six passes), which
+# the scan must reach as well
+ANALYSIS_SLICE = ("analysis/__init__.py", "analysis/__main__.py",
+                  "analysis/passes/__init__.py",
+                  "analysis/passes/plan_purity.py",
+                  "analysis/passes/crash_points.py",
+                  "analysis/passes/fence_coverage.py",
+                  "analysis/passes/determinism.py",
+                  "analysis/passes/kernel_hygiene.py",
+                  "analysis/passes/deprecations.py")
 EXAMPLES = ("quickstart_torch.py", "kvs_elasticity_torch.py",
             "serve_paged_torch.py", "train_elastic_torch.py")
 # the card's machine has no ml_dtypes: bf16 goes through torch's views
@@ -178,6 +188,14 @@ def test_the_scan_reaches_the_launch_slice_and_the_examples():
         assert PORT / name in PORT_FILES, name
     for name in EXAMPLES:
         assert REPO / "examples" / name in PORT_FILES, name
+
+
+def test_the_scan_reaches_the_analysis_slice():
+    for name in ANALYSIS_SLICE:
+        assert PORT / name in PORT_FILES, name
+    assert sorted(p.relative_to(PORT).as_posix() for p in PORT_FILES
+                  if p.is_relative_to(PORT / "analysis")) == \
+        sorted(ANALYSIS_SLICE)
 
 
 def test_meta_only_when_asked_for(monkeypatch):

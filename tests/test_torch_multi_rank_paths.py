@@ -2,8 +2,9 @@
 its own one-rank steps, in f32: every family's train step on a model axis
 of 4 (the SSM's scan carried across ranks, the encoder-decoder's memory
 gathered) on 2 x 4 and 1 x 4 meshes of ranks, the prefill and decode
-bundles (``launch/steps.py``) on a 2 x 4 mesh of ranks, and the SSD carry
-(``kernels/ssd_scan/ref.py:carry``) on its own.
+bundles (``launch/steps.py``) on a 2 x 4 mesh of ranks, mamba2's decode
+with its conv window split over the K - 1 positions on a 1 x 3 mesh of
+ranks, and the SSD carry (``kernels/ssd_scan/ref.py:carry``) on its own.
 
 One world a mesh shape runs every job of the module at once
 (``tests/torch_multi_rank_paths_cases.py:jobs_case``); the parent computes
@@ -31,7 +32,7 @@ from repro_torch import state  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import (carry, piece_state,  # noqa: E402
                                               ssd_chunked, ssd_ref)
 from repro_torch.launch import steps  # noqa: E402
-from repro_torch.models import encdec  # noqa: E402
+from repro_torch.models import encdec, mamba2  # noqa: E402
 
 MESHES = {"2x4": (2, 4), "1x4": (1, 4)}
 B, S = 4, 32
@@ -77,6 +78,10 @@ DECODE = {
 }
 ENC_LEN = 16
 SEED = 7
+# mamba2's smoke conv window (B, K-1 3, C 160) on a model axis of 3: the
+# rules split its positions, the one dim that 3 divides
+POSITIONS_MESH = (1, 3)
+POSITIONS_DECODE = ("mamba2-2.7b", {}, S, 12, 8, False)
 
 
 def world(mshape) -> int:
@@ -190,6 +195,37 @@ def runs(tmp_path_factory):
     return get
 
 
+def conv_job(arch):
+    """A whole conv window (B, K-1, C) and a token's xBC (B, 1, C), f32,
+    and what ``_conv_decode`` gives for them on one rank."""
+    cfg, params, tree = weights(arch, {})
+    c = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    rng = np.random.default_rng(11)
+    window = rng.standard_normal((B, cfg.ssm_conv - 1, c)).astype(np.float32)
+    xbc = rng.standard_normal((B, 1, c)).astype(np.float32)
+    job = {"kind": "conv", "arch": arch, "params": tree, "window": window,
+           "xbc": xbc, "f32": True}
+    with torch.no_grad():
+        out, new = mamba2._conv_decode(params["layers"][0]["mamba"],
+                                       torch.from_numpy(xbc),
+                                       torch.from_numpy(window),
+                                       torch.float32)
+    return job, (out.numpy(), new.numpy())
+
+
+@pytest.fixture(scope="module")
+def positions_run(tmp_path_factory):
+    """One world of 3 ranks on a 1 x 3 mesh: mamba2's decode bundle and
+    the conv alone, with the conv window split over its positions."""
+    jobs, ones = {}, {}
+    jobs["decode"], ones["decode"] = decode_job(*POSITIONS_DECODE)
+    jobs["conv"], ones["conv"] = conv_job(POSITIONS_DECODE[0])
+    outs = mr.run_ranks(tmp_path_factory.mktemp("positions"),
+                        world(POSITIONS_MESH), pc.jobs_case, POSITIONS_MESH,
+                        jobs, timeout=300)
+    return ones, outs
+
+
 @pytest.mark.parametrize("mesh_name", sorted(MESHES))
 @pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_family_step_matches_one_rank_in_f32(runs, arch, mesh_name):
@@ -273,6 +309,45 @@ def test_decode_bundle_matches_one_rank(runs, name):
     for (_, a), (_, b) in zip(leaf_items(whole), leaf_items(cache),
                               strict=True):
         np.testing.assert_allclose(a, b, rtol=0, atol=LOGIT_TOL * scale)
+
+
+def test_decode_conv_split_over_positions_matches_one_rank(positions_run):
+    """mamba2's decode bundle on 1 x 3 ranks: the rules split the conv
+    window's K - 1 = 3 positions (its 160 channels are not a multiple of
+    3) and leave the SSD state whole; each rank gathers the window,
+    convolves it whole and keeps its position. Every step's logits within
+    1e-5 of max |logit| of ``serve_step`` on one rank, and the whole
+    cache after the 8 steps."""
+    ones, outs = positions_run
+    cfg, want, cache = ones["decode"]
+    assert (cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state) % 3 != 0
+    scale = float(np.abs(want).max())
+    for r, o in enumerate(outs):
+        got = o["decode"]
+        assert got["split_dims"] == {"conv": 1, "ssm": None}
+        assert all(shape[1] == 1 for shape in got["block_shapes"]
+                   if len(shape) == 3), got["block_shapes"]
+        for t in range(len(want)):
+            rows = pc.block(want[t], got["token_spec"] + (None,),
+                            POSITIONS_MESH, r)
+            assert np.abs(got["logits"][t] - rows).max() <= \
+                LOGIT_TOL * scale, t
+    whole = outs[0]["decode"]["cache"]
+    for (_, a), (_, b) in zip(leaf_items(whole), leaf_items(cache),
+                              strict=True):
+        np.testing.assert_allclose(a, b, rtol=0, atol=LOGIT_TOL * scale)
+
+
+def test_conv_decode_split_over_positions_returns(positions_run):
+    """``_conv_decode`` with ``cache_split("conv") == 1``, which raised
+    NotImplementedError before, returns on every rank: the output whole
+    and equal to one rank's, and the rank's position of the new window."""
+    ones, outs = positions_run
+    out, window = ones["conv"]
+    for r, o in enumerate(outs):
+        got = o["conv"]
+        np.testing.assert_allclose(got["out"], out, rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(got["window"], window[:, r:r + 1])
 
 
 def leaf_items(tree, path=""):

@@ -17,10 +17,11 @@ import torch
 from repro_torch import state
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed import act_sharding, collectives, sharding
 from repro_torch.launch import steps
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import Mesh, RankPlace, make_mesh
+from repro_torch.models import mamba2
 from repro_torch.optim import adamw
 from torch_multi_rank_cases import AXES, f32_tree
 
@@ -177,6 +178,7 @@ def decode_job(rank, mesh, job):
     got = {"logits": np.stack(logits), "step": step,
            "params_gather": params_gather, "cache_specs": specs(c_sh),
            "token_spec": t_sh.spec,
+           "split_dims": steps._cache_split_dims(c_sh, rules),
            "block_shapes": [tuple(t.shape) for t in
                             sharding.tree_leaves(c_local)
                             if isinstance(t, torch.Tensor)]}
@@ -185,7 +187,26 @@ def decode_job(rank, mesh, job):
     return got
 
 
-JOBS = {"train": train_job, "prefill": prefill_job, "decode": decode_job}
+def conv_job(rank, mesh, job):
+    """``mamba2._conv_decode`` of layer 0's parameters in the rows layout
+    with the window split over its K - 1 positions (``cache_split("conv")
+    == 1``) from the rank's block of the whole window ``job["window"]``:
+    the output and the rank's block of the new window."""
+    _, params = params_of(job)
+    window = torch.from_numpy(job["window"])
+    size = window.shape[1] // mesh.shape["model"]
+    mine = window.narrow(1, mesh.coord("model") * size, size)
+    with act_sharding.activation_sharding(mesh, (), "model", layout="rows",
+                                          cache={"conv": 1}):
+        assert act_sharding.cache_split("conv") == 1
+        out, new = mamba2._conv_decode(params["layers"][0]["mamba"],
+                                       torch.from_numpy(job["xbc"]), mine,
+                                       torch.float32)
+    return {"out": out.numpy(), "window": new.numpy()}
+
+
+JOBS = {"train": train_job, "prefill": prefill_job, "decode": decode_job,
+        "conv": conv_job}
 
 
 def jobs_case(rank, mshape, jobs):
