@@ -217,6 +217,8 @@ weights from a seeded generator):
                    and shared-block site in bf16 and the model in f32;
                    32 greedy steps at batch 4 after a 128-token prompt, a
                    profile of one step; kernel 7 timed at layer 0's inputs
+                   and kernel 5 at the first shared-block site's views
+                   beside scaled_dot_product_attention
   encdec_seamless  seamless-m4t-medium (12 + 12 layers, d_model 1024, 16
                    heads of 64, vocab 256,206; random frame embeddings,
                    the frontend being a stub): prefill_step on 4 x 1,500
@@ -227,10 +229,13 @@ weights from a seeded generator):
                    bar shown to see a dropped ragged key tail); encode and
                    prepare_cross, then the 256 tokens teacher-forced at
                    batch 1 against forward; 32 greedy steps at batch 4;
-                   kernel 5 timed at the first cross-attention's views
-                   beside scaled_dot_product_attention
+                   kernel 5 timed at the first cross-attention's and the
+                   first encoder layer's views beside
+                   scaled_dot_product_attention
 
-(the greedy decodes' 32 steps are cut from 64 for the run's time). Last,
+Every timing of kernel 5 also prints a "redesigned" line: its time beside
+the time of the design it replaced at that view (BEFORE_SLICE22_MS) and
+SDPA's. (The greedy decodes' 32 steps are cut from 64 for the run's time). Last,
 training at the published widths: launch.steps.train_step (remat "full",
 loss_chunk 512, AdamW with warmup_steps 1) on one fixed batch of 4 x 2048
 tokens (cut: the prefill cells' batch, not the reference's TRAIN_4K 256 x
@@ -600,6 +605,20 @@ BEFORE = "commit 6166d87, NVIDIA H100 80GB HBM3, 700.00 W"
 BEFORE_MS = {"flash_attention": 0.45325759798288345,
              "paged_decode_attention": 0.017422399949282408,
              "paged_decode_attention_64x2048": 0.4994655936956406}
+# kernel 5 at each main-path view in the design the warp-specialised one
+# replaces (commit db81ff5: one producer warp, 64-key tiles, a block a query
+# block, each product waited for at once), measured by tools/ab_attention.py
+# against that commit (the baseline's mean of two runs of 20 CUDA-event
+# timings, seeded random views of the same shapes) on an NVIDIA H100 80GB
+# HBM3 at 700 W; printed beside the new times
+BEFORE_SLICE22 = "commit db81ff5, NVIDIA H100 80GB HBM3, 700.00 W"
+BEFORE_SLICE22_MS = {"flash_attention": 0.10741840042173861,
+                     "flash_attention_d128": 0.2799752004444599,
+                     "flash_attention_cross": 0.03078400008380413,
+                     "flash_attention_32k": 5.490009605884552,
+                     "flash_attention_4k_train": 0.19935119934380052,
+                     "flash_attention_encoder": 0.12043840046972036,
+                     "flash_attention_zamba2": 0.2131800003349781}
 # kernels 7 and D in the design they replace (commit 61d41b4: kernel 7 on
 # the f32 CUDA cores, kernel D one thread over the batch), measured by this
 # script at the same shapes on an NVIDIA H100 80GB HBM3 at 700 W
@@ -678,6 +697,15 @@ def decode_y(args, out) -> torch.Tensor:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def redesigned(view: str, row: dict) -> None:
+    """Kernel 5's time at one view beside its time in the design it
+    replaces (BEFORE_SLICE22_MS) and SDPA's."""
+    emit({"redesigned": "flash_attention", "view": view, "ms": row["ms"],
+          "before_ms": BEFORE_SLICE22_MS[view],
+          "sdpa_ms": row["library_ms"], "bound_ms": row["bound_ms"],
+          "before": BEFORE_SLICE22})
 
 
 def value_rows(keys: torch.Tensor, versions: torch.Tensor) -> torch.Tensor:
@@ -4000,6 +4028,7 @@ class Smoke:
               "before_ms": BEFORE_MS["flash_attention"],
               "inputs": "prefill's layer-0 views, (4, 2048, 16, 64) bf16",
               "before": BEFORE})
+        redesigned("flash_attention", rows[0])
         emit({"redesigned": "paged_decode_attention",
               "stacked_launch_ms": rows[1]["ms"], "owners": qd.shape[0],
               "one_owner_launch_ms": one_ms,
@@ -4106,6 +4135,7 @@ class Smoke:
         row.update(head_dim=d, inputs=f"{inputs}, {(b, sq, h, d)} over "
                    f"{k.shape[2]} kv heads of {sk}, "
                    f"{'causal' if causal else 'non-causal'}")
+        redesigned(label, row)
         return row
 
     def dense_decode_llama(self) -> None:
@@ -4761,8 +4791,9 @@ class Smoke:
         within F32_LOGIT_TOL (the two paths computing one function), the
         bf16 end-to-end gap reported beside; greedy decode at batch
         GREEDY_B after a HYBRID_TF-token prompt fed through serve_step,
-        and a profile of one step. Returns the kernels line's row for
-        kernel 7 at layer 0's inputs."""
+        and a profile of one step. Returns the kernels line's rows for
+        kernel 7 at layer 0's inputs and kernel 5 at the first shared-block
+        site's views."""
         cfg = get_config(ZAMBA)
         every, groups, tail = zamba2._group_shape(cfg)
         t0 = time.perf_counter()
@@ -4807,7 +4838,10 @@ class Smoke:
               **{k: v for k, v in held.items()
                  if k not in ("ssd_args", "qkv")}})
         self.path_err["ssd_scan_zamba2"] = held["ssd_scan_vs_plain"]
+        self.path_err["flash_attention_zamba2"] = \
+            held["flash_attention_vs_plain"]
         ssd_args = held.pop("ssd_args")
+        shared_qkv = held["qkv"][0][0]
         del held
         # teacher-forced decode against forward, bf16 and f32
         g = np.random.default_rng(SEED + 5)
@@ -4892,7 +4926,19 @@ class Smoke:
             "needed_tflops": flops / row["ms"] / 1e9,
             "share_of_prefill_call": cfg.num_layers * row["ms"]
             / (prefill_s * 1e3), "prefill_call_ms": prefill_s * 1e3}})
-        return row
+        attn = self._flash_row(shared_qkv, True, "flash_attention_zamba2",
+                               f"{ZAMBA} prefill's first shared-block views")
+        attn["max_abs_err"] = max(attn["max_abs_err"],
+                                  self.path_err["flash_attention_zamba2"])
+        emit({"flash_attention_zamba2": {
+            "ms": attn["ms"], "bound_ms": attn["bound_ms"],
+            "bound_by": attn["bound_by"], "sdpa_ms": attn["library_ms"],
+            "plain_ms": attn["plain_ms"],
+            "share_of_bound": attn["bound_ms"] / attn["ms"],
+            "share_of_prefill_call": groups * attn["ms"]
+            / (prefill_s * 1e3)}})
+        del shared_qkv
+        return [row, attn]
 
     # ---------------------------------------------- 18. encdec seamless
     @staticmethod
@@ -4936,7 +4982,8 @@ class Smoke:
         and prepare_cross, then ENC_TOKENS tokens teacher-forced through
         serve_step at batch 1 against forward within LOGIT_TOL; greedy
         decode at batch ENC_B over the batch's memory. Returns the kernels
-        line's row for kernel 5 at the first cross-attention's views."""
+        line's rows for kernel 5 at the first cross-attention's views and
+        at the first encoder layer's."""
         cfg = get_config(SEAMLESS)
         t0 = time.perf_counter()
         params = encdec.init_params(SEED, cfg)
@@ -4978,6 +5025,7 @@ class Smoke:
             * cfg.num_layers)
         first_cross = cfg.encoder_layers + 1
         cross = held["qkv"][first_cross][0]
+        encoder = held["qkv"][0][0]
         emit({"phase": "encdec_seamless", "arch": SEAMLESS,
               "params": cfg.param_count(), "init_s": init_s,
               "encoder_layers": cfg.encoder_layers,
@@ -5040,7 +5088,18 @@ class Smoke:
             "bound_by": row["bound_by"], "sdpa_ms": row["library_ms"],
             "plain_ms": row["plain_ms"],
             "share_of_bound": row["bound_ms"] / row["ms"]}})
-        return row
+        enc = self._flash_row(encoder, False, "flash_attention_encoder",
+                              f"{SEAMLESS} prefill's first encoder "
+                              "self-attention views")
+        enc["max_abs_err"] = max(enc["max_abs_err"],
+                                 self.path_err["flash_attention_cross"])
+        emit({"flash_attention_encoder": {
+            "ms": enc["ms"], "bound_ms": enc["bound_ms"],
+            "bound_by": enc["bound_by"], "sdpa_ms": enc["library_ms"],
+            "plain_ms": enc["plain_ms"],
+            "share_of_bound": enc["bound_ms"] / enc["ms"]}})
+        del cross, encoder
+        return [row, enc]
 
     # ----------------------------------------------------- 19. training
     def train_qwen(self) -> None:
@@ -6298,8 +6357,8 @@ def main() -> int:
     kernels += smoke.time_ssd()
     del smoke.ssm_params, smoke.ssd_args
     torch.cuda.empty_cache()
-    kernels.append(smoke.hybrid_zamba2())
-    kernels.append(smoke.encdec_seamless())
+    kernels += smoke.hybrid_zamba2()
+    kernels += smoke.encdec_seamless()
     smoke.train_qwen()
     torch.cuda.empty_cache()
     smoke.train_zamba2()

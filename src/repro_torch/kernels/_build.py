@@ -44,7 +44,8 @@ SIGNATURES = {
     "clht_insert_mark": (_P, _P, _P, _I, *(_P,) * 8),
     "clht_insert_plan": (_P, _I, _P, _P, _P, _P, _I, *(_P,) * 5),
     "clht_insert_launch": (_P, _I, _I, _P, _P, _P, _P, _I, *(_P,) * 12),
-    "flash_attention_launch": (_I, _P, _P, _P, _P, *(_I,) * 18, _F, _I, _P),
+    "flash_attention_launch": (_I, _P, _P, _P, _P, *(_I,) * 18, _F, _I, _I,
+                               _P),
     "paged_decode_attention_launch": (_I, _I, _P, _I, *(_P,) * 5,
                                       *(_I,) * 9, _F, *(_P,) * 6),
     "ssd_scan_launch": (_I, *(_P,) * 7, *(_I,) * 13, _P),

@@ -1,8 +1,11 @@
 """Kernel 5, prefill attention: multi-head / grouped-query attention with
 an online softmax in f32 and the causal mask of the reference's Pallas
-kernel (``csrc/flash_attention.cu``: bf16 inputs through TMA and wgmma
-on the tensor cores, f32 inputs on the CUDA cores), for head dims 16, 32,
-64 and 128 (at 128 each tile is loaded as two 64-column halves).
+kernel (``csrc/flash_attention.cu``), for head dims 16, 32, 64 and 128.
+bf16 inputs run a warp-specialised Hopper kernel: a persistent grid, a
+producer warpgroup loading Q and 128-key K/V tiles by TMA, and 2 or 3
+consumer warpgroups of 64 query rows taking turns on the tensor cores
+(``consumer_warpgroups`` picks their number from Sq and the head dim);
+f32 inputs run on the CUDA cores.
 
 CPU and meta tensors run a plain version in ref.py (``plain_attention``);
 CUDA tensors run the kernel, at every length.
@@ -55,6 +58,20 @@ def plain_attention(q, k, v, causal: bool) -> torch.Tensor:
     return mha_ref(q, k, v, causal=causal)
 
 
+def consumer_warpgroups(sq: int, d: int) -> int:
+    """The bf16 kernel's consumer warpgroups for Sq queries of head dim d:
+    3 (192 query rows a block) at d <= 64, where a tile's exponentials take
+    as long as its products and a third consumer keeps the tensor cores
+    fed, unless 192-row blocks pad Sq by more than 1/16 beyond what
+    128-row blocks pad (Sq 256: 384 rows against 256); else 2 (128 rows).
+    """
+    if d > 64:
+        return 2
+    rows3 = -(-sq // 192) * 192
+    rows2 = -(-sq // 128) * 128
+    return 3 if 16 * rows3 <= 17 * rows2 else 2
+
+
 def _check(q, k, v, causal):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B,H,Sq,D), k = v (B,KH,Sk,D); got "
@@ -105,7 +122,8 @@ def _run(q, k, v, causal: bool, out: torch.Tensor) -> None:
     _build.launch("flash_attention", "flash_attention_launch", b * h * sq,
                   _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), b, h, k.shape[1], sq, k.shape[2], d,
-                  *strides, d ** -0.5, int(causal), _build.stream(q))
+                  *strides, d ** -0.5, int(causal),
+                  consumer_warpgroups(sq, d), _build.stream(q))
 
 
 def _heads_major(t: torch.Tensor, model_layout: bool) -> torch.Tensor:

@@ -423,6 +423,21 @@ from repro_torch.kernels import flash_attention as tf  # noqa: E402
     (1, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
     (2, 16, 16, 256, 1500, 64, False, torch.bfloat16),
     (1, 32, 32, 2048, 2048, 64, True, torch.bfloat16),
+    # the warp-specialised kernel's edges: D = 128 with Sk not a multiple
+    # of its 128-key tile, causal and non-causal; GQA group 3 at D = 128
+    # over several query blocks; Sq below one 128-row block; 256 queries
+    # over 1,500 keys at D = 128; and more items than a card has SMs, with
+    # a ragged last round of the persistent grid (D 128, 64 and 32)
+    (1, 4, 4, 300, 300, 128, True, torch.bfloat16),
+    (1, 4, 2, 200, 700, 128, False, torch.bfloat16),
+    (2, 6, 2, 384, 384, 128, True, torch.bfloat16),
+    (1, 6, 2, 130, 1000, 128, False, torch.bfloat16),
+    (1, 8, 2, 50, 50, 128, True, torch.bfloat16),
+    (2, 4, 4, 100, 1000, 64, False, torch.bfloat16),
+    (4, 8, 8, 256, 1500, 128, False, torch.bfloat16),
+    (2, 12, 4, 1300, 1300, 128, True, torch.bfloat16),
+    (3, 7, 7, 1000, 1000, 64, True, torch.bfloat16),
+    (3, 16, 8, 1100, 1100, 32, True, torch.bfloat16),
 ])
 def test_flash_attention_matches_plain(dev, b, h, kh, sq, sk, d, causal,
                                        dtype):

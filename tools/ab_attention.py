@@ -11,9 +11,12 @@ turns: baseline, current, current, baseline (CUDA events behind about
 1 ms of device spin, REPS runs each), and both outputs are held against
 the plain version. Shapes:
 
-  flash_attention         qwen1.5-0.5b prefill's layer shape: q, k, v as
-                          (B, H, S, D) views of (4, 2048, 16, 64) bf16,
-                          causal; SDPA's time beside them
+  flash_attention         kernel 5 at the main path's seven views (VIEWS):
+                          q, k, v as (B, H, S, D) views of model-layout
+                          (B, S, H, D) bf16 tensors; both outputs held to
+                          the plain version (mha_ref, or blocked_mha above
+                          2048 keys) at the main path's bar, SDPA's time
+                          and the bound beside them
   paged_decode_attention  the server's decode step: one sequence of 120
                           tokens whose 15 pages are dealt to 3 owners,
                           41 slots, 16 kv heads of 64, f32 pages; the
@@ -45,6 +48,21 @@ from repro_torch.kernels import flash_attention as flash  # noqa: E402
 
 SPIN_CYCLES = 2_000_000
 REPS = 50
+BF16_FLOPS = 989e12          # H100 SXM dense bf16 tensor-core rate
+HBM_BYTES_PER_S = 3.35e12
+# kernel 5's views on the main path: (label, batch, Sq, heads, kv heads,
+# Sk, D, causal)
+VIEWS = (
+    ("llama3.2-3b prefill", 4, 2048, 24, 8, 2048, 128, True),
+    ("seamless cross", 4, 256, 16, 16, 1500, 64, False),
+    ("qwen long prefill", 1, 32768, 16, 16, 32768, 64, True),
+    ("qwen prefill", 4, 2048, 16, 16, 2048, 64, True),
+    ("qwen long train", 2, 4096, 16, 16, 4096, 64, True),
+    ("seamless encoder", 4, 1500, 16, 16, 1500, 64, False),
+    ("zamba2 shared block", 4, 2048, 32, 32, 2048, 64, True),
+)
+# the main path's bar (chip_smoke.py: attn_path_bar)
+ATTN_RTOL, ATTN_ATOL_OF_ABS = 2 ** -7, 2 ** -8
 
 
 def load_baseline(root: Path):
@@ -94,6 +112,52 @@ def err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max())
 
 
+def attn_err(got, ref, bar) -> dict:
+    """max |got - ref| and the count of elements outside ``bar``."""
+    diff = (got.float() - ref).abs()
+    return {"max_abs_err": float(diff.max()),
+            "outside_bar": int((diff > bar).sum()),
+            "finite": bool(torch.isfinite(got).all())}
+
+
+def time_view(view, old_flash, gen, dev, reps: int) -> dict:
+    """Kernel 5 at one main-path view: baseline and current in turns, SDPA
+    beside them, both outputs held to the plain version at the bar."""
+    label, b, sq, h, kh, sk, d, causal = view
+    q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, sk, kh, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ref = flash.plain_attention(qt, kt, vt, causal).float()
+    bar = ATTN_ATOL_OF_ABS * flash.plain_attention(
+        qt, kt, vt.abs(), causal).float() + ATTN_RTOL * ref.abs()
+    flops = 2 * b * h * d * sq * (sq + 1) if causal \
+        else 4 * b * h * d * sq * sk
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    bound = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    row = {"kernel": "flash_attention", "view": label,
+           "shape": [b, sq, h, d], "kv_heads": kh, "kv_len": sk,
+           "causal": causal,
+           **turns(lambda: old_flash.flash_attention(qt, kt, vt,
+                                                     causal=causal),
+                   lambda: flash.flash_attention(qt, kt, vt, causal=causal),
+                   reps),
+           "sdpa_ms": event_ms(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=True), reps),
+           "bound_ms": bound,
+           "bound_by": "operations" if flops / BF16_FLOPS
+           >= nbytes / HBM_BYTES_PER_S else "bytes",
+           "baseline": attn_err(old_flash.flash_attention(
+               qt, kt, vt, causal=causal), ref, bar),
+           "current": attn_err(flash.flash_attention(
+               qt, kt, vt, causal=causal), ref, bar)}
+    row["share_of_bound"] = bound / row["ms"]
+    row["over_sdpa"] = row["ms"] / row["sdpa_ms"]
+    return row
+
+
 def server_tables(dev, context=120, owners=3, slots=41, ps=8, seed=0):
     rng = np.random.default_rng(seed)
     npages = -(-context // ps)
@@ -111,6 +175,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--baseline", type=Path, required=True)
     ap.add_argument("--reps", type=int, default=REPS)
+    ap.add_argument("--only", nargs="*", default=None,
+                    help="time only these kernel-5 views (labels of VIEWS)"
+                    " and stop")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ab_attention: no CUDA device", file=sys.stderr)
@@ -122,20 +189,17 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    # kernel 5 at prefill's layer shape, model-layout views
-    q, k, v = (torch.randn((4, 2048, 16, 64), generator=gen, device=dev)
-               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-    ref = flash.mha_ref(q, k, v)
-    row = {"kernel": "flash_attention", "shape": [4, 2048, 16, 64],
-           **turns(lambda: old_flash.flash_attention(q, k, v),
-                   lambda: flash.flash_attention(q, k, v), args.reps),
-           "sdpa_ms": event_ms(
-               lambda: torch.nn.functional.scaled_dot_product_attention(
-                   q, k, v, is_causal=True), args.reps),
-           "baseline_err": err(old_flash.flash_attention(q, k, v), ref),
-           "err": err(flash.flash_attention(q, k, v), ref)}
-    print(json.dumps(row), flush=True)
-    del q, k, v, ref
+    # kernel 5 at the main path's views
+    bad = 0
+    for view in VIEWS:
+        if args.only and view[0] not in args.only:
+            continue
+        row = time_view(view, old_flash, gen, dev, args.reps)
+        bad += row["current"]["outside_bar"] + (not row["current"]["finite"])
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+    if args.only:
+        return int(bad > 0)
 
     # kernel 6 at the server's decode step (one layer)
     kp, vp = (torch.randn((4096, 8, 16, 64), generator=gen, device=dev)
@@ -193,7 +257,7 @@ def main() -> int:
                decode.paged_decode_attention(qd, kp, vp, pt, pos, lens),
                ref))}
     print(json.dumps(row), flush=True)
-    return 0
+    return int(bad > 0)
 
 
 if __name__ == "__main__":
