@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core import spans
 from ...core.clht import CLHT, EMPTY, bucket_of, clht_lookup
 from ...core.log import ValueHeap
 from .clht_probe import clht_probe, kvs_lookup_fused
@@ -60,17 +61,25 @@ def kvs_lookup(table: CLHT, heap: ValueHeap, keys: torch.Tensor):
 
     Returns (values, ptrs, found): (B, D) int32 value rows (zeros where
     absent), (B,) int32 heap pointers (-1 absent), (B,) bool flags.
-    Matches ``kvs_lookup_ref`` exactly."""
-    keys = keys.to(torch.int32).contiguous()
-    bucket_ids = bucket_of(keys, table.num_buckets)
-    vals, ptrs, found = kvs_lookup_fused(table.lines, heap.data, bucket_ids,
-                                         keys)
-    found = found.to(torch.bool)
-    slow = _needs_chain_walk(table, bucket_ids, found)
-    if slow.numel():
-        ptr_slow, found_slow, _ = clht_lookup(table, keys[slow])
-        rows = heap.data[ptr_slow.long().clamp(0, heap.data.shape[0] - 1)]
-        ptrs[slow] = ptr_slow
-        found[slow] = found_slow
-        vals[slow] = torch.where(found_slow[:, None], rows, 0)
+    Matches ``kvs_lookup_ref`` exactly. Its stages are ``core.spans``'
+    ``dinomo.kvs_lookup.*`` spans."""
+    with spans.span("dinomo.kvs_lookup"):
+        with spans.span("dinomo.kvs_lookup.probe"):
+            keys = keys.to(torch.int32).contiguous()
+            bucket_ids = bucket_of(keys, table.num_buckets)
+            vals, ptrs, found = kvs_lookup_fused(table.lines, heap.data,
+                                                 bucket_ids, keys)
+            found = found.to(torch.bool)
+        with spans.span("dinomo.kvs_lookup.walk_test", wait=True):
+            slow = _needs_chain_walk(table, bucket_ids, found)
+        spans.count("dinomo.kvs_lookup.keys", keys.numel())
+        spans.count("dinomo.kvs_lookup.walked_keys", slow.numel())
+        if slow.numel():
+            with spans.span("dinomo.kvs_lookup.chain_walk"):
+                ptr_slow, found_slow, _ = clht_lookup(table, keys[slow])
+                rows = heap.data[ptr_slow.long().clamp(
+                    0, heap.data.shape[0] - 1)]
+                ptrs[slow] = ptr_slow
+                found[slow] = found_slow
+                vals[slow] = torch.where(found_slow[:, None], rows, 0)
     return vals, ptrs, found

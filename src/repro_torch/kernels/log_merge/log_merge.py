@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ...core import spans
 from ...core.clht import LINE
 from ...device import on_cuda
 from .. import _build
@@ -75,9 +76,11 @@ def sort_by_bucket(bucket_ids: torch.Tensor):
     first = torch.ones(bids_s.shape[0], dtype=torch.bool,
                        device=bids_s.device)
     first[1:] = bids_s[1:] != bids_s[:-1]
-    starts = torch.cat([first.nonzero().flatten(),
-                        torch.tensor([bids_s.shape[0]],
-                                     device=bids_s.device)])
+    with spans.span("dinomo.log_merge.group_starts", wait=True):
+        heads = first.nonzero().flatten()
+    with spans.span("dinomo.log_merge.group_end", wait=True):
+        end = torch.tensor([bids_s.shape[0]], device=bids_s.device)
+    starts = torch.cat([heads, end])
     return bids_s, order, starts.to(torch.int32)
 
 

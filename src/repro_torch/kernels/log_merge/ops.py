@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...core import spans
 from ...core.clht import (CLHT, EMPTY, LINK, SLOTS, bucket_of,
                           clht_insert)
 from ...core.log import SEALED, LogSegment, ValueHeap, heap_append, log_append
@@ -52,13 +53,17 @@ def merge_segment_fast(table: CLHT, seg: LogSegment):
     keys = torch.where(todo, wkeys, -3)
     safe_keys = torch.where(keys < 0, 0, keys)
     bids = torch.where(todo, bucket_of(safe_keys, table.num_buckets), 0)
-    _, old, ok = log_merge(table.lines, bids, keys, wptrs)
+    with spans.span("dinomo.log_append_merge.merge"):
+        _, old, ok = log_merge(table.lines, bids, keys, wptrs)
     ok = (ok == 1) & todo
-    slow = (todo & ~ok).nonzero().flatten()
+    with spans.span("dinomo.log_append_merge.slow_test", wait=True):
+        slow = (todo & ~ok).nonzero().flatten()
     if slow.numel():
-        _, old_slow, ok_slow, _ = clht_insert(table, wkeys[slow], wptrs[slow])
-        old[slow] = old_slow
-        ok[slow] = ok_slow
+        with spans.span("dinomo.log_append_merge.slow_path"):
+            _, old_slow, ok_slow, _ = clht_insert(table, wkeys[slow],
+                                                  wptrs[slow])
+            old[slow] = old_slow
+            ok[slow] = ok_slow
     return table, old, ok
 
 
@@ -77,20 +82,24 @@ def log_append_merge(table: CLHT, seg: LogSegment, heap: ValueHeap,
                 ptrs -1) when the batch did not fit in the segment;
                 otherwise ok[i] is False only for entries whose CLHT
                 insert failed (table full even via the overflow chain)
-    Matches ``log_append_merge_ref`` exactly."""
-    n = keys.shape[0]
-    dev = keys.device
-    if seg.count + n > seg.capacity:
-        none = torch.full((n,), EMPTY, dtype=torch.int32, device=dev)
-        return (table, seg, heap, none, none.clone(),
-                torch.zeros(n, dtype=torch.bool, device=dev))
-    start = seg.count
-    heap, ptrs = heap_append(heap, values)
-    seg, _ = log_append(seg, keys, ptrs)
-    lo = seg.merged
-    table, old, ok = merge_segment_fast(table, seg)
-    seg.merged = seg.count
-    return table, seg, heap, ptrs, old[start - lo:], ok[start - lo:]
+    Matches ``log_append_merge_ref`` exactly. Its stages are
+    ``core.spans``' ``dinomo.log_append_merge.*`` and
+    ``dinomo.log_merge.*`` spans."""
+    with spans.span("dinomo.log_append_merge"):
+        n = keys.shape[0]
+        dev = keys.device
+        if seg.count + n > seg.capacity:
+            none = torch.full((n,), EMPTY, dtype=torch.int32, device=dev)
+            return (table, seg, heap, none, none.clone(),
+                    torch.zeros(n, dtype=torch.bool, device=dev))
+        start = seg.count
+        with spans.span("dinomo.log_append_merge.append"):
+            heap, ptrs = heap_append(heap, values)
+            seg, _ = log_append(seg, keys, ptrs)
+        lo = seg.merged
+        table, old, ok = merge_segment_fast(table, seg)
+        seg.merged = seg.count
+        return table, seg, heap, ptrs, old[start - lo:], ok[start - lo:]
 
 
 class _HostTableView:

@@ -359,6 +359,62 @@ def test_write_path_and_read_back(dev):
                                                 for k in sorted(last)]))
 
 
+def spans_pool(dev, n, seed):
+    """A pool of 4 keys a bucket over n / 4 buckets, written in two
+    batches, so that reads walk chains and writes find full buckets."""
+    g = np.random.default_rng(seed)
+    table = tc.clht_init(n // 4, n // 4, device=dev)
+    seg = tl.segment_init(4 * n, device=dev)
+    heap = tl.heap_init(4 * n, 8, device=dev)
+    keys = torch.from_numpy(g.choice(1 << 24, n, replace=False)
+                            .astype(np.int32)).to(dev)
+    vals = torch.from_numpy(g.integers(0, 99, (n, 8)).astype(np.int32)).to(dev)
+    for half in (slice(0, n // 2), slice(n // 2, n)):
+        table, seg, heap = tm.log_append_merge(table, seg, heap, keys[half],
+                                               vals[half])[:3]
+    return table, seg, heap, keys, vals
+
+
+@pytest.mark.parametrize("kind", ["read", "write"])
+def test_every_host_sync_of_a_call_is_a_wait_span(dev, kind):
+    """The synchronizing operations one call of 2^16 keys makes, counted
+    by torch's sync debug mode, equal the wait spans under its root."""
+    import warnings
+
+    from repro_torch.core import spans
+    n = 1 << 16
+    spans_pool(dev, 1 << 10, 0)           # first calls: library, workspaces
+    table, seg, heap, keys, vals = spans_pool(dev, n, 1)
+    upd = torch.cat([keys[::2], keys[::2] ^ (1 << 25)])   # half new keys
+    calls = {"read": lambda: tp.kvs_lookup(table, heap, keys),
+             "write": lambda: tm.log_append_merge(table, seg, heap, upd,
+                                                  vals)}
+    root = {"read": "dinomo.kvs_lookup",
+            "write": "dinomo.log_append_merge"}[kind]
+    torch.cuda.synchronize()
+    spans.reset()
+    spans.enable()
+    # the mode is set outside the record: setting it may warn by itself
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            calls[kind]()
+        got = spans.summary()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        spans.disable()
+        spans.reset()
+    where = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in seen
+             if "synchroniz" in str(w.message)]
+    waits = {k: s["waits"] for k, s in got["spans"].items() if s["waits"]}
+    print(f"host syncs of one {kind} call of {n} keys: {len(where)} at "
+          f"{where}; wait spans {waits}")
+    assert len(where) == got["spans"][root]["waits"] > 0
+    if kind == "read":
+        assert 0 < got["counters"]["dinomo.kvs_lookup.walked_keys"] < n
+
+
 def test_wrappers_refuse_bad_inputs(dev):
     table = tc.clht_init(8, device=dev)
     keys = torch.arange(4, dtype=torch.int32, device=dev)
